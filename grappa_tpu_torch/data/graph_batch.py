@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from grappa_tpu_torch import constants
+from grappa_tpu_torch.data.moldata import MolData
 from grappa_tpu_torch.data.molecule import Molecule
 from grappa_tpu_torch.utils import resolve_device
 
@@ -52,6 +53,36 @@ class MolGraph:
     @property
     def n_confs(self) -> int:
         return self.xyz.shape[1]
+
+    @classmethod
+    def from_moldata(cls, md: MolData,
+                     n_periodicity_proper: int =
+                     constants.N_PERIODICITY_PROPER,
+                     n_periodicity_improper: int =
+                     constants.N_PERIODICITY_IMPROPER,
+                     max_neighbors: int = constants.MAX_NEIGHBORS,
+                     exclude_feats: Sequence[str] = ()) -> 'MolGraph':
+        """Training-path construction: conformers, targets (each
+        molecule's energy_ref centred again in float32) and the classical
+        parameters in the signed-k convention."""
+        mol = md.molecule
+        neighbors, neighbor_mask = build_neighbor_list(
+            mol.bonds_by_index(), len(mol.atoms), max_neighbors)
+        energy_ref = np.asarray(md.energy_ref, dtype=np.float32)
+        if len(energy_ref):
+            energy_ref = energy_ref - energy_ref.mean()
+        return cls(
+            feats=mol.input_features(exclude=exclude_feats),
+            neighbors=neighbors, neighbor_mask=neighbor_mask,
+            tuple_idxs=mol.tuple_indices(),
+            xyz=np.asarray(md.xyz, dtype=np.float32).transpose(1, 0, 2),
+            energy_ref=energy_ref,
+            gradient_ref=np.asarray(
+                md.gradient_ref, dtype=np.float32).transpose(1, 0, 2),
+            k_ref=md.classical_parameters.signed_k_dict(
+                n_periodicity_proper, n_periodicity_improper),
+            atom_ids=np.asarray(mol.atoms, dtype=np.int64),
+        )
 
     @classmethod
     def from_molecule(cls, mol: Molecule, xyz: Optional[np.ndarray] = None,
@@ -132,6 +163,13 @@ class GraphBatch:
     gradient_ref: torch.Tensor     # (N, C, 3) float32
     terms: Dict[str, TermBatch]
     num_mols: int
+
+    def atoms_per_mol(self) -> torch.Tensor:
+        """Real atoms of each molecule (M,) as float32."""
+        out = self.node_mask.new_zeros(self.num_mols + 1,
+                                       dtype=torch.float32)
+        return out.index_add(0, self.node_mol.long(),
+                             self.node_mask.to(torch.float32))[:self.num_mols]
 
 
 def _round_up(x: int, mult: int, minimum: int) -> int:

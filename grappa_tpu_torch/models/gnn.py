@@ -14,12 +14,15 @@ state_dict loads strictly:
 
 With `fused` on (True, or 'auto' for CUDA inputs) an attention block runs
 everything after the neighbor gather through `ops.fused_gnn.fused_gnn_block`
-(the CUDA kernel on the card, its plain version on the CPU).
+(the CUDA kernels on the card, its plain version on the CPU). In training
+mode every dropout draws from the `generator` the forward takes: a fused
+block one seed per call for its two in-kernel masks, as the JAX package
+draws one key per fused block.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -27,9 +30,12 @@ from torch import nn
 
 from grappa_tpu_torch import constants
 from grappa_tpu_torch.models.layers import (
-    ChargeEncoding, make_norm, masked_softmax, repeat_interleave_skip,
-    use_fused, zero_init)
+    ChargeEncoding, Dropout, make_norm, masked_softmax,
+    repeat_interleave_skip, use_fused, zero_init)
+from grappa_tpu_torch.ops import philox
 from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
+
+Generator = Optional[torch.Generator]
 
 
 class NeighborAttention(nn.Module):
@@ -85,22 +91,23 @@ class ResidualAttentionBlock(nn.Module):
             zero_init(self.head_reducer)
             if self_interaction:
                 zero_init(self.self_interaction[2])
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.num_heads = num_heads
         self.has_self_interaction = self_interaction
         # the kernel covers the block with both layer norms and the FF
         self.fused = fused if layer_norm and self_interaction else False
 
-    def forward(self, h, neighbors, neighbor_mask):
+    def forward(self, h, neighbors, neighbor_mask,
+                generator: Generator = None):
         if use_fused(self.fused, h):
-            return self._fused(h, neighbors, neighbor_mask)
+            return self._fused(h, neighbors, neighbor_mask, generator)
         h = self.layer_norm(h)
         h_skip = h
         a = self.graph_module(h, neighbors, neighbor_mask)
-        h = self.dropout(self.head_reducer(a)) + h_skip
+        h = self.dropout(self.head_reducer(a), generator) + h_skip
         if self.has_self_interaction:
             h = self.interaction_norm(h)
-            h = self.dropout(self.self_interaction(h)) + h
+            h = self.dropout(self.self_interaction(h), generator) + h
         return h
 
     def fused_params(self):
@@ -110,15 +117,17 @@ class ResidualAttentionBlock(nn.Module):
                 self.interaction_norm.weight, self.interaction_norm.bias,
                 si[0].weight, si[0].bias, si[2].weight, si[2].bias)
 
-    def _fused(self, h, neighbors, neighbor_mask):
+    def _fused(self, h, neighbors, neighbor_mask, generator: Generator):
         """The pre-LN, the fc projection and the gather stay here (as in the
         JAX package); everything after the gather is one fused op."""
         hn = self.layer_norm(h)
         feat = self.graph_module.fc(hn)
         nbr = feat[neighbors.t()].contiguous()                    # (D, N, F)
         mask = neighbor_mask.t().to(feat.dtype).contiguous()      # (D, N)
+        seed = philox.seed_for(self.dropout.p, self.training, generator)
         return fused_gnn_block(feat, nbr, hn, mask, self.fused_params(),
-                               self.num_heads, self.dropout.p, self.training)
+                               self.num_heads, self.dropout.p, self.training,
+                               seed)
 
 
 class ResidualConvBlock(nn.Module):
@@ -131,17 +140,19 @@ class ResidualConvBlock(nn.Module):
             self.interaction_norm = make_norm(feats, layer_norm)
             self.self_interaction = nn.Sequential(nn.Linear(feats, feats),
                                                   nn.ELU())
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.has_self_interaction = self_interaction
 
-    def forward(self, h, neighbors, neighbor_mask):
+    def forward(self, h, neighbors, neighbor_mask,
+                generator: Generator = None):
         h = self.layer_norm(h)
         h_skip = h
         x = F.elu(self.graph_module(h, neighbors, neighbor_mask))
-        h = self.dropout(x) + repeat_interleave_skip(h_skip, h.shape[-1])
+        h = (self.dropout(x, generator)
+             + repeat_interleave_skip(h_skip, h.shape[-1]))
         if self.has_self_interaction:
             h = self.interaction_norm(h)
-            h = self.dropout(self.self_interaction(h)) + h
+            h = self.dropout(self.self_interaction(h), generator) + h
         return h
 
 
@@ -173,7 +184,7 @@ class GrappaGNN(nn.Module):
         self.pre_dense = nn.Sequential(
             nn.Linear(input_width(in_feat_names, charge_encoding),
                       node_feats),
-            nn.ELU(), nn.Dropout(initial_dropout))
+            nn.ELU(), Dropout(initial_dropout))
         self.conv_blocks = nn.ModuleList([
             ResidualConvBlock(node_feats, conv_dropout, layer_norm,
                               self_interaction) for _ in range(n_conv)])
@@ -182,21 +193,23 @@ class GrappaGNN(nn.Module):
                                    layer_norm, self_interaction, fused=fused)
             for _ in range(n_att)])
         self.post_dense = nn.Sequential(nn.Linear(node_feats, out_feats),
-                                        nn.Dropout(final_dropout))
+                                        Dropout(final_dropout))
         # the reference registers `blocks = conv_blocks + att_blocks`, which
         # aliases every block under gnn.blocks.{i} in the state_dict
         if n_conv + n_att > 0:
             self.blocks = self.conv_blocks + self.att_blocks
 
     def forward(self, feats: Dict[str, torch.Tensor], neighbors,
-                neighbor_mask) -> torch.Tensor:
+                neighbor_mask, generator: Generator = None) -> torch.Tensor:
         cols = [feats[n] if feats[n].dim() >= 2 else feats[n][:, None]
                 for n in self.in_feat_names]
         if self.charge_encoder is not None:
             cols.append(self.charge_encoder(feats['partial_charge']))
-        h = self.pre_dense(torch.cat(cols, dim=-1))
+        dense, act, drop = self.pre_dense
+        h = drop(act(dense(torch.cat(cols, dim=-1))), generator)
         for blk in self.conv_blocks:
-            h = blk(h, neighbors, neighbor_mask)
+            h = blk(h, neighbors, neighbor_mask, generator)
         for blk in self.att_blocks:
-            h = blk(h, neighbors, neighbor_mask)
-        return self.post_dense(h)
+            h = blk(h, neighbors, neighbor_mask, generator)
+        dense, drop = self.post_dense
+        return drop(dense(h), generator)

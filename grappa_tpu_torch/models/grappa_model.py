@@ -194,16 +194,22 @@ class GrappaModel(nn.Module):
         self.parameter_writer = writer
         init_parameters(self, generator)
 
-    def forward(self, batch: GraphBatch) -> Dict[str, torch.Tensor]:
-        h = self.gnn(batch.feats, batch.neighbors, batch.neighbor_mask)
+    def forward(self, batch: GraphBatch,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """In training mode the dropouts draw their seeds from `generator`
+        (a CPU generator: drawing never waits for the card); in eval mode
+        it is not needed."""
+        h = self.gnn(batch.feats, batch.neighbors, batch.neighbor_mask,
+                     generator)
         w = self.parameter_writer
-        n2_k, n2_eq = w.bond_writer(h, batch.terms['n2'].idxs)
-        n3_k, n3_eq = w.angle_writer(h, batch.terms['n3'].idxs)
+        n2_k, n2_eq = w.bond_writer(h, batch.terms['n2'].idxs, generator)
+        n3_k, n3_eq = w.angle_writer(h, batch.terms['n3'].idxs, generator)
         return {
             'n2_k': n2_k, 'n2_eq': n2_eq, 'n3_k': n3_k, 'n3_eq': n3_eq,
-            'n4_k': w.proper_writer(h, batch.terms['n4'].idxs),
+            'n4_k': w.proper_writer(h, batch.terms['n4'].idxs, generator),
             'n4_improper_k': w.improper_writer(
-                h, batch.terms['n4_improper'].idxs),
+                h, batch.terms['n4_improper'].idxs, generator),
         }
 
 

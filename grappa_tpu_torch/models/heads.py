@@ -16,12 +16,14 @@ With `fused` on (True, or 'auto' for CUDA inputs) the transformer blocks
 run through `ops.fused_block.fused_transformer_block` and the symmetriser
 through
 `ops.fused_symmetriser.fused_symmetriser` (CUDA kernels on the card, their
-plain versions on the CPU).
+plain versions on the CPU). In training mode every dropout draws from the
+`generator` the forward takes: each fused transformer block one seed per
+call, as the JAX package draws one key per fused block.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -29,6 +31,7 @@ from torch import nn
 from grappa_tpu_torch.models import scalers
 from grappa_tpu_torch.models.layers import (FeedForward, TransformerBlock,
                                             use_fused)
+from grappa_tpu_torch.ops import philox
 from grappa_tpu_torch.ops.fused_block import fused_transformer_block
 from grappa_tpu_torch.ops.fused_symmetriser import (fused_symmetriser,
                                                     reference_symmetriser)
@@ -81,7 +84,7 @@ class GrappaTransformer(nn.Module):
                              dropout) for _ in range(n_layers)])
         self.fused = fused if layer_norm else False
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         fused = use_fused(self.fused, x)
         if self.positional_encoding is not None:
             pos = self.positional_encoding[:, None, :].expand(
@@ -89,11 +92,13 @@ class GrappaTransformer(nn.Module):
             x = torch.cat([x, pos], dim=-1)
         for blk in self.transformer:
             if fused:
-                x = fused_transformer_block(x, blk.fused_params(),
-                                            blk.num_heads, blk.dropout.p,
-                                            self.training)
+                rate = blk.dropout.p
+                x = fused_transformer_block(
+                    x, blk.fused_params(), blk.num_heads, rate,
+                    self.training,
+                    philox.seed_for(rate, self.training, generator))
             else:
-                x = blk(x)
+                x = blk(x, generator)
         return x
 
 
@@ -154,8 +159,8 @@ class TupleHead(nn.Module):
             feats, out_feats, permutations, symmetriser_feats,
             symmetriser_layers, layer_norm, fused)
 
-    def forward(self, x):
-        return self.symmetriser(self.grappa_transformer(x))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        return self.symmetriser(self.grappa_transformer(x, generator))
 
 
 class HarmonicParameterHead(nn.Module):
@@ -189,8 +194,9 @@ class HarmonicParameterHead(nn.Module):
         self.to_eq = (scalers.ToPositive(eq_mean, eq_std) if term == 'n2'
                       else scalers.ToRange(math.pi, eq_std))
 
-    def forward(self, h, idxs):
-        coeffs = getattr(self, self.model_name)(self.rep_projector(h, idxs))
+    def forward(self, h, idxs, generator: Optional[torch.Generator] = None):
+        coeffs = getattr(self, self.model_name)(self.rep_projector(h, idxs),
+                                                generator)
         k = self.to_k(coeffs[:, 1])
         if self.gate:
             k = k * scalers.sigmoid_gate(coeffs[:, 2])
@@ -233,8 +239,8 @@ class TorsionParameterHead(nn.Module):
             [list(k_std)[:n_periodicity]], dtype=torch.float32))
         self.n_per, self.gated, self.cutoff = n_periodicity, gated, cutoff
 
-    def forward(self, h, idxs):
-        coeffs = self.torsion_model(self.rep_projector(h, idxs))
+    def forward(self, h, idxs, generator: Optional[torch.Generator] = None):
+        coeffs = self.torsion_model(self.rep_projector(h, idxs), generator)
         if self.gated:
             gate = torch.sigmoid(coeffs[:, self.n_per:])
             # gated: no mean shift, so the gate can express exact zeros

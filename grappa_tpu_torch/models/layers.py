@@ -11,7 +11,9 @@ modules so that a reference-named state_dict loads strictly:
 
 LayerNorm uses eps=1e-5 as in the JAX package. Parameters are initialised
 like flax's (`init_parameters`): LeCun-normal kernels, zero biases, and zero
-branch outputs where the JAX package zero-initialises them.
+branch outputs where the JAX package zero-initialises them. Dropout draws
+its masks from an explicit `torch.Generator` passed down the forward
+(`Dropout`, `ops.philox`), never from torch's global RNG.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from grappa_tpu_torch.ops import philox
 
 LN_EPS = 1e-5
 
@@ -92,6 +96,20 @@ def init_parameters(module: nn.Module,
             mod.bias.zero_()
 
 
+class Dropout(nn.Module):
+    """Dropout whose mask comes from a seed drawn from the generator the
+    forward passes (`ops.philox.dropout`); the identity in eval mode."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        philox.check_rate(p)
+        self.p = p
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return philox.dropout(x, self.p, self.training, generator)
+
+
 class FeedForward(nn.Module):
     """Pre-LN MLP with one hidden layer, optional skip (repeat-interleave).
     The skip adds the *normalized* input, as the JAX FeedForward does."""
@@ -105,13 +123,14 @@ class FeedForward(nn.Module):
         self.linear2 = nn.Linear(hidden_feats, out_feats)
         if zero_init_out:
             zero_init(self.linear2)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.skip = skip
         self.out_feats = out_feats
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.norm1(x)
-        h = self.dropout(self.linear2(F.elu(self.linear1(x))))
+        h = self.dropout(self.linear2(F.elu(self.linear1(x))), generator)
         if self.skip:
             h = h + repeat_interleave_skip(x, self.out_feats)
         return h
@@ -161,13 +180,14 @@ class TransformerBlock(nn.Module):
         self.ff = FeedForward(feats, hidden_feats, feats, skip=True,
                               layer_norm=layer_norm, dropout=dropout,
                               zero_init_out=zero_init_residual)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.num_heads = num_heads
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.norm1(x)
-        x = self.dropout(self.attn(x)) + x
-        return self.ff(x)
+        x = self.dropout(self.attn(x), generator) + x
+        return self.ff(x, generator)
 
     def fused_params(self):
         """The block's tensors in the order `ops.fused_block` takes them."""

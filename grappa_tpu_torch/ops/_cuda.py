@@ -25,22 +25,36 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / 'build'
-SOURCES = ('fused_gnn.cu', 'fused_block.cu', 'fused_symmetriser.cu')
+SOURCES = ('fused_gnn.cu', 'fused_block.cu', 'fused_symmetriser.cu',
+           'dropout.cu')
 FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
          '-Xcompiler', '-fPIC')
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_LL = ctypes.c_longlong
+_LL, _U = ctypes.c_longlong, ctypes.c_uint32
+_DROP = [_U, _U, _F, _I]      # seed, keep threshold, keep scale, on
 # C entry points: name -> (restype, argtypes); pointers and the stream are
 # c_void_p so ctypes never cuts a 64-bit address to an int
 _SIGNATURES = {
     'grappa_fused_gnn_scratch': (_LL, [_I, _I, _I]),
-    'grappa_fused_gnn_fwd': (_I, [_P] * 14 + [_I] * 5 + [_F, _P]),
+    'grappa_fused_gnn_fwd': (_I, [_P] * 12 + _DROP + [_P] * 2 + [_I] * 5
+                             + [_F, _P]),
+    'grappa_fused_gnn_bwd_scratch': (_LL, [_I, _I, _I]),
+    'grappa_fused_gnn_bwd': (_I, [_P] * 13 + _DROP + [_P] * 12 + [_I] * 5
+                             + [_F, _P]),
     'grappa_fused_block_scratch': (_LL, [_I, _I, _I, _I]),
-    'grappa_fused_block_fwd': (_I, [_P] * 15 + [_I] * 5 + [_F, _P]),
+    'grappa_fused_block_fwd': (_I, [_P] * 13 + _DROP + [_P] * 2 + [_I] * 5
+                               + [_F, _P]),
+    'grappa_fused_block_bwd_scratch': (_LL, [_I, _I, _I, _I]),
+    'grappa_fused_block_bwd': (_I, [_P] * 14 + _DROP + [_P] * 14
+                               + [_I] * 5 + [_F, _P]),
     'grappa_fused_symmetriser_scratch': (_LL, [_I, _I, _I, _P]),
     'grappa_fused_symmetriser_fwd': (
         _I, [_P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P]),
+    'grappa_fused_symmetriser_bwd_scratch': (_LL, [_I] * 5 + [_P]),
+    'grappa_fused_symmetriser_bwd': (
+        _I, [_P, _I, _I, _I, _P, _I, _P, _P, _I] + [_P] * 5),
+    'grappa_dropout_masks': (_I, [_U, _U, _F, _LL, _P, _P, _P]),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -138,6 +152,21 @@ def on_cuda(tensors: Iterable[torch.Tensor], name: str) -> bool:
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
     return True
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on t's device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def grad_output(dy: torch.Tensor, like: torch.Tensor, name: str
+                ) -> torch.Tensor:
+    """The incoming gradient as the backward kernel takes it: float32,
+    contiguous, on the forward's device and in its output's shape."""
+    if dy.device != like.device or dy.dtype != torch.float32:
+        raise TypeError(f"{name}: the gradient must be float32 on "
+                        f"{like.device}, got {dy.dtype} on {dy.device}")
+    return dy.contiguous()
 
 
 def head_scale(dh: int) -> float:

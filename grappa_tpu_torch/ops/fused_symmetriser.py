@@ -1,15 +1,21 @@
-"""K3: the Symmetriser on x (S, T, F) -> (T, out).
+"""K3 / K3b: the Symmetriser on x (S, T, F) -> (T, out), forward and
+backward.
 
 Counterpart of `grappa_tpu/ops/fused_symmetriser.py::fused_symmetriser`
-(forward): a shared FeedForward stack applied to every symmetry-permuted
-flattening of each tuple's (S, F) features, summed over the permutations.
-The JAX op has no plain reference function; its counterpart is the flax
-`Symmetriser` module, and here `reference_symmetriser`.
+(forward and custom_vjp backward): a shared FeedForward stack applied to
+every symmetry-permuted flattening of each tuple's (S, F) features, summed
+over the permutations. No dropout. The JAX op has no plain reference
+function; its counterpart is the flax `Symmetriser` module, and here
+`reference_symmetriser`.
 
-On a CUDA tensor `fused_symmetriser` launches the hand-written kernel in
-`csrc/fused_symmetriser.cu` (its note gives the card's bound and the
-design); on a CPU tensor it runs `reference_symmetriser`.
-`fused_symmetriser.launches` counts kernel launches.
+On CUDA tensors `fused_symmetriser` launches the hand-written kernels in
+`csrc/fused_symmetriser.cu`: the forward, and in the backward a kernel
+chain that recomputes each permutation's chain and returns dx and every
+parameter gradient summed over the permutations (the source notes give the
+card's bound and the design). On CPU tensors it runs
+`reference_symmetriser`, and autograd differentiates it.
+`fused_symmetriser.launches` and `fused_symmetriser.bwd_launches` count
+kernel launches.
 
 `layers` holds one tuple per FeedForward layer, in torch layout:
     (norm1.weight, norm1.bias, linear1.weight, linear1.bias,
@@ -24,12 +30,14 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from grappa_tpu_torch.models.layers import LN_EPS
 from grappa_tpu_torch.ops import _cuda
 
 MAX_PERMUTATIONS = 6   # the kernel's permutation table
 MAX_ARITY = 4
+MAX_LAYERS = 16        # the backward kernel's layer table
 
 
 def reference_symmetriser(x, layers: Sequence[Sequence[torch.Tensor]],
@@ -78,17 +86,25 @@ def _check(x, layers, permutations):
         width = out
 
 
+def _layer_dims(layers):
+    """ctypes (in, hid, out) per layer."""
+    return (ctypes.c_int * (3 * len(layers)))(*[
+        d for (_, _, w1, _, w2, _) in layers
+        for d in (w1.shape[1], w1.shape[0], w2.shape[0])])
+
+
+def _pointers(tensors):
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
 class _SymmetriserKernel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, permutations, n_layers, *flat):
         s, t, f = x.shape
         layers = [flat[6 * i:6 * i + 6] for i in range(n_layers)]
-        dims = (ctypes.c_int * (3 * n_layers))(*[
-            d for (_, _, w1, _, w2, _) in layers
-            for d in (w1.shape[1], w1.shape[0], w2.shape[0])])
+        dims = _layer_dims(layers)
         perms = (ctypes.c_int * (len(permutations) * s))(
             *[j for p in permutations for j in p])
-        ptrs = (ctypes.c_void_p * len(flat))(*[p.data_ptr() for p in flat])
         lib = _cuda.lib()
         scratch = torch.empty(
             lib.grappa_fused_symmetriser_scratch(len(permutations), t,
@@ -97,18 +113,39 @@ class _SymmetriserKernel(torch.autograd.Function):
         y = torch.empty((t, layers[-1][4].shape[0]), dtype=torch.float32,
                         device=x.device)
         rc = lib.grappa_fused_symmetriser_fwd(
-            x.data_ptr(), s, t, f, perms, len(permutations), ptrs, dims,
-            n_layers, scratch.data_ptr(), y.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            x.data_ptr(), s, t, f, perms, len(permutations), _pointers(flat),
+            dims, n_layers, scratch.data_ptr(), y.data_ptr(),
+            _cuda.stream_of(x))
         _cuda.check(rc, 'grappa_fused_symmetriser_fwd')
         fused_symmetriser.launches += 1
+        ctx.save_for_backward(x, *flat)
+        ctx.permutations, ctx.n_layers = permutations, n_layers
         return y
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the fused Symmetriser kernel has no backward yet: it comes with "
-            "the training slice of the port (ROADMAP.md, K3b)")
+    @once_differentiable
+    def backward(ctx, dy):
+        x, *flat = ctx.saved_tensors
+        dy = _cuda.grad_output(dy, x, 'fused_symmetriser')
+        s, t, f = x.shape
+        n_layers, permutations = ctx.n_layers, ctx.permutations
+        dims = _layer_dims([flat[6 * i:6 * i + 6] for i in range(n_layers)])
+        perms = (ctypes.c_int * (len(permutations) * s))(
+            *[j for p in permutations for j in p])
+        lib = _cuda.lib()
+        scratch = torch.empty(
+            lib.grappa_fused_symmetriser_bwd_scratch(
+                s, f, len(permutations), t, n_layers, dims),
+            dtype=torch.float32, device=x.device)
+        dx = torch.empty_like(x)
+        grads = [torch.empty_like(p) for p in flat]
+        rc = lib.grappa_fused_symmetriser_bwd(
+            x.data_ptr(), s, t, f, perms, len(permutations), _pointers(flat),
+            dims, n_layers, dy.data_ptr(), scratch.data_ptr(), dx.data_ptr(),
+            _pointers(grads), _cuda.stream_of(x))
+        _cuda.check(rc, 'grappa_fused_symmetriser_bwd')
+        fused_symmetriser.bwd_launches += 1
+        return (dx, None, None, *grads)
 
 
 def fused_symmetriser(x, layers: Sequence[Sequence[torch.Tensor]],
@@ -121,12 +158,14 @@ def fused_symmetriser(x, layers: Sequence[Sequence[torch.Tensor]],
     flat = [p for layer in layers for p in layer]
     if not _cuda.on_cuda((x, *flat), 'fused_symmetriser'):
         return reference_symmetriser(x, layers, permutations)
-    if x.shape[0] > MAX_ARITY or len(permutations) > MAX_PERMUTATIONS:
+    if (x.shape[0] > MAX_ARITY or len(permutations) > MAX_PERMUTATIONS
+            or len(layers) > MAX_LAYERS):
         raise ValueError(
-            f"the kernel takes up to {MAX_ARITY} slots and "
-            f"{MAX_PERMUTATIONS} permutations, got S={x.shape[0]} and "
-            f"{len(permutations)}")
+            f"the kernel takes up to {MAX_ARITY} slots, {MAX_PERMUTATIONS} "
+            f"permutations and {MAX_LAYERS} layers, got S={x.shape[0]}, "
+            f"{len(permutations)} and {len(layers)}")
     return _SymmetriserKernel.apply(x, permutations, len(layers), *flat)
 
 
 fused_symmetriser.launches = 0
+fused_symmetriser.bwd_launches = 0

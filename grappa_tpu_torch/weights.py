@@ -8,10 +8,13 @@ Linear weight (out, in) == flax kernel (in, out).T; LayerNorm weight/bias ==
 flax scale/bias; the packed in_proj rows are [q; k; v] == the flax in_proj
 kernel's columns. Buffers: the `gnn.blocks.{i}` aliases, the positional
 encodings, the Symmetriser permutation sets and the scaler statistics.
+`parameters_from_flax` maps any parameter-shaped tree (the weights, or
+Adam's mu / nu from optax's state) onto the names of
+`model.named_parameters()`, without buffers.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -40,12 +43,22 @@ def _writer_permutations(writer: str, cfg: Dict):
     return perms
 
 
+def parameters_from_flax(tree: Dict, model_config: Dict
+                         ) -> Dict[str, torch.Tensor]:
+    """A flax-parameter-shaped tree (the weights, or optax's Adam mu / nu)
+    -> {name: tensor} under the names of the port's
+    `model.named_parameters()` (no buffers, no `gnn.blocks` aliases)."""
+    return state_dict_from_flax(tree, model_config, None, buffers=False)
+
+
 def state_dict_from_flax(params: Dict, model_config: Dict,
-                         stats: Dict) -> Dict[str, torch.Tensor]:
+                         stats: Optional[Dict], buffers: bool = True
+                         ) -> Dict[str, torch.Tensor]:
     """flax params (nested dict of numpy arrays, with or without the top
     'params' level) + epsilon-applied stats ({'mean', 'std'} of numpy
     arrays) -> the port's state_dict, for GrappaModel.load_state_dict
-    (strict=True)."""
+    (strict=True). buffers=False leaves out every buffer and alias (stats
+    are then not read)."""
     cfg = dict(get_default_model_config())
     cfg.update(model_config or {})
     p = params['params'] if 'params' in params else params
@@ -100,7 +113,8 @@ def state_dict_from_flax(params: Dict, model_config: Dict,
             if key.startswith(prefix):
                 i, tail = key[len(prefix):].split('.', 1)
                 alias[f'gnn.blocks.{offset + int(i)}.{tail}'] = val
-    sd.update(alias)
+    if buffers:
+        sd.update(alias)
 
     for writer, term, model_name in _WRITERS:
         wp = p[f'{writer}_writer']['head']
@@ -122,7 +136,7 @@ def state_dict_from_flax(params: Dict, model_config: Dict,
                    blk['ff']['linear1']['bias'])
             linear(f'{tbase}.ff.linear2', blk['ff']['linear2']['kernel'],
                    blk['ff']['linear2']['bias'])
-        if cfg['positional_encoding'] and writer != 'bond':
+        if buffers and cfg['positional_encoding'] and writer != 'bond':
             if writer == 'improper' and cfg['wrong_symmetry']:
                 enc = [[0.0], [0.0], [1.0], [0.0]]
             elif writer == 'angle':
@@ -139,6 +153,8 @@ def state_dict_from_flax(params: Dict, model_config: Dict,
                    blk['linear1']['bias'])
             linear(f'{sbase}.linear2', blk['linear2']['kernel'],
                    blk['linear2']['bias'])
+        if not buffers:
+            continue
         perms = _writer_permutations(writer, cfg)
         sd[f'{base}.{model_name}.symmetriser.permutations'] = _t(
             np.asarray(perms, np.int32))
