@@ -31,12 +31,32 @@ Phases, each printing its own lines:
      before each step), the step's time split and peak memory; (c) twenty
      steps without dropout at lr 1e-4 on the 8-molecule batch must lower
      the loss.
+  6. the torsion kernel K5 and the paths that use energies and forces:
+     (a) K5 against its plain version at the training batch's propers /
+     impropers (C=32), a 12,000- and a 40,000-atom molecule's (C=4) and
+     benchmarks/kernel_bench.py's (4096, 32) and (16384, 128), with
+     degenerate tuples and zeroed k rows, and its first-order gradients;
+     (b) benchmarks/fusion_decision.py's measurement at 12,000 and 40,000
+     atoms x 4 conformers with the default model's predicted parameters:
+     energy_and_gradient with use_fused_torsion=True against the plain
+     path on the card (2 / 0 K5 launches per call), the proper / improper
+     energies per tuple and pooled (K5's output itself: dE/dx is the plain
+     vjp and the total is mostly bond energy), and the stage times,
+     printed as `fusion_decision {...}` lines; (c) the fused energy, dE/dx
+     and torsion energies at 12,000 atoms with the batch's reference
+     parameters, card vs CPU; (d) StreamingEvaluator on the training
+     batch, card (K5) vs CPU.
+  7. MD with the batches' reference parameters: (a) 50 NVE steps, card vs
+     CPU; (b) at 12,000 atoms x 4 replicas: minimize lowers the energy,
+     then from the minimum NVE at 0.2 fs conserves the total energy and
+     BAOAB at 300 K reaches (3N/2) kT within 10%; ms a step, peak memory.
 
 The last three lines are a JSON object describing the kernels, the card's
 name and power limit, and {"ok": true, "device": {...}}. In the kernels'
 line, `launches` sums the main paths (the two predict paths and the ten
-training steps; `launches_per_path` gives each), and `ms`, `plain_ms` and
-`bound_ms` sum one call at each shape of each path. Any failure exits
+training steps for K1-K3; phase 6's four paths for K5;
+`launches_per_path` gives each), and `ms`, `plain_ms` and `bound_ms` sum
+one call at each shape of each path. Any failure exits
 non-zero before those lines. Needs one CUDA device; imports nothing of JAX
 or of grappa_tpu.
 """
@@ -78,6 +98,18 @@ TRAIN_MOLS, TRAIN_CONFS, TRAIN_SEED = 128, 32, 123
 QM_WEIGHTS = dict(energy=1.0, gradient=0.8, param=1e-3, proper_reg=1e-3,
                   improper_reg=1e-3)
 TRAIN_LR, OVERFIT_LR = 1.5e-5, 1e-4
+# dE/dx through K5 vs the plain path (or the card vs the CPU): max |err| <=
+# FORCE_RTOL x max |dE/dx| (float32 sums of bond terms in another order)
+FORCE_RTOL = 1e-4
+# benchmarks/fusion_decision.py's protein scales: make_moldata(seed=0,
+# n_confs=4, n_atoms=...), one molecule
+FUSION_ATOMS, FUSION_CONFS = (12000, 40000), 4
+# K5 at the JAX package's benchmarks/kernel_bench.py shapes (T, C), P = 6
+KERNEL_BENCH_TC = ((4096, 32), (16384, 128))
+REF_FIELDS = {'n2_k': ('n2', 'k_ref'), 'n2_eq': ('n2', 'eq_ref'),
+              'n3_k': ('n3', 'k_ref'), 'n3_eq': ('n3', 'eq_ref'),
+              'n4_k': ('n4', 'k_ref'),
+              'n4_improper_k': ('n4_improper', 'k_ref')}
 
 FAILURES = []
 
@@ -156,6 +188,37 @@ def host_ms(torch, fn, reps=5):
         times.append((time.perf_counter() - t0) * 1e3)
     return (float(np.median(times)),
             ', '.join(f'{t:.2f}' for t in times))
+
+
+def profiled_ms(torch, fn, kernel, iters=20):
+    """Mean device ms a call of the CUDA kernels whose name holds
+    `kernel`, from a torch.profiler trace of `iters` calls; None when the
+    profiler cannot trace the card or shows no device time for them."""
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+    if ProfilerActivity.CUDA not in supported_activities():
+        return None
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, 'device_time_total', 0.0)
+             for e in prof.key_averages() if kernel in e.key)
+    return us / iters / 1e3 if us else None
+
+
+def enqueue_ms(torch, fn, calls=200):
+    """Host ms a call of fn() when the host never waits (the launch rate
+    the host can sustain)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / calls
 
 
 def bound(flops, nbytes):
@@ -315,10 +378,11 @@ def training_batches(torch):
 
 
 def compare_grad(torch, entries, name, label, kernel, plain, inputs, dy,
-                 flops, nbytes):
+                 flops, nbytes, record=True):
     """A backward kernel against autograd through the plain version on the
     same inputs (and dropout masks); times the backward alone (the forward
-    graph is kept and its backward run again)."""
+    graph is kept and its backward run again). record=False checks a
+    backward that is no kernel of its own and keeps it out of `entries`."""
     lk = [t.detach().clone().requires_grad_(True) for t in inputs]
     lp = [t.detach().clone().requires_grad_(True) for t in inputs]
     y_k, y_p = kernel(*lk), plain(*lp)
@@ -339,7 +403,8 @@ def compare_grad(torch, entries, name, label, kernel, plain, inputs, dy,
               f'{GRAD_RTOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms '
               f'bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.2f} GFLOP, '
               f'{nbytes / 1e6:.1f} MB)')
-    accumulate(entries, name, max_abs, ms, plain_ms, flops, nbytes)
+    if record:
+        accumulate(entries, name, max_abs, ms, plain_ms, flops, nbytes)
 
 
 def training_kernel_phase(torch, batch, entries):
@@ -466,6 +531,13 @@ def training_kernel_phase(torch, batch, entries):
                      flops=2 * fwd3, nbytes=4 * (2 * in3 + t * out))
 
 
+def loss_weights(torch, m, device):
+    """The QM-phase loss weights, the parameter weight per molecule."""
+    from grappa_tpu_torch.train.loss import LossWeights
+    return LossWeights(**dict(QM_WEIGHTS, param=torch.full(
+        (m,), QM_WEIGHTS['param'], device=device)))
+
+
 def perturbed_model(torch, make_model, cfg, seed=0):
     """The default model with seeded non-zero weights (zero-initialised
     branches and biases perturbed too), on the CPU."""
@@ -487,15 +559,10 @@ def training_phase(torch, graphs, batch, cfg):
     from grappa_tpu_torch.ops.fused_block import fused_transformer_block
     from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
     from grappa_tpu_torch.ops.fused_symmetriser import fused_symmetriser
-    from grappa_tpu_torch.train.loss import LossWeights, molwise_loss
+    from grappa_tpu_torch.train.loss import molwise_loss
     from grappa_tpu_torch.train.trainer import (loss_gradients,
                                                 make_optimizer,
                                                 make_train_step)
-
-    def weights(m, device):
-        w = dict(QM_WEIGHTS, param=torch.full((m,), QM_WEIGHTS['param'],
-                                              device=device))
-        return LossWeights(**w)
 
     no_drop = dict(cfg, gnn_dropout_attention=0.0, parameter_dropout=0.0,
                    gnn_dropout_final=0.0, gnn_dropout_initial=0.0)
@@ -509,11 +576,11 @@ def training_phase(torch, graphs, batch, cfg):
     gpu_model = make_model(no_drop).cuda()
     gpu_model.load_state_dict(cpu_model.state_dict())
     t0 = time.time()
-    l_cpu, _, g_cpu = loss_gradients(cpu_model, b_cpu,
-                                     weights(b_cpu.num_mols, 'cpu'))
+    l_cpu, _, g_cpu = loss_gradients(
+        cpu_model, b_cpu, loss_weights(torch, b_cpu.num_mols, 'cpu'))
     cpu_s = time.time() - t0
-    l_gpu, _, g_gpu = loss_gradients(gpu_model, b_gpu,
-                                     weights(b_gpu.num_mols, 'cuda'))
+    l_gpu, _, g_gpu = loss_gradients(
+        gpu_model, b_gpu, loss_weights(torch, b_gpu.num_mols, 'cuda'))
     l_cpu, l_gpu = float(l_cpu), float(l_gpu)
     worst = max((float((g_gpu[k].cpu() - g).norm()
                        / max(float(g.norm()), 1e-30)), k)
@@ -528,7 +595,7 @@ def training_phase(torch, graphs, batch, cfg):
           f'{cpu_s:.1f} s')
 
     # (b) ten steps at the default config with its dropout
-    w = weights(batch.num_mols, 'cuda')
+    w = loss_weights(torch, batch.num_mols, 'cuda')
     model = perturbed_model(torch, make_model, cfg).cuda()
     opt = make_optimizer()
     step = make_train_step(model, opt)
@@ -591,7 +658,7 @@ def training_phase(torch, graphs, batch, cfg):
     # (c) twenty steps without dropout on the 8-molecule batch
     small = perturbed_model(torch, make_model, no_drop).cuda()
     step_c = make_train_step(small, make_optimizer())
-    w8 = weights(b_gpu.num_mols, 'cuda')
+    w8 = loss_weights(torch, b_gpu.num_mols, 'cuda')
     first = last = None
     for i in range(20):
         loss, _ = step_c(b_gpu, w8, OVERFIT_LR, gen)
@@ -603,6 +670,322 @@ def training_phase(torch, graphs, batch, cfg):
     return launches
 
 
+def ref_params(torch, batch):
+    """The batch's reference parameters, NaNs (padding) zeroed."""
+    return {key: torch.nan_to_num(getattr(batch.terms[t], field))
+            for key, (t, field) in REF_FIELDS.items()}
+
+
+def distinct_quads(torch, gen, n_atoms, t):
+    """(T, 4) indices of four distinct atoms each (two equal atoms would
+    make a near-degenerate tuple whose phi is rounding noise)."""
+    step = max(1, n_atoms // 4)
+    i0 = torch.randint(0, n_atoms, (t, 1), generator=gen)
+    gaps = torch.randint(1, step, (t, 3), generator=gen)
+    offs = torch.cat([torch.zeros((t, 1), dtype=gaps.dtype),
+                      gaps.cumsum(1)], 1)
+    return (i0 + offs) % n_atoms
+
+
+def torsion_kernel_phase(torch, entries, shapes):
+    """Phase 6(a): K5 against its plain version at each (T, C, P), with
+    degenerate tuples (four equal atoms) and zeroed k rows; its
+    first-order gradients against autograd through the plain version."""
+    from grappa_tpu_torch.ops import torsion_kernel as tk
+    gen = torch.Generator().manual_seed(555)
+    for label, t, c, p, on_path in shapes:
+        n_atoms = max(16, t // 2)
+        xyz = 2.0 * torch.randn((n_atoms, c, 3), generator=gen)
+        idxs = distinct_quads(torch, gen, n_atoms, t)
+        idxs[::7] = idxs[::7, :1]                 # degenerate tuples
+        k = 0.5 * torch.randn((t, p), generator=gen)
+        k[::5] = 0.0                              # masked / padded rows
+        pos = tk.gather_torsion_positions(xyz.cuda(), idxs.cuda())
+        k = k.cuda()
+        compare_out(torch, entries, 'torsion_energy_fused',
+                    f'{label} T={t} C={c} P={p}',
+                    lambda: tk.torsion_energy_fused(pos, k),
+                    lambda: tk.reference_torsion_energy(pos, k),
+                    flops=t * c * (60 + 5 * p),
+                    nbytes=4 * (12 * t * c + t * p + t * c),
+                    on_path=on_path)
+        # the events above time back-to-back calls, which the host's
+        # wrapper paces at small shapes: split the device's share out
+        call = lambda: tk.torsion_energy_fused(pos, k)
+        dev_ms = profiled_ms(torch, call, 'torsion_energy_kernel')
+        device = ('not measured (no device time in a torch.profiler trace)'
+                  if dev_ms is None
+                  else f'{dev_ms * 1e3:.2f} us a launch (torch.profiler)')
+        print(f'  K5 {label}: device {device}; the wrapper\'s host time '
+              f'{enqueue_ms(torch, call) * 1e3:.2f} us a call (host clock '
+              f'over 200 calls, no synchronize)', flush=True)
+        if on_path:
+            compare_grad(torch, entries, 'torsion_energy_fused gradients',
+                         f'{label} T={t} C={c} P={p} (the plain vjp)',
+                         tk.torsion_energy_fused, tk.reference_torsion_energy,
+                         [pos, k], torch.randn((t, c), device='cuda'),
+                         flops=2 * t * c * (60 + 5 * p),
+                         nbytes=4 * (2 * (12 * t * c + t * p) + t * c),
+                         record=False)
+
+
+def close_energy_gradient(torch, label, e, g, e_want, g_want):
+    """Energies elementwise within MODEL_ATOL + MODEL_RTOL |E|, dE/dx
+    within FORCE_RTOL x max |dE/dx|, all finite."""
+    e, g, e_want, g_want = [x.detach().double().cpu()
+                            for x in (e, g, e_want, g_want)]
+    e_err = (e - e_want).abs()
+    g_err = float((g - g_want).abs().max())
+    g_max = float(g_want.abs().max())
+    ok = (bool(torch.isfinite(e).all() and torch.isfinite(g).all())
+          and bool((e_err <= MODEL_ATOL + MODEL_RTOL * e_want.abs()).all())
+          and g_err <= FORCE_RTOL * g_max)
+    check(ok, f'{label}: energies {tuple(e.shape)} max_abs_err '
+              f'{float(e_err.max()):.3e} at |E| up to '
+              f'{float(e_want.abs().max()):.4e} (tol {MODEL_ATOL} + '
+              f'{MODEL_RTOL}|E|); dE/dx max_abs_err {g_err:.3e}, max|dE/dx| '
+              f'{g_max:.4e} (tol {FORCE_RTOL} x max)')
+
+
+def torsion_terms(torch, batch, params, fused):
+    """The proper / improper energies a path computes from `params` at the
+    batch's geometry: per tuple (T, C), pooled (M, C), and each molecule's
+    sum of |tuple energy| (the pooled term's own scale), float64 on the
+    host."""
+    from grappa_tpu_torch.models import mm_energy
+    with torch.no_grad():
+        tup = mm_energy.tuple_energies(batch, params, batch.xyz,
+                                       use_fused_torsion=fused)
+        pooled = mm_energy.pooled_energy(batch, params, batch.xyz,
+                                         use_fused_torsion=fused)
+    return {t: [x.double().cpu() for x in (
+        tup[t], pooled[f'energy_{t}'], mm_energy.segment_sum(
+            tup[t].abs(), batch.terms[t].mol, batch.num_mols))]
+            for t in mm_energy.TORSIONS}
+
+
+def close_torsion_terms(torch, label, got, want):
+    """K5's output on a path's own inputs: per tuple within KERNEL_ATOL +
+    KERNEL_RTOL |e|, pooled within MODEL_ATOL + MODEL_RTOL x the sum of
+    |e| over the molecule's tuples (the term's own scale: the total energy
+    is dominated by the bond terms)."""
+    for t in got:
+        (e, pooled, _), (e_want, p_want, scale) = got[t], want[t]
+        e_err, p_err = (e - e_want).abs(), (pooled - p_want).abs()
+        ok = (bool(torch.isfinite(e).all() and torch.isfinite(pooled).all())
+              and bool((e_err <= KERNEL_ATOL
+                        + KERNEL_RTOL * e_want.abs()).all())
+              and bool((p_err <= MODEL_ATOL + MODEL_RTOL * scale).all()))
+        check(ok, f'{label}, {t}: per tuple {tuple(e.shape)} max_abs_err '
+                  f'{float(e_err.max()):.3e} (tol {KERNEL_ATOL} + '
+                  f'{KERNEL_RTOL}|e|); pooled {tuple(pooled.shape)} '
+                  f'max_abs_err {float(p_err.max()):.3e} at |E_{t}| up to '
+                  f'{float(p_want.abs().max()):.4e}, sum |e| up to '
+                  f'{float(scale.max()):.4e} (tol {MODEL_ATOL} + '
+                  f'{MODEL_RTOL} sum |e|)')
+
+
+def k5_launches(torch, fn):
+    """fn()'s result and the K5 launches it made (the count is set to 0
+    just before and read just after)."""
+    from grappa_tpu_torch.ops.torsion_kernel import torsion_energy_fused
+    torsion_energy_fused.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torsion_energy_fused.launches
+
+
+def fusion_phase(torch, cfg, batches, launches):
+    """Phase 6(b): benchmarks/fusion_decision.py's measurement at protein
+    scale with the default model's predicted parameters: energy and dE/dx
+    through K5 against the plain path on the card, and the stage times."""
+    from grappa_tpu_torch.models import mm_energy
+    from grappa_tpu_torch.models.grappa_model import make_model
+    from grappa_tpu_torch.train.trainer import make_optimizer, make_train_step
+    model = perturbed_model(torch, make_model, cfg).cuda()
+    for n_atoms, batch in batches.items():
+        model.eval()
+        with torch.no_grad():
+            pred = model(batch)
+            fwd_ms = timed(torch, lambda: model(batch), iters=3, warmup=1)
+        pred = {key: v.detach() for key, v in pred.items()}
+        (e_f, g_f), n_fused = k5_launches(
+            torch, lambda: mm_energy.energy_and_gradient(
+                batch, pred, use_fused_torsion=True))
+        (e_p, g_p), n_plain = k5_launches(
+            torch, lambda: mm_energy.energy_and_gradient(batch, pred))
+        launches[f'fusion {n_atoms} atoms'] = n_fused
+        check(n_fused == 2 and n_plain == 0,
+              f'{n_atoms} atoms: K5 launches per energy_and_gradient call: '
+              f'fused {n_fused} (2), plain {n_plain} (0)')
+        close_energy_gradient(torch, f'{n_atoms} atoms, predicted '
+                              f'parameters, fused vs plain on the card',
+                              e_f, g_f, e_p, g_p)
+        close_torsion_terms(torch, f'{n_atoms} atoms, fused vs plain',
+                            torsion_terms(torch, batch, pred, True),
+                            torsion_terms(torch, batch, pred, False))
+        res = {'n_atoms': n_atoms, 'n_confs': batch.xyz.shape[1],
+               'n_padded': batch.xyz.shape[0],
+               'n_propers': int(batch.terms['n4'].mask.sum()),
+               'forward_ms': fwd_ms,
+               'energy_forces_plain_ms': timed(
+                   torch, lambda: mm_energy.energy_and_gradient(batch, pred),
+                   iters=10),
+               'energy_forces_fused_ms': timed(
+                   torch, lambda: mm_energy.energy_and_gradient(
+                       batch, pred, use_fused_torsion=True), iters=10)}
+        if n_atoms == min(batches):
+            step = make_train_step(model, make_optimizer())
+            w = loss_weights(torch, batch.num_mols, 'cuda')
+            gen = torch.Generator().manual_seed(11)
+            step(batch, w, TRAIN_LR, gen)                    # warm-up
+            res['full_step_ms'] = timed(
+                torch, lambda: step(batch, w, TRAIN_LR, gen), iters=3,
+                warmup=0)
+        print('fusion_decision ' + json.dumps(res), flush=True)
+
+
+def evaluation_phase(torch, cfg, graphs, batch, big, launches):
+    """Phase 6(c) and (d): the fused energy and dE/dx at protein scale with
+    the batch's reference parameters, card vs CPU; StreamingEvaluator on
+    the training batch with the default model's predictions, card (K5) vs
+    CPU (plain path)."""
+    from grappa_tpu_torch.data.graph_batch import collate
+    from grappa_tpu_torch.data.loader import bucketed_pad_spec
+    from grappa_tpu_torch.models import mm_energy
+    from grappa_tpu_torch.models.grappa_model import make_model
+    from grappa_tpu_torch.train.evaluator import (StreamingEvaluator,
+                                                  early_stopping_loss)
+    big_graphs, big_card = big
+    big_cpu = collate(big_graphs, device='cpu')
+    (e, g), n = k5_launches(torch, lambda: mm_energy.energy_and_gradient(
+        big_card, ref_params(torch, big_card), use_fused_torsion=True))
+    n_atoms = sum(gr.n_atoms for gr in big_graphs)
+    launches[f'reference {n_atoms} atoms'] = n
+    e_c, g_c = mm_energy.energy_and_gradient(
+        big_cpu, ref_params(torch, big_cpu), use_fused_torsion=True)
+    check(n == 2, f'(c) K5 launches: {n} (2)')
+    close_energy_gradient(torch, f'(c) {n_atoms} atoms, reference '
+                          f'parameters, fused, card vs CPU', e, g, e_c, g_c)
+    close_torsion_terms(
+        torch, f'(c) {n_atoms} atoms, fused, card vs CPU',
+        torsion_terms(torch, big_card, ref_params(torch, big_card), True),
+        torsion_terms(torch, big_cpu, ref_params(torch, big_cpu), True))
+
+    model = perturbed_model(torch, make_model, cfg).cuda()
+    model.eval()
+    with torch.no_grad():
+        pred = {key: v.detach() for key, v in model(batch).items()}
+    names = [('spice', 'pepconf', 'rna')[i % 3] for i in range(len(graphs))]
+    cpu_batch = collate(graphs, bucketed_pad_spec(graphs, TRAIN_CONFS),
+                        TRAIN_CONFS, device='cpu')
+    ev_card, ev_cpu = StreamingEvaluator(), StreamingEvaluator()
+
+    def card_step():
+        e, g = mm_energy.energy_and_gradient(batch, pred,
+                                             use_fused_torsion=True)
+        ev_card.step(batch, e, g, names)
+
+    _, n = k5_launches(torch, card_step)
+    launches['evaluate'] = n
+    e, g = mm_energy.energy_and_gradient(
+        cpu_batch, {key: v.cpu() for key, v in pred.items()})
+    ev_cpu.step(cpu_batch, e, g, names)
+    got, want = ev_card.pool(), ev_cpu.pool()
+    worst = max(abs(got[d][key] - v) / max(abs(v), 1e-30)
+                for d in want for key, v in want[d].items())
+    finite = all(np.isfinite(v) for d in got.values() for v in d.values())
+    check(n == 2 and finite and got.keys() == want.keys() and worst <= 1e-4,
+          f'(d) StreamingEvaluator, {batch.num_mols} molecules x '
+          f'{TRAIN_CONFS} conformers, card (K5, {n} launches) vs CPU (plain '
+          f'path): worst relative difference {worst:.3e} (tol 1e-4); avg '
+          f'{got["avg"]}; early_stopping_loss '
+          f'{early_stopping_loss(got):.6e} vs {early_stopping_loss(want):.6e}')
+
+
+def md_phase(torch, big):
+    """Phase 7: MD on the card with the batches' reference parameters."""
+    from grappa_tpu_torch import md
+    from grappa_tpu_torch.data.graph_batch import MolGraph, collate
+    from grappa_tpu_torch.data.synthetic import make_moldata
+
+    # (a) 50 NVE steps, card vs CPU, the same numpy-made velocities
+    mdata = make_moldata(seed=3, n_confs=4, learnable=True, conf_noise=0.05)
+    graphs = [MolGraph.from_moldata(mdata)]
+    runs = {}
+    for device in ('cuda', 'cpu'):
+        b = collate(graphs, n_confs=4, device=device)
+        masses = md.masses_from_molecules([mdata.molecule], b.xyz.shape[0],
+                                          device=device)
+        rng = np.random.default_rng(0)
+        sigma = np.sqrt(md.KB * 300.0 / masses.cpu().numpy())[:, None, None]
+        v0 = (sigma * rng.normal(size=tuple(b.xyz.shape))
+              * b.node_mask.cpu().numpy()[:, None, None]).astype(np.float32)
+        runs[device] = md.simulate(b, ref_params(torch, b), masses,
+                                   dt_fs=0.5, n_steps=50,
+                                   v0=torch.tensor(v0, device=device))
+    pot, pot_cpu = runs['cuda']['potential'].cpu(), runs['cpu']['potential']
+    err = (pot - pot_cpu).abs()
+    check(bool(torch.isfinite(pot).all())
+          and bool((err <= 1e-4 + 1e-4 * pot_cpu.abs()).all()),
+          f'(a) NVE 50 steps at 0.5 fs, {len(mdata.molecule.atoms)} atoms x 4 '
+          f'replicas, card vs CPU: potential max_abs_err '
+          f'{float(err.max()):.3e} (tol 1e-4 + 1e-4|E|)')
+
+    # (b) the 12,000-atom protein-scale molecule, 4 replicas
+    (mdata, big_batch) = big
+    n_atoms = len(mdata.molecule.atoms)
+    masses = md.masses_from_molecules([mdata.molecule],
+                                      big_batch.xyz.shape[0],
+                                      device=big_batch.xyz.device)
+    params = ref_params(torch, big_batch)
+    force = md.make_force_fn(big_batch, params)
+    torch.cuda.reset_peak_memory_stats()
+    x_min = md.minimize(big_batch, params, n_steps=500, lr=5e-4)
+    e0, e1 = force(big_batch.xyz)[1][0], force(x_min)[1][0]
+    check(bool((e1 < e0).all()),
+          f'(b) minimize, 500 steps at lr 5e-4: potential per replica '
+          f'{[round(float(v), 1) for v in e0]} -> '
+          f'{[round(float(v), 1) for v in e1]} kcal/mol')
+    target = 1.5 * n_atoms * md.KB * 300.0
+    v0 = md.maxwell_boltzmann_velocities(
+        big_batch, masses, 300.0,
+        torch.Generator(device='cuda').manual_seed(0))
+    step_ms = {}
+    for label, kwargs in (
+            ('NVE', dict(dt_fs=0.2, n_steps=500, v0=v0)),
+            ('BAOAB', dict(dt_fs=0.5, n_steps=1000, temperature=300.0,
+                           friction_per_ps=20.0, seed=7))):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = md.simulate(big_batch, params, masses, xyz0=x_min, **kwargs)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms[label] = start.elapsed_time(end) / kwargs['n_steps']
+        ke = out['kinetic'][:, 0].double().cpu()            # (steps, C)
+        if label == 'NVE':
+            total = out['potential'][:, 0].double().cpu() + ke
+            ratio = ((total - total[0]).abs().max(0).values
+                     / ke.mean(0)).max()
+            check(bool(torch.isfinite(total).all()) and float(ratio) < 0.05,
+                  f'(b) NVE 500 steps at 0.2 fs from the minimum, 300 K '
+                  f'velocities: max |E_tot drift| / mean KE over the 4 '
+                  f'replicas {float(ratio):.3e} (< 0.05)')
+        else:
+            mean_ke = float(ke[300:].mean())
+            check(bool(torch.isfinite(ke).all())
+                  and abs(mean_ke / target - 1) < 0.1,
+                  f'(b) BAOAB 1000 steps at 0.5 fs, 300 K, 20 / ps from the '
+                  f'minimum: mean KE after step 300 {mean_ke:.1f} vs '
+                  f'(3N/2) kT {target:.1f} kcal/mol (ratio '
+                  f'{mean_ke / target:.4f}, within 10%)')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'(b) MD at {n_atoms} atoms x 4 replicas (N padded '
+          f'{big_batch.xyz.shape[0]}): {step_ms["NVE"]:.3f} ms a step NVE, '
+          f'{step_ms["BAOAB"]:.3f} ms a step BAOAB (CUDA events over the '
+          f'run); peak memory {peak:.3f} GiB (max_memory_allocated)',
+          flush=True)
 
 
 def compare_outputs(label, got, want):
@@ -789,6 +1172,45 @@ def main() -> int:
         launches[name]['train'] = nf
         launches[f'{name}.backward'] = {'train': nb}
 
+    phase('6. the torsion kernel K5; energy, dE/dx and evaluation through '
+          'it')
+    from grappa_tpu_torch.data.synthetic import make_moldata
+    fusion = {}
+    for n_atoms in FUSION_ATOMS:
+        t0 = time.time()
+        mdata = make_moldata(seed=0, n_confs=FUSION_CONFS, n_atoms=n_atoms)
+        mol_graphs = [MolGraph.from_moldata(mdata)]
+        fusion[n_atoms] = (mdata, mol_graphs, collate(mol_graphs))
+        b = fusion[n_atoms][2]
+        print(f'{n_atoms} atoms x {FUSION_CONFS} conformers built on the host '
+              f'in {time.time() - t0:.1f} s, padded: N={b.xyz.shape[0]}, T '
+              f'bonds / angles / propers / impropers = ' + ' / '.join(
+                  str(b.terms[t].idxs.shape[0])
+                  for t in ('n2', 'n3', 'n4', 'n4_improper')), flush=True)
+    big_n = min(FUSION_ATOMS)
+    big = fusion[big_n][2]
+    shapes = [('train propers', train_batch.terms['n4'].idxs.shape[0],
+               TRAIN_CONFS, 6, True),
+              ('train impropers',
+               train_batch.terms['n4_improper'].idxs.shape[0], TRAIN_CONFS,
+               3, True)]
+    for n_atoms, (_, _, b) in fusion.items():
+        shapes += [(f'{n_atoms}-atom propers', b.terms['n4'].idxs.shape[0],
+                    FUSION_CONFS, 6, True),
+                   (f'{n_atoms}-atom impropers',
+                    b.terms['n4_improper'].idxs.shape[0], FUSION_CONFS, 3,
+                    True)]
+    shapes += [('kernel_bench', t, c, 6, False) for t, c in KERNEL_BENCH_TC]
+    torsion_kernel_phase(torch, entries, shapes)
+    k5_paths = {}
+    fusion_phase(torch, cfg, {n: v[2] for n, v in fusion.items()}, k5_paths)
+    evaluation_phase(torch, cfg, graphs, train_batch,
+                     (fusion[big_n][1], big), k5_paths)
+    launches['torsion_energy_fused'] = k5_paths
+
+    phase('7. molecular dynamics on the card (reference parameters)')
+    md_phase(torch, (fusion[big_n][0], big))
+
     if FAILURES:
         print(f'chip_smoke.py: {len(FAILURES)} check(s) failed',
               file=sys.stderr)
@@ -806,7 +1228,8 @@ def main() -> int:
         'fused_symmetriser': ('fused_symmetriser.cu',
                               'fused_symmetriser.py:174'),
         'fused_symmetriser.backward': ('fused_symmetriser.cu',
-                                       'fused_symmetriser.py:199')}
+                                       'fused_symmetriser.py:199'),
+        'torsion_energy_fused': ('torsion.cu', 'torsion_kernel.py:109')}
     kernels = []
     for name, (source, replaces) in sources.items():
         e = entries[name]

@@ -7,7 +7,9 @@ total energy with respect to the coordinates. Pooling is `index_add` into
 num_mols + 1 segments, the last (padding's) dropped. The gradient comes
 from `torch.autograd.grad(..., create_graph=True)` whenever the parameters
 require grad, so a loss on it trains the parameter model (double
-backward).
+backward). `use_fused_torsion=True` computes the torsion terms with the
+torsion kernel K5 (`ops.torsion_kernel`), whose backward is differentiable
+too.
 
 Parameter convention: a dict keyed like the model output --
   n2_k (B,), n2_eq (B,), n3_k (A,), n3_eq (A,),
@@ -21,6 +23,8 @@ import torch
 
 from grappa_tpu_torch.data.graph_batch import GraphBatch
 from grappa_tpu_torch.models import geometry
+from grappa_tpu_torch.ops.torsion_kernel import (gather_torsion_positions,
+                                                 torsion_energy_fused)
 
 ParamDict = Dict[str, torch.Tensor]
 TORSIONS = ('n4', 'n4_improper')
@@ -54,33 +58,39 @@ def _points(xyz: torch.Tensor, idxs: torch.Tensor):
     return [xyz[idxs[:, j]] for j in range(idxs.shape[1])]
 
 
-def internal_coordinates(batch: GraphBatch,
-                         xyz: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """x (T, C) per interaction term from coordinates (N, C, 3)."""
-    coords = {
-        'n2': geometry.distance(*_points(xyz, batch.terms['n2'].idxs)),
-        'n3': geometry.bond_angle(*_points(xyz, batch.terms['n3'].idxs)),
-    }
-    for t in TORSIONS:
-        coords[t] = geometry.dihedral_angle(*_points(xyz,
-                                                     batch.terms[t].idxs))
-    return coords
-
-
 def tuple_energies(batch: GraphBatch, params: ParamDict, xyz: torch.Tensor,
                    offset_torsion: bool = False,
                    use_fused_torsion: bool = False) -> Dict[str, torch.Tensor]:
-    """Masked per-tuple energies (T, C) for every term."""
-    if use_fused_torsion:
-        raise NotImplementedError(
-            "use_fused_torsion: the torsion kernel is not ported yet "
-            "(ROADMAP.md, K5); the Chebyshev path computes the same energy")
-    x = internal_coordinates(batch, xyz)
-    energies = {t: harmonic_term_energy(params[f'{t}_k'], params[f'{t}_eq'],
-                                        x[t]) for t in ('n2', 'n3')}
+    """Masked per-tuple energies (T, C) for every term.
+
+    use_fused_torsion routes the torsion terms through the torsion kernel
+    K5 (`ops.torsion_kernel`, launched on CUDA tensors); with
+    offset_torsion=True they take the Chebyshev path, as in the JAX
+    package. It stays the caller's choice and off by default, as in the
+    JAX package: on an H100, energy + dE/dx at 12,000 and 40,000 atoms took
+    as long with K5 as without, within the run-to-run spread (PERF.md §5),
+    because host launches pace this path and K5's backward recomputes the
+    plain forward."""
+    energies = {
+        'n2': harmonic_term_energy(params['n2_k'], params['n2_eq'],
+                                   geometry.distance(*_points(
+                                       xyz, batch.terms['n2'].idxs))),
+        'n3': harmonic_term_energy(params['n3_k'], params['n3_eq'],
+                                   geometry.bond_angle(*_points(
+                                       xyz, batch.terms['n3'].idxs))),
+    }
     for t in TORSIONS:
-        energies[t] = torsion_term_energy(params[f'{t}_k'], x[t],
-                                          offset_torsion)
+        tb = batch.terms[t]
+        if use_fused_torsion and not offset_torsion:
+            k = torch.where(tb.mask[:, None], params[f'{t}_k'],
+                            torch.zeros_like(params[f'{t}_k']))
+            energies[t] = torsion_energy_fused(
+                gather_torsion_positions(xyz, tb.idxs), k)
+        else:
+            energies[t] = torsion_term_energy(
+                params[f'{t}_k'],
+                geometry.dihedral_angle(*_points(xyz, tb.idxs)),
+                offset_torsion)
     return {t: torch.where(batch.terms[t].mask[:, None], e,
                            torch.zeros_like(e))
             for t, e in energies.items()}

@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / 'build'
 SOURCES = ('fused_gnn.cu', 'fused_block.cu', 'fused_symmetriser.cu',
-           'dropout.cu')
+           'dropout.cu', 'torsion.cu')
 FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
          '-Xcompiler', '-fPIC')
 
@@ -55,6 +55,7 @@ _SIGNATURES = {
     'grappa_fused_symmetriser_bwd': (
         _I, [_P, _I, _I, _I, _P, _I, _P, _P, _I] + [_P] * 5),
     'grappa_dropout_masks': (_I, [_U, _U, _F, _LL, _P, _P, _P]),
+    'grappa_torsion_energy': (_I, [_P, _P, _P, _I, _I, _I, _P]),
 }
 
 _lib: Optional[ctypes.CDLL] = None

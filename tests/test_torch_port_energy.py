@@ -161,9 +161,14 @@ def test_torsion_offset_and_fused_torsion_flag():
         want = jmm.pooled_energy(jb, _jax(p), jb.xyz, offset)
         np.testing.assert_allclose(got['energy_n4'].numpy(),
                                    np.asarray(want['energy_n4']), **TOL)
-    with pytest.raises(NotImplementedError, match='K5'):
-        mm_energy.pooled_energy(tb, _torch(p), tb.xyz,
-                                use_fused_torsion=True)
+        # use_fused_torsion: K5's path (its plain version here), or the
+        # Chebyshev path under the offset, as in the JAX package
+        fused = mm_energy.pooled_energy(tb, _torch(p), tb.xyz, offset,
+                                        use_fused_torsion=True)
+        for key in want:
+            np.testing.assert_allclose(fused[key].numpy(),
+                                       np.asarray(want[key]), **TOL,
+                                       err_msg=key)
 
 
 def _rel_l2(a, b):

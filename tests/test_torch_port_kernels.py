@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1-K3 forward, K1b-K3b backward, dropout and the
-K1m / K2m mask dump) against their plain PyTorch versions on the card.
+"""The port's CUDA kernels (K1-K3 forward, K1b-K3b backward, dropout, the
+K1m / K2m mask dump and the torsion kernel K5) against their plain PyTorch
+versions on the card.
 Every test here needs a CUDA device: it carries the `cuda` marker and skips
 without one.
 
@@ -15,7 +16,9 @@ per tensor (weight gradients sum thousands of rows, so an element that
 cancels to near 0 carries the error of its larger terms). Backward: the
 kernel's gradients against autograd through the plain version on the same
 inputs, dropout masks from the same seed. Masks: bit-equal to the plain
-Philox.
+Philox. K5: any T and C, with degenerate tuples (four equal atoms) and
+zeroed k rows; its gradients (first order, and the force loss's double
+backward w.r.t. k) on the card against the same graph on the CPU.
 """
 import numpy as np
 import pytest
@@ -27,6 +30,7 @@ from grappa_tpu_torch.ops import fused_block as tfb
 from grappa_tpu_torch.ops import fused_gnn as tfg
 from grappa_tpu_torch.ops import fused_symmetriser as tfs
 from grappa_tpu_torch.ops import philox
+from grappa_tpu_torch.ops import torsion_kernel as ttk
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -319,3 +323,91 @@ def test_dropout_forward_uses_the_dumped_masks(cuda):
     mb = tfb.dropout_masks(4, x.shape, 0.5, device=cuda)
     yb = tfb.fused_transformer_block(x, pb, 4, 0.5, True, 4)
     torch.testing.assert_close(yb, tfb.reference_block(x, pb, 4, mb), **TOL)
+
+
+# ---------------------------------------------------------------- torsion
+def _torsion_case(t, c, n_per, seed=0):
+    """CPU xyz (N, C, 3), idxs (T, 4) and k (T, P): every 7th tuple
+    degenerate (four equal atoms), every 5th with a zeroed k row."""
+    gen = torch.Generator().manual_seed(seed)
+    n_atoms = max(8, t // 2)
+    xyz = 2.0 * torch.randn((n_atoms, c, 3), generator=gen)
+    idxs = torch.stack([torch.randperm(n_atoms, generator=gen)[:4]
+                        for _ in range(t)])
+    idxs[::7] = idxs[::7, :1]
+    k = 0.5 * torch.randn((t, n_per), generator=gen)
+    k[::5] = 0.0
+    return xyz, idxs, k
+
+
+@pytest.mark.parametrize('c', [1, 5, 32, 128])
+@pytest.mark.parametrize('t', [1, 37, 8256])
+def test_torsion_kernel_matches_plain(cuda, t, c):
+    n_per = 3 if t == 37 else 6
+    xyz, idxs, k = _torsion_case(t, c, n_per)
+    pos = ttk.gather_torsion_positions(xyz.to(cuda), idxs.to(cuda))
+    before = ttk.torsion_energy_fused.launches
+    y = ttk.torsion_energy_fused(pos, k.to(cuda))
+    torch.cuda.synchronize()
+    assert ttk.torsion_energy_fused.launches == before + 1
+    assert y.shape == (t, c)
+    want = ttk.reference_torsion_energy(pos, k.to(cuda))
+    torch.testing.assert_close(y, want, **TOL)
+    assert bool((y[::5] == 0).all())
+    # a degenerate tuple takes cos(phi) = 1: sum_n k_n
+    torch.testing.assert_close(y[::7], k[::7].sum(1, keepdim=True).to(cuda)
+                               .expand(-1, c), **TOL)
+
+
+def _torsion_grads(xyz, idxs, k):
+    """dE/dxyz, dE/dk, and d/dk of the force loss mean((dE/dxyz - 1)^2)."""
+    x = xyz.clone().requires_grad_(True)
+    kk = k.clone().requires_grad_(True)
+    e = ttk.torsion_energy_fused(ttk.gather_torsion_positions(x, idxs), kk)
+    gx, gk = torch.autograd.grad(e.sum(), (x, kk))
+    (force,) = torch.autograd.grad(
+        ttk.torsion_energy_fused(ttk.gather_torsion_positions(x, idxs),
+                                 kk).sum(), x, create_graph=True)
+    (gkk,) = torch.autograd.grad(torch.mean((force - 1.0) ** 2), kk)
+    return gx, gk, gkk
+
+
+@pytest.mark.parametrize('t,c', [(37, 5), (8256, 32)])
+def test_torsion_gradients_on_card_match_cpu(cuda, t, c):
+    xyz, idxs, k = _torsion_case(t, c, 6, seed=1)
+    before = ttk.torsion_energy_fused.launches
+    got = _torsion_grads(xyz.to(cuda), idxs.to(cuda), k.to(cuda))
+    torch.cuda.synchronize()
+    assert ttk.torsion_energy_fused.launches == before + 2
+    want = _torsion_grads(xyz, idxs, k)
+    _assert_grads([g.cpu() for g in got], want, ['dxyz', 'dk', 'd2k'])
+
+
+def test_fused_energy_and_gradient_launch_k5_twice(cuda):
+    """energy_and_gradient(use_fused_torsion=True) on the card: two K5
+    launches (propers, impropers), none without the flag; energies and
+    dE/dx against the CPU's plain path."""
+    from grappa_tpu_torch.data import MolGraph, collate
+    from grappa_tpu_torch.data.synthetic import make_moldata
+    from grappa_tpu_torch.models import mm_energy
+    graphs = [MolGraph.from_moldata(make_moldata(seed=s, n_confs=4))
+              for s in range(3)]
+    cpu = collate(graphs, device='cpu')
+    card = collate(graphs, device=cuda)
+    params = {key: torch.nan_to_num(getattr(cpu.terms[key[:-3] if key
+                                                      .endswith('_eq')
+                                                      else key[:-2]],
+                                            'eq_ref' if key.endswith('_eq')
+                                            else 'k_ref'))
+              for key in ('n2_k', 'n2_eq', 'n3_k', 'n3_eq', 'n4_k',
+                          'n4_improper_k')}
+    e_cpu, g_cpu = mm_energy.energy_and_gradient(cpu, params)
+    on_card = {key: v.to(cuda) for key, v in params.items()}
+    for flag, launches in ((True, 2), (False, 0)):
+        before = ttk.torsion_energy_fused.launches
+        e, g = mm_energy.energy_and_gradient(card, on_card,
+                                             use_fused_torsion=flag)
+        torch.cuda.synchronize()
+        assert ttk.torsion_energy_fused.launches == before + launches
+        torch.testing.assert_close(e.cpu(), e_cpu, **TOL)
+        _assert_grads([g.cpu()], [g_cpu], ['dE/dx'])
