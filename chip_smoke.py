@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of grappa_tpu_torch (the PyTorch / CUDA port) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --kernels-only   # phases 1, 2 and 4 alone
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit, the torch / CUDA versions;
@@ -22,7 +23,12 @@ Phases, each printing its own lines:
      make_moldata): K1 / K2 forward with dropout at the default rates and
      K3 forward, K1b / K2b / K3b against autograd through the plain
      versions (same dropout seeds), the K1m / K2m mask dumps bit-equal to
-     the plain Philox, with times and bounds.
+     the plain Philox, with times and bounds. Then the `block_profile`
+     line: K2 and K2b at the n4 training shape (S=4, T=8256, F=hid=512,
+     dropout 0.5) under torch.profiler, each launch of one call with its
+     device ms (printed above the line) and the device ms by kernel name,
+     beside one torch.matmul (fp32, TF32 off) of the largest product,
+     33024 x 1536 x 512, a yardstick the port never calls.
   5. training at the default config: (a) one step on the card against the
      same step on the CPU (plain path), dropout off, 8 molecules x 4
      conformers; (b) ten steps with the config's dropout on the 128 x 32
@@ -55,10 +61,13 @@ The last three lines are a JSON object describing the kernels, the card's
 name and power limit, and {"ok": true, "device": {...}}. In the kernels'
 line, `launches` sums the main paths (the two predict paths and the ten
 training steps for K1-K3; phase 6's four paths for K5;
-`launches_per_path` gives each), and `ms`, `plain_ms` and `bound_ms` sum
-one call at each shape of each path. Any failure exits
-non-zero before those lines. Needs one CUDA device; imports nothing of JAX
-or of grappa_tpu.
+`launches_per_path` gives each), and `ms`, `plain_ms`, `bound_ms`,
+`gflop` and `mbytes` sum one call at each shape of each path; K2 and K2b,
+whose products run as 3xTF32 on the tensor cores, also give `bound_tc_ms`
+(3 x their FLOPs at the 495 TFLOP/s TF32 peak). Any failure exits
+non-zero before those lines. `--kernels-only` stops after phase 4 and
+prints the kernels' sums as a `kernel_times` line instead. Needs one CUDA
+device; imports nothing of JAX or of grappa_tpu.
 """
 from __future__ import annotations
 
@@ -72,10 +81,16 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# the card's published peaks (H100 SXM): fp32 outside the tensor cores and
-# HBM bandwidth; a card set below 700 W runs below them
+# the card's published peaks (H100 SXM): fp32 outside the tensor cores,
+# dense TF32 on the tensor cores, HBM bandwidth; a card set below 700 W runs
+# below them
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# kernels whose products run as 3xTF32 on the tensor cores (tc_gemm.cuh):
+# their line also gives the bound of 3 TF32 products per float32 product
+TENSOR_CORE_KERNELS = ('fused_transformer_block',
+                       'fused_transformer_block.backward')
 
 # kernel vs plain version on the card, both float32 (TF32 off): elementwise
 # |kernel - plain| <= ATOL + RTOL * |plain|; the two sum their products in
@@ -194,6 +209,27 @@ def profiled_ms(torch, fn, kernel, iters=20):
     """Mean device ms a call of the CUDA kernels whose name holds
     `kernel`, from a torch.profiler trace of `iters` calls; None when the
     profiler cannot trace the card or shows no device time for them."""
+    ms = sum(m for name, m in device_events(torch, fn, iters) or ()
+             if kernel in name) / iters
+    return ms or None
+
+
+def short_kernel_name(name):
+    """A kernel's name without `void`, namespaces and its argument list
+    (its template arguments stay: they tell the GEMM's products apart)."""
+    name = name.replace('(anonymous namespace)::', '').replace('void ', '', 1)
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == '<') - (ch == '>')
+        if ch == '(' and depth == 0:
+            return name[:i]
+    return name
+
+
+def device_events(torch, fn, iters):
+    """Every CUDA kernel of `iters` calls of fn(), in launch order, as (name,
+    device ms) from a torch.profiler trace; None when the profiler cannot
+    trace the card."""
     from torch.profiler import ProfilerActivity, profile, supported_activities
     if ProfilerActivity.CUDA not in supported_activities():
         return None
@@ -203,9 +239,62 @@ def profiled_ms(torch, fn, kernel, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, 'device_time_total', 0.0)
-             for e in prof.key_averages() if kernel in e.key)
-    return us / iters / 1e3 if us else None
+    events = sorted((e for e in prof.events()
+                     if str(getattr(e, 'device_type', '')).endswith('CUDA')),
+                    key=lambda e: e.time_range.start)
+    return [(short_kernel_name(e.name), e.time_range.elapsed_us() / 1e3)
+            for e in events]
+
+
+def block_profile(torch, iters=3):
+    """K2 and K2b at the n4 training shape (S=4, T=8256, F=hid=512, 8
+    heads, dropout 0.5) under torch.profiler: each launch of one call with
+    its device ms, and the device ms by kernel name. Beside them one
+    torch.matmul (float32, TF32 off) of the largest product, 33024 x 1536 x
+    512, as a yardstick the port never calls."""
+    from grappa_tpu_torch.ops import fused_block as fb
+    gen = torch.Generator().manual_seed(2468)
+    s, t, f, hid, rate, seed = 4, 8256, 512, 512, 0.5, 7
+    x = torch.randn((s, t, f), generator=gen).cuda()
+    p2 = rand_params(torch, gen, [
+        ((f,), 'g'), ((f,), 'b'), ((3 * f, f), 'w'), ((3 * f,), 'b'),
+        ((f, f), 'w'), ((f,), 'b'), ((f,), 'g'), ((f,), 'b'),
+        ((hid, f), 'w'), ((hid,), 'b'), ((f, hid), 'w'), ((f,), 'b')])
+    leaves = [q.detach().clone().requires_grad_(True) for q in (x, *p2)]
+    y = fb.fused_transformer_block(leaves[0], leaves[1:], 8, rate, True, seed)
+    dy = torch.randn_like(x)
+    calls = {'K2': lambda: fb.fused_transformer_block(x, p2, 8, rate, True,
+                                                      seed),
+             'K2b': lambda: torch.autograd.grad(y, leaves, dy,
+                                                retain_graph=True)}
+    out = {'shape': [s, t, f, hid], 'dropout': rate}
+    for label, fn in calls.items():
+        events = device_events(torch, fn, iters)
+        if not events or len(events) % iters:
+            out[label] = 'not measured (no device time in a torch.profiler '\
+                         'trace)'
+            continue
+        n = len(events) // iters      # the launches of one call
+        kernels = [(events[i][0], sum(events[i + j * n][1]
+                                      for j in range(iters)) / iters)
+                   for i in range(n)]
+        total = sum(ms for _, ms in kernels)
+        by_name = {}
+        for name, ms in kernels:
+            key = name.split('<')[0]
+            by_name[key] = by_name.get(key, 0.0) + ms
+        out[label] = {'device_ms': total, 'launches': len(kernels),
+                      'by_kernel': {k: [v, v / total] for k, v in sorted(
+                          by_name.items(), key=lambda kv: -kv[1])}}
+        for i, (name, ms) in enumerate(kernels):
+            print(f'  {label} #{i:02d} {ms:8.4f} ms  {name[:150]}')
+    a = torch.randn((s * t, f), generator=gen).cuda()
+    b = torch.randn((f, 3 * f), generator=gen).cuda()
+    mm_ms = timed(torch, lambda: torch.matmul(a, b), iters=20)
+    out['matmul_33024x1536x512'] = {
+        'ms': mm_ms, 'tflops': 2 * s * t * 3 * f * f / mm_ms / 1e9,
+        'allow_tf32': torch.backends.cuda.matmul.allow_tf32}
+    print('block_profile ' + json.dumps(out), flush=True)
 
 
 def enqueue_ms(torch, fn, calls=200):
@@ -221,8 +310,8 @@ def enqueue_ms(torch, fn, calls=200):
     return (t1 - t0) * 1e3 / calls
 
 
-def bound(flops, nbytes):
-    t_ops, t_mem = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_FP32_FLOPS):
+    t_ops, t_mem = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_mem) * 1e3, ('operations' if t_ops >= t_mem
                                      else 'bytes')
 
@@ -1018,64 +1107,18 @@ def stack(params_list):
                                for p in params_list]) for k in fields}
 
 
-def main() -> int:
-    if not os.path.isdir(os.path.join(ROOT, 'grappa_tpu_torch')):
-        print('chip_smoke.py: run it from a checkout of the repository '
-              '(grappa_tpu_torch/ not found)', file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
-    import torch
-    if not torch.cuda.is_available():
-        print('chip_smoke.py: no CUDA device', file=sys.stderr)
-        return 1
-
-    phase('1. device')
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
-    print(f'card: {smi}')
-    print(f'python {sys.version.split()[0]} torch {torch.__version__} '
-          f'cuda {torch.version.cuda} device '
-          f'{torch.cuda.get_device_name(0)} count '
-          f'{torch.cuda.device_count()}')
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f'allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32} '
-          f'cudnn {torch.backends.cudnn.allow_tf32}')
-    from grappa_tpu_torch.ops import _cuda
-    t0 = time.time()
-    so = _cuda.build(verbose=True)
-    _cuda.lib()
-    print(f'kernels built in {time.time() - t0:.1f} s: '
-          f'{os.path.relpath(so, ROOT)}', flush=True)
-
+def predict_phase(torch, cfg, smalls, protein, paths):
+    """Phase 3: predict_many on both paths with the launch counts of each
+    forward, its times, and the outputs against the same model on the CPU.
+    Returns the launches per path."""
     from grappa_tpu_torch import Grappa
     from grappa_tpu_torch.data.graph_batch import MolGraph, collate
     from grappa_tpu_torch.data.loader import bucketed_pad_spec
-    from grappa_tpu_torch.data.molecule import Molecule
-    from grappa_tpu_torch.data.synthetic import random_molecule
-    from grappa_tpu_torch.models.grappa_model import (
-        get_default_model_config, make_model)
+    from grappa_tpu_torch.models.grappa_model import make_model
     from grappa_tpu_torch.ops.fused_block import fused_transformer_block
     from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
     from grappa_tpu_torch.ops.fused_symmetriser import fused_symmetriser
-
-    protein = protein_like_molecule(Molecule)
-    smalls = small_molecules(random_molecule)
-    paths = {'small': smalls, 'protein': [protein]}
-    workloads = {}
-    for label, mols in paths.items():
-        graphs = [MolGraph.from_molecule(m) for m in mols]
-        workloads[label] = collate(graphs, bucketed_pad_spec(graphs, 1), 1,
-                                   device='cuda')
-
-    phase('2. kernels against their plain versions (both workloads\' '
-          'shapes)')
-    entries = kernel_phase(torch, workloads)
-
     phase('3. predict_many, default config, seeded non-zero weights')
-    cfg = get_default_model_config()
     model = make_model(cfg, generator=torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -1152,6 +1195,64 @@ def main() -> int:
         smalls, check_eq_values=False)))
     compare_outputs('protein', card_prot, stack([ff_cpu.predict(
         protein, check_eq_values=False)]))
+    return launches
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(ROOT, 'grappa_tpu_torch')):
+        print('chip_smoke.py: run it from a checkout of the repository '
+              '(grappa_tpu_torch/ not found)', file=sys.stderr)
+        return 2
+    kernels_only = sys.argv[1:] == ['--kernels-only']
+    sys.path.insert(0, ROOT)
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke.py: no CUDA device', file=sys.stderr)
+        return 1
+
+    phase('1. device')
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(f'card: {smi}')
+    print(f'python {sys.version.split()[0]} torch {torch.__version__} '
+          f'cuda {torch.version.cuda} device '
+          f'{torch.cuda.get_device_name(0)} count '
+          f'{torch.cuda.device_count()}')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f'allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32} '
+          f'cudnn {torch.backends.cudnn.allow_tf32}')
+    from grappa_tpu_torch.ops import _cuda
+    t0 = time.time()
+    so = _cuda.build(verbose=True)
+    _cuda.lib()
+    print(f'kernels built in {time.time() - t0:.1f} s: '
+          f'{os.path.relpath(so, ROOT)}', flush=True)
+
+    from grappa_tpu_torch.data.graph_batch import MolGraph, collate
+    from grappa_tpu_torch.data.loader import bucketed_pad_spec
+    from grappa_tpu_torch.data.molecule import Molecule
+    from grappa_tpu_torch.data.synthetic import random_molecule
+    from grappa_tpu_torch.models.grappa_model import get_default_model_config
+
+    protein = protein_like_molecule(Molecule)
+    smalls = small_molecules(random_molecule)
+    paths = {'small': smalls, 'protein': [protein]}
+    workloads = {}
+    for label, mols in paths.items():
+        graphs = [MolGraph.from_molecule(m) for m in mols]
+        workloads[label] = collate(graphs, bucketed_pad_spec(graphs, 1), 1,
+                                   device='cuda')
+
+    phase('2. kernels against their plain versions (both workloads\' '
+          'shapes)')
+    entries = kernel_phase(torch, workloads)
+
+    cfg = get_default_model_config()
+    if not kernels_only:
+        launches = predict_phase(torch, cfg, smalls, protein, paths)
 
     phase('4. training kernels against their plain versions (the 128 x 32 '
           'training batch\'s shapes)')
@@ -1165,6 +1266,10 @@ def main() -> int:
                          for t in ('n2', 'n3', 'n4', 'n4_improper'))),
           flush=True)
     training_kernel_phase(torch, train_batch, entries)
+    block_profile(torch)
+    if kernels_only:
+        print('kernel_times ' + json.dumps(entries), flush=True)
+        return 1 if FAILURES else 0
 
     phase('5. training steps, default config')
     train_launches = training_phase(torch, graphs, train_batch, cfg)
@@ -1241,7 +1346,11 @@ def main() -> int:
             launches=sum(per_path.values()), launches_per_path=per_path,
             max_abs_err=e['max_abs_err'], ms=e['ms'],
             plain_ms=e['plain_ms'], bound_ms=b_ms, bound_by=b_by,
-            library_ms=None))
+            library_ms=None, gflop=e['flops'] / 1e9,
+            mbytes=e['nbytes'] / 1e6))
+        if name in TENSOR_CORE_KERNELS:
+            kernels[-1]['bound_tc_ms'] = bound(3 * e['flops'], e['nbytes'],
+                                               PEAK_TF32_FLOPS)[0]
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

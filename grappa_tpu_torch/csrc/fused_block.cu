@@ -12,28 +12,31 @@
 //
 // Bound on an H100 SXM: the four dense products are 2*(3F*F + F*F +
 // 2*F*hid) = 3.1 MFLOP a row (F = hid = 512) against ~4 KB a row of input
-// and output: bound by operations at the 67 TFLOP/s fp32 peak outside the
-// tensor cores. The backward's own work is twice that, 6.3 MFLOP a row;
-// this design also recomputes the forward, 9.4 MFLOP a row. At the
-// 128-molecule training batch the four heads give 66,456 rows per block
-// depth: 209 GFLOP forward (3.1 ms at the peak) and 418 GFLOP backward
-// (6.2 ms) for one block of each head.
+// and output: bound by operations. The backward's work is twice that, 6.3
+// MFLOP a row. At the 128-molecule training batch the four heads give
+// 66,456 rows per block depth: 209 GFLOP forward and 418 GFLOP backward for
+// one block of each head; 3.1 / 6.2 ms at the 67 TFLOP/s fp32 peak outside
+// the tensor cores, 1.27 / 2.54 ms as 3xTF32 (three TF32 products per
+// float32 product) at the 495 TFLOP/s tensor-core peak.
 //
-// Design (bring-up, right before fast): forward -- LN1, the QKV GEMM, the
-// attention pass (one warp per tuple and head; all S slots of the tuple are
-// read by that warp, so the S x S softmax never leaves registers), the
-// out_proj GEMM with dropout and the + LN1 residual in its epilogue, LN2,
-// and the two FF GEMMs (elu, then dropout and + LN2 residual, in their
-// epilogues). Backward -- recompute those intermediates into scratch
-// (pre-activation of the FF kept, its elu formed on load), regenerate the
-// masks from the seed, then dX = dY W GEMMs with the elu' factor or the
-// residual in their epilogue, split-K dW = dY^T X GEMMs with a fixed-order
-// reduction (no atomics), column sums for biases and LN parameters, a
-// warp-per-row LayerNorm backward and an attention-backward pass (one warp
-// per tuple and head, the S x S softmax backward in registers). Rows are
-// the S planes of T tuples one after another; the ragged T edge is masked,
-// nothing is padded.
-#include "common.cuh"
+// Design: every product runs on the tensor cores through tc_gemm.cuh (3xTF32
+// mma.sync fed by a cp.async ring; its note gives the design), with bias,
+// dropout, the elu' factor, a residual or a split-K partial store in its
+// epilogue. Forward -- LN1, the QKV GEMM, the attention pass (one warp per
+// tuple and head; all S slots of the tuple are read by that warp, so the S x S
+// softmax never leaves registers), the out_proj GEMM with dropout and the + LN1
+// residual in its epilogue, LN2, and the two FF GEMMs (elu, then dropout and +
+// LN2 residual, in their epilogues). The forward's scratch keeps those
+// intermediates, R x (7F + hid) floats, and the backward reads them instead of
+// recomputing the forward (a third of its products). Backward -- regenerate the
+// masks from the seed, then dX = dY W GEMMs with the elu' factor (from the
+// stored activation) or the residual in their epilogue, split-K dW = dY^T X
+// GEMMs with a fixed-order reduction (no atomics), column sums for biases and
+// LN parameters, a warp-per-row LayerNorm backward and an attention-backward
+// pass (one warp per tuple and head, the S x S softmax backward in registers).
+// Rows are the S planes of T tuples one after another; the ragged T edge is
+// masked, nothing is padded.
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -206,38 +209,48 @@ int attention_bwd(const float* qkv, const float* dattn0, float* dqkv, int s,
   return (int)cudaGetLastError();
 }
 
-// The forward up to the FF: xn = LN1(x), qkv, attn0,
-// x1 = (attn0 wo^T + bo) * mask1 + xn, x1n = LN2(x1).
-int block_head(const float* x, const float* g1, const float* b1,
-               const float* wq, const float* bq, const float* wo,
-               const float* bo, const float* g2, const float* b2,
-               const Drop& m1, float* xn, float* qkv, float* attn0, float* x1,
-               float* x1n, int s, int t, int f, int n_heads, float scale,
-               cudaStream_t st) {
-  const int r = s * t;
-  RETURN_IF_ERR(layernorm(x, f, xn, f, g1, b1, r, f, st));
-  RETURN_IF_ERR(gemm(Mat{xn, f}, wq, f, bq, nullptr, 0, qkv, 3 * f, r, 3 * f,
-                     f, false, st));
-  RETURN_IF_ERR(attention(qkv, attn0, s, t, f, n_heads, scale, st));
-  RETURN_IF_ERR(gemm(Mat{attn0, f}, wo, f, bo, xn, f, x1, f, r, f, f, false,
-                     st, m1));
-  return layernorm(x1, f, x1n, f, g2, b2, r, f, st);
-}
-
-struct BwdLayout {
-  size_t xn, qkv, attn0, x1, x1n, tt, dh, dt, dx1n, dx1, da1, datt, dqkv, dxn,
-      mean, rstd, wpart, cpart, total;
+// dT = (dY W2) x elu'(tt), tt = x1n w1^T + c1, with elu' formed from the
+// stored activation a = elu(tt): 1 where a > 0, else a + 1 (= exp(tt)).
+struct EluGradOut {
+  float* C;
+  int ldc;
+  const float* a;
+  int lda;
+  __device__ __forceinline__ void operator()(int, int m, int n,
+                                             float v) const {
+    const float s = a[(size_t)m * lda + n];
+    C[(size_t)m * ldc + n] = v * (s > 0.f ? 1.f : s + 1.f);
+  }
 };
 
-BwdLayout bwd_layout(long long r, long long f, long long hid) {
-  BwdLayout l;
+// The forward's intermediates, which the backward reads: xn = LN1(x),
+// qkv, attn0, x1 = (attn0 wo^T + bo) * mask1 + xn, x1n = LN2(x1) and the
+// FF's activation a = elu(x1n w1^T + c1), R = S*T rows each.
+struct FwdLayout {
+  size_t xn, qkv, attn0, x1, x1n, a, total;
+};
+
+FwdLayout fwd_layout(long long r, long long f, long long hid) {
+  FwdLayout l;
   size_t o = 0;
   l.xn = o; o += r * f;
   l.qkv = o; o += r * 3 * f;
   l.attn0 = o; o += r * f;
   l.x1 = o; o += r * f;
   l.x1n = o; o += r * f;
-  l.tt = o; o += r * hid;
+  l.a = o; o += r * hid;
+  l.total = o;
+  return l;
+}
+
+struct BwdLayout {
+  size_t dh, dt, dx1n, dx1, da1, datt, dqkv, dxn, mean, rstd, wpart, cpart,
+      total;
+};
+
+BwdLayout bwd_layout(long long r, long long f, long long hid) {
+  BwdLayout l;
+  size_t o = 0;
   l.dh = o; o += r * f;
   l.dt = o; o += r * hid;
   l.dx1n = o; o += r * f;
@@ -259,11 +272,10 @@ BwdLayout bwd_layout(long long r, long long f, long long hid) {
 
 extern "C" {
 
-// Floats of scratch: xn, attn0, x1, x1n (R x F each), qkv (R x 3F) and the
-// hidden activation (R x hid), with R = S*T rows.
+// Floats of the forward's scratch: its intermediates (FwdLayout), R x (7F +
+// hid). The backward reads them: keep the scratch until it has run.
 long long grappa_fused_block_scratch(int s, int t, int f, int hid) {
-  const long long r = (long long)s * t;
-  return r * (7LL * f + hid);
+  return (long long)fwd_layout((long long)s * t, f, hid).total;
 }
 
 // x, y: (S, T, F); weights in torch layout: wq (3F, F), wo (F, F),
@@ -280,22 +292,24 @@ int grappa_fused_block_fwd(const float* x, const float* g1, const float* b1,
                            int n_heads, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int r = s * t;
-  float* xn = scratch;
-  float* qkv = xn + (size_t)r * f;
-  float* attn0 = qkv + (size_t)r * 3 * f;
-  float* x1 = attn0 + (size_t)r * f;
-  float* x1n = x1 + (size_t)r * f;
-  float* a = x1n + (size_t)r * f;
+  const FwdLayout l = fwd_layout(r, f, hid);
+  float *xn = scratch + l.xn, *qkv = scratch + l.qkv,
+        *attn0 = scratch + l.attn0, *x1 = scratch + l.x1,
+        *x1n = scratch + l.x1n, *a = scratch + l.a;
   const Drop m1 = make_drop(seed, 0, threshold, drop_scale, drop_on, f);
   const Drop m2 = make_drop(seed, 1, threshold, drop_scale, drop_on, f);
-  RETURN_IF_ERR(block_head(x, g1, b1, wq, bq, wo, bo, g2, b2, m1, xn, qkv,
-                           attn0, x1, x1n, s, t, f, n_heads, scale, st));
-  // a = elu(x1n @ w1^T + c1)
-  RETURN_IF_ERR(gemm(Mat{x1n, f}, w1, f, c1, nullptr, 0, a, hid, r, hid, f,
-                     true, st));
+  RETURN_IF_ERR(layernorm(x, f, xn, f, g1, b1, r, f, st));
+  RETURN_IF_ERR(tc_gemm(Mat{xn, f}, wq, f, bq, nullptr, 0, qkv, 3 * f, r,
+                        3 * f, f, false, st));
+  RETURN_IF_ERR(attention(qkv, attn0, s, t, f, n_heads, scale, st));
+  RETURN_IF_ERR(tc_gemm(Mat{attn0, f}, wo, f, bo, xn, f, x1, f, r, f, f,
+                        false, st, m1));
+  RETURN_IF_ERR(layernorm(x1, f, x1n, f, g2, b2, r, f, st));
+  RETURN_IF_ERR(tc_gemm(Mat{x1n, f}, w1, f, c1, nullptr, 0, a, hid, r, hid,
+                        f, true, st));
   // y = (a @ w2^T + c2) * mask2 + x1n
-  return gemm(Mat{a, hid}, w2, hid, c2, x1n, f, y, f, r, f, hid, false,
-              st, m2);
+  return tc_gemm(Mat{a, hid}, w2, hid, c2, x1n, f, y, f, r, f, hid, false,
+                 st, m2);
 }
 
 long long grappa_fused_block_bwd_scratch(int s, int t, int f, int hid) {
@@ -303,55 +317,52 @@ long long grappa_fused_block_bwd_scratch(int s, int t, int f, int hid) {
 }
 
 // Gradients of the forward above for dy (S, T, F): dx (S, T, F) and the
-// twelve parameter gradients in the parameters' shapes.
+// twelve parameter gradients in the parameters' shapes. `fwd` is the
+// forward's scratch from the same inputs, read only; b1, b2 and the biases
+// are not read (the forward's intermediates hold their effect).
 int grappa_fused_block_bwd(
     const float* x, const float* g1, const float* b1, const float* wq,
     const float* bq, const float* wo, const float* bo, const float* g2,
     const float* b2, const float* w1, const float* c1, const float* w2,
     const float* c2, const float* dy, uint32_t seed, uint32_t threshold,
-    float drop_scale, int drop_on, float* scratch, float* dx, float* dg1,
-    float* db1, float* dwq, float* dbq, float* dwo, float* dbo, float* dg2,
-    float* db2, float* dw1, float* dc1, float* dw2, float* dc2, int s, int t,
-    int f, int hid, int n_heads, float scale, void* stream) {
+    float drop_scale, int drop_on, const float* fwd, float* scratch,
+    float* dx, float* dg1, float* db1, float* dwq, float* dbq, float* dwo,
+    float* dbo, float* dg2, float* db2, float* dw1, float* dc1, float* dw2,
+    float* dc2, int s, int t, int f, int hid, int n_heads, float scale,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int r = s * t;
+  const FwdLayout lf = fwd_layout(r, f, hid);
+  const float *xn = fwd + lf.xn, *qkv = fwd + lf.qkv,
+              *attn0 = fwd + lf.attn0, *x1 = fwd + lf.x1,
+              *x1n = fwd + lf.x1n, *a = fwd + lf.a;
   const BwdLayout l = bwd_layout(r, f, hid);
   float* p = scratch;
-  float *xn = p + l.xn, *qkv = p + l.qkv, *attn0 = p + l.attn0,
-        *x1 = p + l.x1, *x1n = p + l.x1n, *tt = p + l.tt, *dh = p + l.dh,
-        *dt = p + l.dt, *dx1n = p + l.dx1n, *dx1 = p + l.dx1,
+  float *dh = p + l.dh, *dt = p + l.dt, *dx1n = p + l.dx1n, *dx1 = p + l.dx1,
         *da1 = p + l.da1, *datt = p + l.datt, *dqkv = p + l.dqkv,
         *dxn = p + l.dxn, *mean = p + l.mean, *rstd = p + l.rstd,
         *wpart = p + l.wpart, *cpart = p + l.cpart;
   const Drop m1 = make_drop(seed, 0, threshold, drop_scale, drop_on, f);
   const Drop m2 = make_drop(seed, 1, threshold, drop_scale, drop_on, f);
 
-  // recompute the forward's intermediates; tt = x1n w1^T + c1
-  RETURN_IF_ERR(block_head(x, g1, b1, wq, bq, wo, bo, g2, b2, m1, xn, qkv,
-                           attn0, x1, x1n, s, t, f, n_heads, scale, st));
-  RETURN_IF_ERR(gemm(Mat{x1n, f}, w1, f, c1, nullptr, 0, tt, hid, r, hid, f,
-                     false, st));
-
-  // y = h * mask2 + x1n, h = elu(tt) w2^T + c2
+  // y = h * mask2 + x1n, h = a w2^T + c2, a = elu(x1n w1^T + c1)
   const float* dhm = dy;
   if (drop_on) {
     RETURN_IF_ERR(mask_grad(dy, m2, nullptr, dh, r, f, st));
     dhm = dh;
   }
-  RETURN_IF_ERR(gemm_wgrad(tr(Mat{dhm, f}), tr(Elu<Mat>{Mat{tt, hid}}), dw2,
-                           f, hid, r, wpart, st));
+  RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dhm, f}), tr(Mat{a, hid}), dw2, f, hid,
+                              r, wpart, st));
   RETURN_IF_ERR(colsum(Mat{dhm, f}, dc2, r, f, cpart, st));
-  Out o = out_to(dt, hid);
-  o.gate = tt;
-  o.ldg = hid;
-  RETURN_IF_ERR(gemm(Mat{dhm, f}, tr(Mat{w2, hid}), o, r, hid, f, st));
-  RETURN_IF_ERR(gemm_wgrad(tr(Mat{dt, hid}), tr(Mat{x1n, f}), dw1, hid, f, r,
-                           wpart, st));
+  RETURN_IF_ERR(tc_gemm(Mat{dhm, f}, tr(Mat{w2, hid}),
+                        EluGradOut{dt, hid, a, hid}, r, hid, f, st));
+  RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dt, hid}), tr(Mat{x1n, f}), dw1, hid, f,
+                              r, wpart, st));
   RETURN_IF_ERR(colsum(Mat{dt, hid}, dc1, r, hid, cpart, st));
-  o = out_to(dx1n, f);
+  Out o = out_to(dx1n, f);
   o.R = dy;
   o.ldr = f;
-  RETURN_IF_ERR(gemm(Mat{dt, hid}, tr(Mat{w1, f}), o, r, f, hid, st));
+  RETURN_IF_ERR(tc_gemm(Mat{dt, hid}, tr(Mat{w1, f}), o, r, f, hid, st));
   // x1n = LN2(x1); x1 = attn1 * mask1 + xn
   RETURN_IF_ERR(layernorm_bwd(dx1n, Mat{x1, f}, g2, dx1, dg2, db2, r, f, mean,
                               rstd, cpart, st));
@@ -361,20 +372,21 @@ int grappa_fused_block_bwd(
     da = da1;
   }
   // attn1 = attn0 wo^T + bo
-  RETURN_IF_ERR(gemm_wgrad(tr(Mat{da, f}), tr(Mat{attn0, f}), dwo, f, f, r,
-                           wpart, st));
+  RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{da, f}), tr(Mat{attn0, f}), dwo, f, f,
+                              r, wpart, st));
   RETURN_IF_ERR(colsum(Mat{da, f}, dbo, r, f, cpart, st));
-  RETURN_IF_ERR(gemm(Mat{da, f}, tr(Mat{wo, f}), out_to(datt, f), r, f, f,
-                     st));
+  RETURN_IF_ERR(tc_gemm(Mat{da, f}, tr(Mat{wo, f}), out_to(datt, f), r, f,
+                        f, st));
   RETURN_IF_ERR(attention_bwd(qkv, datt, dqkv, s, t, f, n_heads, scale, st));
   // qkv = xn wq^T + bq; xn also feeds the residual: dxn = dx1 + dqkv wq
-  RETURN_IF_ERR(gemm_wgrad(tr(Mat{dqkv, 3 * f}), tr(Mat{xn, f}), dwq, 3 * f,
-                           f, r, wpart, st));
+  RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dqkv, 3 * f}), tr(Mat{xn, f}), dwq,
+                              3 * f, f, r, wpart, st));
   RETURN_IF_ERR(colsum(Mat{dqkv, 3 * f}, dbq, r, 3 * f, cpart, st));
   o = out_to(dxn, f);
   o.R = dx1;
   o.ldr = f;
-  RETURN_IF_ERR(gemm(Mat{dqkv, 3 * f}, tr(Mat{wq, f}), o, r, f, 3 * f, st));
+  RETURN_IF_ERR(tc_gemm(Mat{dqkv, 3 * f}, tr(Mat{wq, f}), o, r, f, 3 * f,
+                        st));
   // xn = LN1(x)
   return layernorm_bwd(dxn, Mat{x, f}, g1, dx, dg1, db1, r, f, mean, rstd,
                        cpart, st);

@@ -46,7 +46,7 @@ _SIGNATURES = {
     'grappa_fused_block_fwd': (_I, [_P] * 13 + _DROP + [_P] * 2 + [_I] * 5
                                + [_F, _P]),
     'grappa_fused_block_bwd_scratch': (_LL, [_I, _I, _I, _I]),
-    'grappa_fused_block_bwd': (_I, [_P] * 14 + _DROP + [_P] * 14
+    'grappa_fused_block_bwd': (_I, [_P] * 14 + _DROP + [_P] * 15
                                + [_I] * 5 + [_F, _P]),
     'grappa_fused_symmetriser_scratch': (_LL, [_I, _I, _I, _P]),
     'grappa_fused_symmetriser_fwd': (

@@ -8,9 +8,11 @@ packed-QKV multi-head attention across the S slots of each tuple, dropout,
 onto the LN2 output, as one op on the (S, T, F) layout.
 
 On CUDA tensors `fused_transformer_block` launches the hand-written kernels
-in `csrc/fused_block.cu`: the forward, and in the backward a kernel chain
-that recomputes the forward and returns dx and the twelve parameter
-gradients (the source notes give the card's bound and the design). On CPU
+in `csrc/fused_block.cu`, whose products run on the tensor cores
+(`csrc/tc_gemm.cuh`): the forward, whose scratch of intermediates autograd
+keeps, and in the backward a kernel chain that reads them and returns dx
+and the twelve parameter gradients (the source notes give the card's bound
+and the design). On CPU
 tensors it runs `reference_block`, the plain PyTorch version, and autograd
 differentiates it. `fused_transformer_block.launches` and
 `fused_transformer_block.bwd_launches` count kernel launches.
@@ -98,14 +100,16 @@ class _BlockKernel(torch.autograd.Function):
             _cuda.head_scale(f // n_heads), _cuda.stream_of(x))
         _cuda.check(rc, 'grappa_fused_block_fwd')
         fused_transformer_block.launches += 1
-        ctx.save_for_backward(x, *params)
+        # the scratch holds the forward's intermediates: the backward reads
+        # them instead of recomputing the forward
+        ctx.save_for_backward(x, scratch, *params)
         ctx.n_heads, ctx.drop = n_heads, drop
         return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        x, *params = ctx.saved_tensors
+        x, saved, *params = ctx.saved_tensors
         dy = _cuda.grad_output(dy, x, 'fused_transformer_block')
         (s, t, f), hid = x.shape, params[8].shape[0]
         lib = _cuda.lib()
@@ -115,7 +119,8 @@ class _BlockKernel(torch.autograd.Function):
         grads = [torch.empty_like(p) for p in (x, *params)]
         rc = lib.grappa_fused_block_bwd(
             *[p.data_ptr() for p in (x, *params, dy)], *ctx.drop,
-            scratch.data_ptr(), *[g.data_ptr() for g in grads], s, t, f, hid,
+            saved.data_ptr(), scratch.data_ptr(),
+            *[g.data_ptr() for g in grads], s, t, f, hid,
             ctx.n_heads, _cuda.head_scale(f // ctx.n_heads),
             _cuda.stream_of(x))
         _cuda.check(rc, 'grappa_fused_block_bwd')

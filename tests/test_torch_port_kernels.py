@@ -9,7 +9,10 @@ without JAX (`python -m pytest tests/test_torch_port_kernels.py
 --noconftest`; the suite's conftest imports JAX). Shapes cover the serving
 path's and the edges the kernels mask: ragged rows, head widths below a
 warp (dh=9, 16), reductions that are not a multiple of the GEMM's K step,
-D < 8 slots, 1-3 symmetriser layers, 6 permutations. Tolerance: forward
+D < 8 slots, 1-3 symmetriser layers, 6 permutations; for K2 / K2b (whose
+products run on the tensor cores) also the n4 head at the training batch,
+shapes ragged against every tile edge and row widths that are not 16-byte
+aligned. Tolerance: forward
 outputs elementwise |kernel - plain| <= 1e-4 + 1e-4 |plain| (float32 sums
 in another order); gradients max |kernel - plain| <= 1e-4 * max |plain|
 per tensor (weight gradients sum thousands of rows, so an element that
@@ -108,16 +111,29 @@ def test_gnn_kernel_matches_plain(cuda, n, f, heads, d):
                                **TOL)
 
 
-@pytest.mark.parametrize('s,t,f,heads,hid', [
-    (2, 70, 512, 8, 512), (3, 1720, 512, 8, 512), (4, 2152, 512, 8, 512),
-    (4, 33, 64, 4, 96), (3, 5, 36, 4, 20)])
-def test_block_kernel_matches_plain(cuda, s, t, f, heads, hid):
+# the n4 head at the training batch, rows / columns / K ragged against the
+# GEMM's 128 x 128 x 32 and 64 x 64 x 32 tiles, widths whose rows are not
+# 16-byte aligned (hid = 22; F = 18), which take 4-byte copies
+BLOCK_SHAPES = [(4, 8256, 512, 8, 512, 0.5), (3, 1, 36, 4, 20, 0.5),
+                (2, 4097, 128, 4, 96, 0.0), (3, 37, 36, 4, 22, 0.5),
+                (2, 45, 18, 2, 10, 0.0)]
+
+
+@pytest.mark.parametrize('s,t,f,heads,hid,rate', [
+    (2, 70, 512, 8, 512, 0.0), (3, 1720, 512, 8, 512, 0.0),
+    (4, 2152, 512, 8, 512, 0.0), (4, 33, 64, 4, 96, 0.0),
+    (3, 5, 36, 4, 20, 0.0)] + BLOCK_SHAPES)
+def test_block_kernel_matches_plain(cuda, s, t, f, heads, hid, rate):
     x, p = _block_case(cuda, s, t, f, hid)
+    seed = 31 if rate else None
+    masks = (tuple(m.to(cuda) for m in philox.dump_masks(
+        seed, (s, t, f), rate, torch.device('cpu'))) if rate else None)
     before = tfb.fused_transformer_block.launches
-    y = tfb.fused_transformer_block(x, p, heads)
+    y = tfb.fused_transformer_block(x, p, heads, rate, True, seed)
     torch.cuda.synchronize()
     assert tfb.fused_transformer_block.launches == before + 1
-    torch.testing.assert_close(y, tfb.reference_block(x, p, heads), **TOL)
+    torch.testing.assert_close(y, tfb.reference_block(x, p, heads, masks),
+                               **TOL)
 
 
 @pytest.mark.parametrize('perms,t,f,width,out,n_layers', [
@@ -228,7 +244,7 @@ def test_gnn_backward_matches_plain(cuda, n, f, heads, d, rate):
 
 @pytest.mark.parametrize('s,t,f,heads,hid,rate', [
     (2, 70, 512, 8, 512, 0.5), (3, 101, 64, 4, 96, 0.0),
-    (4, 2152, 512, 8, 512, 0.5), (3, 5, 36, 4, 20, 0.5)])
+    (4, 2152, 512, 8, 512, 0.5), (3, 5, 36, 4, 20, 0.5)] + BLOCK_SHAPES)
 def test_block_backward_matches_plain(cuda, s, t, f, heads, hid, rate):
     x, p = _block_case(cuda, s, t, f, hid)
     dy = torch.randn((s, t, f), generator=torch.Generator().manual_seed(8))
@@ -280,19 +296,26 @@ def test_backward_kernels_are_deterministic(cuda):
     fn = lambda a, b, c, *q: tfg.fused_gnn_block(a, b, c, mask, q, 8, 0.3,
                                                  True, 5)
     runs = [_grads(fn, [feat, nbr, hn, *p], dy)[1] for _ in range(2)]
-    x, pb = _block_case(cuda, 4, 900, 128, 128)
-    dyb = torch.randn_like(x)
-    fb = lambda a, *q: tfb.fused_transformer_block(a, q, 4, 0.5, True, 6)
-    runs_b = [_grads(fb, [x, *pb], dyb)[1] for _ in range(2)]
+    runs_b = []
+    for s, t, f, heads, hid in ((4, 900, 128, 4, 128), (4, 8256, 512, 8, 512)):
+        # the second: the n4 training shape, whose dW products split K
+        x, pb = _block_case(cuda, s, t, f, hid)
+        dyb = torch.randn_like(x)
+        fb = lambda a, *q: tfb.fused_transformer_block(a, q, heads, 0.5,
+                                                       True, 6)
+        runs_b += list(zip(*[_grads(fb, [x, *pb], dyb)[1]
+                             for _ in range(2)]))
     xs, layers = _sym_case(cuda, 4, 900, 128, 64, 12, 3)
     flat = [q for layer in layers for q in layer]
     dys = torch.randn((900, 12), device=cuda)
     fs = lambda a, *q: tfs.fused_symmetriser(
         a, [q[6 * i:6 * i + 6] for i in range(3)], PERMUTATIONS['n4'])
     runs_s = [_grads(fs, [xs, *flat], dys)[1] for _ in range(2)]
-    for a, b in (runs, runs_b, runs_s):
+    for a, b in (runs, runs_s):
         for ga, gb in zip(a, b):
             assert torch.equal(ga, gb)
+    for ga, gb in runs_b:
+        assert torch.equal(ga, gb)
 
 
 # ---------------------------------------------------------------- masks
