@@ -24,11 +24,13 @@ Phases, each printing its own lines:
      K3 forward, K1b / K2b / K3b against autograd through the plain
      versions (same dropout seeds), the K1m / K2m mask dumps bit-equal to
      the plain Philox, with times and bounds. Then the `block_profile`
-     line: K2 and K2b at the n4 training shape (S=4, T=8256, F=hid=512,
-     dropout 0.5) under torch.profiler, each launch of one call with its
-     device ms (printed above the line) and the device ms by kernel name,
-     beside one torch.matmul (fp32, TF32 off) of the largest product,
-     33024 x 1536 x 512, a yardstick the port never calls.
+     line: K2 / K2b at the n4 training shape (S=4, T=8256, F=hid=512,
+     dropout 0.5), K1 / K1b at the training batch's nodes (N=3376, dropout
+     0.3) and K3 / K3b at the n4 training shape under torch.profiler, each
+     launch of one call with its device ms and share (printed above the
+     line) and the device ms by kernel name, beside one torch.matmul
+     (fp32, TF32 off) of K2's largest product, 33024 x 1536 x 512, a
+     yardstick the port never calls.
   5. training at the default config: (a) one step on the card against the
      same step on the CPU (plain path), dropout off, 8 molecules x 4
      conformers; (b) ten steps with the config's dropout on the 128 x 32
@@ -62,12 +64,12 @@ name and power limit, and {"ok": true, "device": {...}}. In the kernels'
 line, `launches` sums the main paths (the two predict paths and the ten
 training steps for K1-K3; phase 6's four paths for K5;
 `launches_per_path` gives each), and `ms`, `plain_ms`, `bound_ms`,
-`gflop` and `mbytes` sum one call at each shape of each path; K2 and K2b,
-whose products run as 3xTF32 on the tensor cores, also give `bound_tc_ms`
-(3 x their FLOPs at the 495 TFLOP/s TF32 peak). Any failure exits
-non-zero before those lines. `--kernels-only` stops after phase 4 and
-prints the kernels' sums as a `kernel_times` line instead. Needs one CUDA
-device; imports nothing of JAX or of grappa_tpu.
+`gflop` and `mbytes` sum one call at each shape of each path; K1-K3 and
+K1b-K3b also give `bound_tc_ms` (3 x their FLOPs at the 495 TFLOP/s TF32
+peak: the bound of 3xTF32 products, as K2, K1b, K2b and K3b run them).
+Any failure exits non-zero before those lines. `--kernels-only` stops
+after phase 4 and prints the kernels' sums as a `kernel_times` line
+instead. Needs one CUDA device; imports nothing of JAX or of grappa_tpu.
 """
 from __future__ import annotations
 
@@ -87,10 +89,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
-# kernels whose products run as 3xTF32 on the tensor cores (tc_gemm.cuh):
-# their line also gives the bound of 3 TF32 products per float32 product
+# kernels made of float32 products: their line also gives the bound of 3
+# TF32 products per float32 product on the tensor cores, as K2, K1b, K2b and
+# K3b run them (tc_gemm.cuh); K1 and K3 still run FFMA products
 TENSOR_CORE_KERNELS = ('fused_transformer_block',
-                       'fused_transformer_block.backward')
+                       'fused_transformer_block.backward',
+                       'fused_gnn_block.backward',
+                       'fused_symmetriser.backward',
+                       'fused_gnn_block', 'fused_symmetriser')
 
 # kernel vs plain version on the card, both float32 (TF32 off): elementwise
 # |kernel - plain| <= ATOL + RTOL * |plain|; the two sum their products in
@@ -246,55 +252,95 @@ def device_events(torch, fn, iters):
             for e in events]
 
 
-def block_profile(torch, iters=3):
-    """K2 and K2b at the n4 training shape (S=4, T=8256, F=hid=512, 8
-    heads, dropout 0.5) under torch.profiler: each launch of one call with
-    its device ms, and the device ms by kernel name. Beside them one
-    torch.matmul (float32, TF32 off) of the largest product, 33024 x 1536 x
-    512, as a yardstick the port never calls."""
+def block_profile(torch, batch, iters=3):
+    """The kernels' launches under torch.profiler, each launch of one call
+    with its device ms and the device ms by kernel name: K2 and K2b at the
+    n4 training shape (S=4, T=8256, F=hid=512, 8 heads, dropout 0.5), K1
+    and K1b at the training batch's nodes and neighbour list (F=512, 16
+    heads, dropout 0.3), K3 and K3b at the n4 training shape (2
+    permutations, 3 x 256, out 12). Beside them one torch.matmul (float32,
+    TF32 off) of K2's largest product, 33024 x 1536 x 512, as a yardstick
+    the port never calls."""
+    from grappa_tpu_torch.models.heads import PERMUTATIONS
     from grappa_tpu_torch.ops import fused_block as fb
+    from grappa_tpu_torch.ops import fused_gnn as fg
+    from grappa_tpu_torch.ops import fused_symmetriser as fs
     gen = torch.Generator().manual_seed(2468)
+
+    def backward_of(fn, inputs, dy):
+        leaves = [q.detach().clone().requires_grad_(True) for q in inputs]
+        y = fn(*leaves)
+        return lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
     s, t, f, hid, rate, seed = 4, 8256, 512, 512, 0.5, 7
     x = torch.randn((s, t, f), generator=gen).cuda()
     p2 = rand_params(torch, gen, [
         ((f,), 'g'), ((f,), 'b'), ((3 * f, f), 'w'), ((3 * f,), 'b'),
         ((f, f), 'w'), ((f,), 'b'), ((f,), 'g'), ((f,), 'b'),
         ((hid, f), 'w'), ((hid,), 'b'), ((f, hid), 'w'), ((f,), 'b')])
-    leaves = [q.detach().clone().requires_grad_(True) for q in (x, *p2)]
-    y = fb.fused_transformer_block(leaves[0], leaves[1:], 8, rate, True, seed)
-    dy = torch.randn_like(x)
-    calls = {'K2': lambda: fb.fused_transformer_block(x, p2, 8, rate, True,
-                                                      seed),
-             'K2b': lambda: torch.autograd.grad(y, leaves, dy,
-                                                retain_graph=True)}
-    out = {'shape': [s, t, f, hid], 'dropout': rate}
+    k2 = lambda a, *q: fb.fused_transformer_block(a, q, 8, rate, True, seed)
+
+    nb = batch.neighbors
+    n, d = nb.shape
+    feat = torch.randn((n, f), generator=gen).cuda()
+    hn = torch.randn((n, f), generator=gen).cuda()
+    nbr = feat[nb.t()].contiguous()
+    mask = batch.neighbor_mask.t().float().contiguous()
+    p1 = rand_params(torch, gen, [
+        ((f, f), 'w'), ((f,), 'b'), ((f,), 'g'), ((f,), 'b'),
+        ((4 * f, f), 'w'), ((4 * f,), 'b'), ((f, 4 * f), 'w'), ((f,), 'b')])
+    k1 = lambda a, b, c, *q: fg.fused_gnn_block(a, b, c, mask, q, 16, 0.3,
+                                                True, 17)
+
+    perms, width, out = PERMUTATIONS['n4'], 256, 12
+    layers = [rand_params(torch, gen, [
+        ((a,), 'g'), ((a,), 'b'), ((h, a), 'w'), ((h,), 'b'),
+        ((o, h), 'w'), ((o,), 'b')]) for a, h, o in (
+            (s * f, width, width), (width, width, width), (width, width, out))]
+    flat = [q for layer in layers for q in layer]
+    k3 = lambda a, *q: fs.fused_symmetriser(
+        a, [q[6 * j:6 * j + 6] for j in range(3)], perms)
+
+    calls = {'K2': lambda: k2(x, *p2),
+             'K2b': backward_of(k2, [x, *p2], torch.randn_like(x)),
+             'K1': lambda: k1(feat, nbr, hn, *p1),
+             'K1b': backward_of(k1, [feat, nbr, hn, *p1],
+                                torch.randn_like(feat)),
+             'K3': lambda: k3(x, *flat),
+             'K3b': backward_of(k3, [x, *flat],
+                                torch.randn((t, out), device='cuda'))}
+    out_line = {'n4': [s, t, f, hid], 'n4_dropout': rate, 'gnn_nodes': n,
+                'gnn_slots': d, 'gnn_dropout': 0.3,
+                'symmetriser': [len(perms), width, out]}
     for label, fn in calls.items():
         events = device_events(torch, fn, iters)
         if not events or len(events) % iters:
-            out[label] = 'not measured (no device time in a torch.profiler '\
-                         'trace)'
+            out_line[label] = 'not measured (no device time in a '\
+                              'torch.profiler trace)'
             continue
-        n = len(events) // iters      # the launches of one call
-        kernels = [(events[i][0], sum(events[i + j * n][1]
-                                      for j in range(iters)) / iters)
-                   for i in range(n)]
+        n_launch = len(events) // iters      # the launches of one call
+        kernels = [(events[i][0],
+                    sum(events[i + j * n_launch][1]
+                        for j in range(iters)) / iters)
+                   for i in range(n_launch)]
         total = sum(ms for _, ms in kernels)
         by_name = {}
         for name, ms in kernels:
             key = name.split('<')[0]
             by_name[key] = by_name.get(key, 0.0) + ms
-        out[label] = {'device_ms': total, 'launches': len(kernels),
-                      'by_kernel': {k: [v, v / total] for k, v in sorted(
-                          by_name.items(), key=lambda kv: -kv[1])}}
+        out_line[label] = {'device_ms': total, 'launches': len(kernels),
+                           'by_kernel': {k: [v, v / total] for k, v in sorted(
+                               by_name.items(), key=lambda kv: -kv[1])}}
         for i, (name, ms) in enumerate(kernels):
-            print(f'  {label} #{i:02d} {ms:8.4f} ms  {name[:150]}')
+            print(f'  {label} #{i:02d} {ms:8.4f} ms {100 * ms / total:5.1f}%'
+                  f'  {name[:150]}')
     a = torch.randn((s * t, f), generator=gen).cuda()
     b = torch.randn((f, 3 * f), generator=gen).cuda()
     mm_ms = timed(torch, lambda: torch.matmul(a, b), iters=20)
-    out['matmul_33024x1536x512'] = {
+    out_line['matmul_33024x1536x512'] = {
         'ms': mm_ms, 'tflops': 2 * s * t * 3 * f * f / mm_ms / 1e9,
         'allow_tf32': torch.backends.cuda.matmul.allow_tf32}
-    print('block_profile ' + json.dumps(out), flush=True)
+    print('block_profile ' + json.dumps(out_line), flush=True)
 
 
 def enqueue_ms(torch, fn, calls=200):
@@ -1266,7 +1312,7 @@ def main() -> int:
                          for t in ('n2', 'n3', 'n4', 'n4_improper'))),
           flush=True)
     training_kernel_phase(torch, train_batch, entries)
-    block_profile(torch)
+    block_profile(torch, train_batch)
     if kernels_only:
         print('kernel_times ' + json.dumps(entries), flush=True)
         return 1 if FAILURES else 0

@@ -1,10 +1,11 @@
 // Building blocks shared by the port's hand-written Hopper kernels
 // (fused_gnn.cu, fused_block.cu, fused_symmetriser.cu, dropout.cu): an fp32
 // FFMA GEMM tiled through shared memory whose operands are read through
-// loader functors and whose result goes through an epilogue functor, a
-// split-K weight-gradient product with a fixed-order reduction, column sums,
-// warp-per-row LayerNorm forward and backward, and a Philox4x32-10 dropout
-// mask.
+// loader functors and whose result goes through an epilogue functor (the
+// forwards K1 and K3 run on it; tc_gemm.cuh takes the same operands and
+// epilogues on the tensor cores), a fixed-order sum of split-K slices,
+// column sums, warp-per-row LayerNorm forward and backward, and a
+// Philox4x32-10 dropout mask.
 //
 // Every op is a chain of these launches on the caller's stream. Each
 // launcher returns cudaGetLastError() so a refused launch (too many threads,
@@ -45,9 +46,10 @@ __device__ __forceinline__ float elu(float v) {
   return v > 0.f ? v : expm1f(v);
 }
 
-// d elu(v) / dv from the pre-activation v, as the JAX _elu_grad.
-__device__ __forceinline__ float elu_grad(float v) {
-  return v > 0.f ? 1.f : expf(v);
+// d elu(t) / dt formed from the stored activation a = elu(t): 1 where
+// a > 0, else a + 1 (= exp(t)), so no backward recomputes or reloads t.
+__device__ __forceinline__ float elu_grad_of(float a) {
+  return a > 0.f ? 1.f : a + 1.f;
 }
 
 // ---------------------------------------------------------------- dropout
@@ -127,29 +129,16 @@ struct Tr {
   }
 };
 
-// elu applied on load: the activation formed from a stored pre-activation.
-template <class L>
-struct Elu {
-  L in;
-  static constexpr bool kAlongK = L::kAlongK;
-  __device__ __forceinline__ float operator()(int r, int k) const {
-    return elu(in(r, k));
-  }
-};
-
 template <class L>
 Tr<L> tr(const L& l) { return Tr<L>{l}; }
 
 // ---------------------------------------------------------------- epilogues
 // The output epilogue, in this order: + bias[n], elu, x dropout mask,
-// x elu'(gate[m, n]) (gate: a stored pre-activation), + R[m, n] (residual),
-// store to C[m, n].
+// + R[m, n] (residual), store to C[m, n].
 struct Out {
   const float* bias;
   int act_elu;
   Drop drop;
-  const float* gate;
-  int ldg;
   const float* R;
   int ldr;
   float* C;
@@ -159,7 +148,6 @@ struct Out {
     if (bias) v += bias[n];
     if (act_elu) v = elu(v);
     if (drop.on) v *= drop(m, n);
-    if (gate) v *= elu_grad(gate[(size_t)m * ldg + n]);
     if (R) v += R[(size_t)m * ldr + n];
     C[(size_t)m * ldc + n] = v;
   }
@@ -170,14 +158,25 @@ inline Out out_to(float* C, int ldc) {
   o.bias = nullptr;
   o.act_elu = 0;
   o.drop = make_drop(0, 0, 0, 1.f, 0, 0);
-  o.gate = nullptr;
-  o.ldg = 0;
   o.R = nullptr;
   o.ldr = 0;
   o.C = C;
   o.ldc = ldc;
   return o;
 }
+
+// The backward of an elu layer: C[m, n] = v x elu'(t[m, n]), elu' formed
+// from the stored activation a = elu(t) (elu_grad_of).
+struct EluGradOut {
+  float* C;
+  int ldc;
+  const float* a;
+  int lda;
+  __device__ __forceinline__ void operator()(int, int m, int n,
+                                             float v) const {
+    C[(size_t)m * ldc + n] = v * elu_grad_of(a[(size_t)m * lda + n]);
+  }
+};
 
 // Split-K partial sums: slice z of the reduction writes P[z][m][n].
 struct Partial {
@@ -190,10 +189,11 @@ struct Partial {
 };
 
 // ---------------------------------------------------------------- GEMM
-// epi(z, m, n, sum_k A(m, k) * B(n, k)) with k over blockIdx.z's slice
-// [z * k_chunk, (z + 1) * k_chunk) of [0, K). A forward product A @ W^T
-// reads a torch Linear weight W (out, in) as Mat{W, in}; dX = dY @ W reads it
-// as tr(Mat{W, in}); dW = dY^T @ X reads both operands transposed.
+// epi(0, m, n, sum_k A(m, k) * B(n, k)) over k in [0, K) (the epilogue
+// contract of tc_gemm.cuh, whose first argument is a split-K slice). A
+// forward product A @ W^T reads a torch Linear weight W (out, in) as
+// Mat{W, in}; dX = dY @ W reads it as tr(Mat{W, in}); dW = dY^T @ X reads
+// both operands transposed.
 //
 // Tile BM x BN per block of 256 threads, K in steps of 8 through shared
 // memory (stored K-major, padded by 4 floats against bank conflicts); each
@@ -201,7 +201,7 @@ struct Partial {
 // shared-memory reads are conflict-free. Ragged M, N and K are masked.
 template <int BM, int BN, int TM, int TN, class AL, class BL, class Epi>
 __global__ void __launch_bounds__(kThreads)
-gemm_kernel(AL A, BL B, Epi epi, int M, int N, int K, int k_chunk) {
+gemm_kernel(AL A, BL B, Epi epi, int M, int N, int K) {
   constexpr int BK = 8;
   constexpr int RT = BM / TM;
   constexpr int CT = BN / TN;
@@ -212,8 +212,6 @@ gemm_kernel(AL A, BL B, Epi epi, int M, int N, int K, int k_chunk) {
   const int tid = threadIdx.x;
   const int tr_ = tid / CT, tc = tid % CT;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int kb = blockIdx.z * k_chunk;
-  const int ke = min(K, kb + k_chunk);
 
   float acc[TM][TN];
 #pragma unroll
@@ -221,7 +219,7 @@ gemm_kernel(AL A, BL B, Epi epi, int M, int N, int K, int k_chunk) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = kb; k0 < ke; k0 += BK) {
+  for (int k0 = 0; k0 < K; k0 += BK) {
 #pragma unroll
     for (int i = tid; i < BM * BK; i += kThreads) {
       int r, c;
@@ -233,7 +231,7 @@ gemm_kernel(AL A, BL B, Epi epi, int M, int N, int K, int k_chunk) {
         r = i % BM;
       }
       const int gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < ke) ? A(gm, gk) : 0.f;
+      As[c][r] = (gm < M && gk < K) ? A(gm, gk) : 0.f;
     }
 #pragma unroll
     for (int i = tid; i < BN * BK; i += kThreads) {
@@ -246,7 +244,7 @@ gemm_kernel(AL A, BL B, Epi epi, int M, int N, int K, int k_chunk) {
         r = i % BN;
       }
       const int gn = n0 + r, gk = k0 + c;
-      Bs[c][r] = (gn < N && gk < ke) ? B(gn, gk) : 0.f;
+      Bs[c][r] = (gn < N && gk < K) ? B(gn, gk) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -271,34 +269,27 @@ gemm_kernel(AL A, BL B, Epi epi, int M, int N, int K, int k_chunk) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int gn = n0 + tc + j * CT;
-      if (gn < N) epi(blockIdx.z, gm, gn, acc[i][j]);
+      if (gn < N) epi(0, gm, gn, acc[i][j]);
     }
   }
 }
 
-// 128x128 tiles when they alone give at least one block per SM of the H100
-// (132), else 64x64 tiles for more blocks.
-template <class AL, class BL, class Epi>
-int launch_gemm(const AL& a, const BL& b, const Epi& epi, int M, int N, int K,
-                int splits, int k_chunk, cudaStream_t st) {
-  if (M == 0 || N == 0) return (int)cudaGetLastError();
-  if ((long long)cdiv(M, 128) * cdiv(N, 128) * splits >= 132) {
-    dim3 grid(cdiv(M, 128), cdiv(N, 128), splits);
-    gemm_kernel<128, 128, 8, 8, AL, BL, Epi><<<grid, kThreads, 0, st>>>(
-        a, b, epi, M, N, K, k_chunk);
-  } else {
-    dim3 grid(cdiv(M, 64), cdiv(N, 64), splits);
-    gemm_kernel<64, 64, 4, 4, AL, BL, Epi><<<grid, kThreads, 0, st>>>(
-        a, b, epi, M, N, K, k_chunk);
-  }
-  return (int)cudaGetLastError();
-}
-
-// epi(A B^T) over the whole of K in one pass.
+// epi(A B^T): 128x128 tiles when they alone give at least one block per SM
+// of the H100 (132), else 64x64 tiles for more blocks.
 template <class AL, class BL, class Epi>
 int gemm(const AL& a, const BL& b, const Epi& epi, int M, int N, int K,
          cudaStream_t st) {
-  return launch_gemm(a, b, epi, M, N, K, 1, K > 0 ? K : 1, st);
+  if (M == 0 || N == 0) return (int)cudaGetLastError();
+  if ((long long)cdiv(M, 128) * cdiv(N, 128) >= 132) {
+    dim3 grid(cdiv(M, 128), cdiv(N, 128));
+    gemm_kernel<128, 128, 8, 8, AL, BL, Epi><<<grid, kThreads, 0, st>>>(
+        a, b, epi, M, N, K);
+  } else {
+    dim3 grid(cdiv(M, 64), cdiv(N, 64));
+    gemm_kernel<64, 64, 4, 4, AL, BL, Epi><<<grid, kThreads, 0, st>>>(
+        a, b, epi, M, N, K);
+  }
+  return (int)cudaGetLastError();
 }
 
 // The forward form: C = epilogue(A @ W^T) with W (N, K) row-major.
@@ -334,35 +325,18 @@ int sum_slices(const float* P, float* y, int Z, long long n,
   return (int)cudaGetLastError();
 }
 
-// Slices of the reduction axis for a weight gradient: enough blocks for two
-// waves on 132 SMs, each slice at least 256 rows long. A pure function of
-// the shape, so the summation order is fixed.
-inline int wgrad_splits(int M, int N, int K) {
-  const long long tiles = (long long)cdiv(M, 64) * cdiv(N, 64);
-  int s = cdiv(264, tiles);
-  s = s < K / 256 ? s : K / 256;
-  s = s < kMaxSplits ? s : kMaxSplits;
-  return s > 1 ? s : 1;
-}
-
 // Floats of split-K scratch a weight gradient of M x N needs.
 inline long long wgrad_scratch(long long M, long long N) {
   return kMaxSplits * M * N;
 }
 
-// dW[m, n] = sum_k A(m, k) B(n, k) over a long k (the rows of a batch):
-// the slices of k run in parallel into `partial` and sum_slices adds them in
-// slice order.
-template <class AL, class BL>
-int gemm_wgrad(const AL& a, const BL& b, float* dW, int M, int N, int K,
-               float* partial, cudaStream_t st) {
-  const int s = wgrad_splits(M, N, K);
-  if (s == 1) return gemm(a, b, out_to(dW, N), M, N, K, st);
-  const int chunk = cdiv(cdiv(K, s), 8) * 8;
-  const int used = cdiv(K, chunk);
-  RETURN_IF_ERR(launch_gemm(a, b, Partial{partial, M, N}, M, N, K, used,
-                            chunk, st));
-  return sum_slices(partial, dW, used, (long long)M * N, st);
+// The offset of the next n floats of a scratch layout, advancing o by n
+// rounded up to 4: every piece starts 16-byte aligned, so tc_gemm.cuh's
+// 16-byte copies apply to it whatever the row counts.
+inline size_t carve(size_t& o, long long n) {
+  const size_t at = o;
+  o += (size_t)((n + 3) / 4 * 4);
+  return at;
 }
 
 // ---------------------------------------------------------------- column sums
@@ -525,26 +499,27 @@ int layernorm_bwd(const float* dy, const XL& x, const float* g, float* dx,
 }
 
 // ---------------------------------------------------------------- elementwise
-// y[m, n] = x[m, n] * mask(m, n) * elu'(gate[m, n]) over an M x N matrix;
-// either factor is left out when its mask is off / its gate is null.
+// y[m, n] = x[m, n] * mask(m, n) * elu'(m, n) over an M x N matrix, elu'
+// formed from the stored activation act (elu_grad_of); either factor is left
+// out when its mask is off / act is null.
 __global__ void __launch_bounds__(kThreads)
 mask_grad_kernel(const float* __restrict__ x, Drop drop,
-                 const float* __restrict__ gate, float* __restrict__ y,
+                 const float* __restrict__ act, float* __restrict__ y,
                  long long total) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= total) return;
   float v = x[i];
   if (drop.on) v *= drop.at((unsigned long long)i);
-  if (gate) v *= elu_grad(gate[i]);
+  if (act) v *= elu_grad_of(act[i]);
   y[i] = v;
 }
 
-int mask_grad(const float* x, const Drop& drop, const float* gate, float* y,
+int mask_grad(const float* x, const Drop& drop, const float* act, float* y,
               int M, int N, cudaStream_t st) {
   const long long total = (long long)M * N;
   if (total > 0)
     mask_grad_kernel<<<cdiv(total, kThreads), kThreads, 0, st>>>(
-        x, drop, gate, y, total);
+        x, drop, act, y, total);
   return (int)cudaGetLastError();
 }
 

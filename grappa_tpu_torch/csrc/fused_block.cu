@@ -209,20 +209,6 @@ int attention_bwd(const float* qkv, const float* dattn0, float* dqkv, int s,
   return (int)cudaGetLastError();
 }
 
-// dT = (dY W2) x elu'(tt), tt = x1n w1^T + c1, with elu' formed from the
-// stored activation a = elu(tt): 1 where a > 0, else a + 1 (= exp(tt)).
-struct EluGradOut {
-  float* C;
-  int ldc;
-  const float* a;
-  int lda;
-  __device__ __forceinline__ void operator()(int, int m, int n,
-                                             float v) const {
-    const float s = a[(size_t)m * lda + n];
-    C[(size_t)m * ldc + n] = v * (s > 0.f ? 1.f : s + 1.f);
-  }
-};
-
 // The forward's intermediates, which the backward reads: xn = LN1(x),
 // qkv, attn0, x1 = (attn0 wo^T + bo) * mask1 + xn, x1n = LN2(x1) and the
 // FF's activation a = elu(x1n w1^T + c1), R = S*T rows each.

@@ -14,24 +14,32 @@
 //
 // Bound on an H100 SXM: the forward's three dense products are
 // 2*(F*F + 2*F*4F) = 4.7 MFLOP a row (F=512), against ~8 KB a row of input
-// and output with D=8 slots: bound by operations at the 67 TFLOP/s fp32
-// peak outside the tensor cores. The backward's own work is two products
-// per forward product (dX = dY W and dW = dY^T X), 9.4 MFLOP a row; this
-// design also recomputes the forward (as JAX, which saves only the op's
-// inputs), so it runs 3x the forward, 14.2 MFLOP a row. At the 128-molecule
-// training batch (N=3376 padded rows): 15.9 GFLOP forward, 0.24 ms at the
-// peak; 31.9 GFLOP backward, 0.48 ms.
+// and output with D=8 slots: bound by operations. The backward's work is
+// two products per forward product (dX = dY W and dW = dY^T X), 9.4 MFLOP
+// a row. At the 128-molecule training batch (N=3376 padded rows): 15.9
+// GFLOP forward, 0.24 ms at the 67 TFLOP/s fp32 peak outside the tensor
+// cores; 31.9 GFLOP backward, 0.48 ms there, or 0.19 ms as 3xTF32 (three
+// TF32 products per float32 product) at the 495 TFLOP/s tensor-core peak.
 //
-// Design (bring-up, right before fast): chains of launches on the caller's
-// stream -- the attention pass (one warp per node and head, the D slot
-// scores reduced across the warp's lanes), shared-memory tiled fp32 FFMA
-// GEMMs with fused epilogues (bias, elu, dropout, residual) and LayerNorm
-// passes. The backward recomputes attn0, x1, x1n and the two
-// pre-activations into scratch, regenerates the masks from the seed (no mask
-// is stored), and reduces the weight gradients over the N rows in split-K
-// slices plus a fixed-order sum (no atomics: two runs give the same bits).
-// The ragged node edge is masked in every kernel, so nothing is padded.
-#include "common.cuh"
+// Design: chains of launches on the caller's stream. Forward (fp32 FFMA
+// GEMMs of common.cuh) -- the attention pass (one warp per node and head,
+// the D slot scores reduced across the warp's lanes), the head_reducer GEMM
+// with dropout and the + hn residual in its epilogue, LayerNorm, the two FF
+// GEMMs (elu; then elu, dropout and the + x1n residual, whose epilogue also
+// stores the activation e2 before dropout). The forward's scratch keeps
+// attn0, x1, x1n, e1 = elu(t1) and e2 = elu(t2), N x (4F + hid) floats, and
+// the backward reads them instead of recomputing the forward. Backward --
+// every product on the tensor cores through tc_gemm.cuh (3xTF32 mma.sync
+// fed by a cp.async ring; its note gives the design): the masks
+// regenerated from the seed (no mask is stored) with elu' formed from the
+// stored activation (1 where a > 0, else a + 1) in one elementwise pass or
+// in a GEMM's epilogue, dX = dY W GEMMs with the residual or elu' in their
+// epilogue, split-K dW = dY^T X GEMMs whose fixed slices are summed in
+// slice order (no atomics: two runs give the same bits), column sums, the
+// LayerNorm backward (re-deriving the row statistics from x1 in its row
+// pass) and the attention backward (one warp per node and head). The ragged
+// node edge is masked in every kernel, so nothing is padded.
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -151,52 +159,61 @@ int attention(const float* feat, const float* nbr, const float* mask,
   return (int)cudaGetLastError();
 }
 
-// The forward after the attention pass: x1 = (attn0 wr^T + br) * mask1 + hn,
-// x1n = LN(x1); then either y = elu(elu(x1n w1^T + c1) w2^T + c2) * mask2
-// + x1n (forward: e1 holds the hidden activation), or, for the backward,
-// the pre-activations t1 = x1n w1^T + c1 (in e1) and t2 = elu(t1) w2^T + c2
-// (in y).
-int block_tail(const float* attn0, const float* hn, const float* wr,
-               const float* br, const float* g2, const float* b2,
-               const float* w1, const float* c1, const float* w2,
-               const float* c2, const Drop& m1, const Drop& m2, float* x1,
-               float* x1n, float* e1, float* y, int n, int f, int hid,
-               bool for_backward, cudaStream_t st) {
-  RETURN_IF_ERR(gemm(Mat{attn0, f}, wr, f, br, hn, f, x1, f, n, f, f, false,
-                     st, m1));
-  RETURN_IF_ERR(layernorm(x1, f, x1n, f, g2, b2, n, f, st));
-  RETURN_IF_ERR(gemm(Mat{x1n, f}, w1, f, c1, nullptr, 0, e1, hid, n, hid, f,
-                     !for_backward, st));
-  if (for_backward)
-    return gemm(Elu<Mat>{Mat{e1, hid}}, w2, hid, c2, nullptr, 0, y, f, n, f,
-                hid, false, st);
-  return gemm(Mat{e1, hid}, w2, hid, c2, x1n, f, y, f, n, f, hid, true,
-              st, m2);
+// y = elu(v + c2) * mask2 + x1n for the last FF GEMM's sums v, storing the
+// activation e2 = elu(v + c2) (before dropout) for the backward as well.
+struct TailOut {
+  const float* bias;
+  Drop drop;
+  const float* R;
+  float* E;
+  float* C;
+  int ld;
+  __device__ __forceinline__ void operator()(int, int m, int n,
+                                             float v) const {
+    const size_t at = (size_t)m * ld + n;
+    v = elu(v + bias[n]);
+    E[at] = v;
+    if (drop.on) v *= drop(m, n);
+    C[at] = v + R[at];
+  }
+};
+
+// The forward's intermediates, which the backward reads: attn0, x1 =
+// (attn0 wr^T + br) * mask1 + hn, x1n = LN(x1), e1 = elu(x1n w1^T + c1)
+// and e2 = elu(e1 w2^T + c2).
+struct FwdLayout {
+  size_t attn0, x1, x1n, e1, e2, total;
+};
+
+FwdLayout fwd_layout(long long n, long long f, long long hid) {
+  FwdLayout l;
+  size_t o = 0;
+  l.attn0 = carve(o, n * f);
+  l.x1 = carve(o, n * f);
+  l.x1n = carve(o, n * f);
+  l.e1 = carve(o, n * hid);
+  l.e2 = carve(o, n * f);
+  l.total = o;
+  return l;
 }
 
 struct BwdLayout {
-  size_t attn0, x1, x1n, t1, t2, dt2, dt1, dx1n, da1, dattn0, mean, rstd,
-      wpart, cpart, total;
+  size_t dt2, dt1, dx1n, da1, dattn0, mean, rstd, wpart, cpart, total;
 };
 
 BwdLayout bwd_layout(long long n, long long f, long long hid) {
   BwdLayout l;
   size_t o = 0;
-  l.attn0 = o; o += n * f;
-  l.x1 = o; o += n * f;
-  l.x1n = o; o += n * f;
-  l.t1 = o; o += n * hid;
-  l.t2 = o; o += n * f;
-  l.dt2 = o; o += n * f;
-  l.dt1 = o; o += n * hid;
-  l.dx1n = o; o += n * f;
-  l.da1 = o; o += n * f;
-  l.dattn0 = o; o += n * f;
-  l.mean = o; o += n;
-  l.rstd = o; o += n;
+  l.dt2 = carve(o, n * f);
+  l.dt1 = carve(o, n * hid);
+  l.dx1n = carve(o, n * f);
+  l.da1 = carve(o, n * f);
+  l.dattn0 = carve(o, n * f);
+  l.mean = carve(o, n);
+  l.rstd = carve(o, n);
   const long long wide = hid > f ? hid : f;
-  l.wpart = o; o += wgrad_scratch(wide, f);
-  l.cpart = o; o += colsum_scratch(n, wide);
+  l.wpart = carve(o, wgrad_scratch(wide, f));
+  l.cpart = carve(o, colsum_scratch(n, wide));
   l.total = o;
   return l;
 }
@@ -205,10 +222,10 @@ BwdLayout bwd_layout(long long n, long long f, long long hid) {
 
 extern "C" {
 
-// Floats of scratch the forward needs: attn0, x1, x1n (N x F each) and the
-// hidden activation (N x hid).
+// Floats of the forward's scratch: its intermediates (FwdLayout), N x (4F +
+// hid). The backward reads them: keep the scratch until it has run.
 long long grappa_fused_gnn_scratch(int n, int f, int hid) {
-  return 3LL * n * f + (long long)n * hid;
+  return (long long)fwd_layout(n, f, hid).total;
 }
 
 // feat, hn, y: (N, F); nbr: (D, N, F); mask: (D, N); weights in torch
@@ -224,16 +241,20 @@ int grappa_fused_gnn_fwd(const float* feat, const float* nbr, const float* hn,
                          int hid, int d, int n_heads, float scale,
                          void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  float* attn0 = scratch;
-  float* x1 = attn0 + (size_t)n * f;
-  float* x1n = x1 + (size_t)n * f;
-  float* e1 = x1n + (size_t)n * f;
+  const FwdLayout l = fwd_layout(n, f, hid);
+  float *attn0 = scratch + l.attn0, *x1 = scratch + l.x1,
+        *x1n = scratch + l.x1n, *e1 = scratch + l.e1, *e2 = scratch + l.e2;
   const Drop m1 = make_drop(seed, 0, threshold, drop_scale, drop_on, f);
   const Drop m2 = make_drop(seed, 1, threshold, drop_scale, drop_on, f);
   RETURN_IF_ERR(attention(feat, nbr, mask, attn0, n, f, d, n_heads, scale,
                           st));
-  return block_tail(attn0, hn, wr, br, g2, b2, w1, c1, w2, c2, m1, m2, x1,
-                    x1n, e1, y, n, f, hid, false, st);
+  RETURN_IF_ERR(gemm(Mat{attn0, f}, wr, f, br, hn, f, x1, f, n, f, f, false,
+                     st, m1));
+  RETURN_IF_ERR(layernorm(x1, f, x1n, f, g2, b2, n, f, st));
+  RETURN_IF_ERR(gemm(Mat{x1n, f}, w1, f, c1, nullptr, 0, e1, hid, n, hid, f,
+                     true, st));
+  return gemm(Mat{e1, hid}, Mat{w2, hid}, TailOut{c2, m2, x1n, e2, y, f}, n,
+              f, hid, st);
 }
 
 long long grappa_fused_gnn_bwd_scratch(int n, int f, int hid) {
@@ -242,52 +263,45 @@ long long grappa_fused_gnn_bwd_scratch(int n, int f, int hid) {
 
 // Gradients of the forward above for dy (N, F): dfeat, dhn (N, F), dnbr
 // (D, N, F) and the eight parameter gradients in the parameters' shapes.
-int grappa_fused_gnn_bwd(const float* feat, const float* nbr, const float* hn,
-                         const float* mask, const float* wr, const float* br,
-                         const float* g2, const float* b2, const float* w1,
-                         const float* c1, const float* w2, const float* c2,
-                         const float* dy, uint32_t seed, uint32_t threshold,
-                         float drop_scale, int drop_on, float* scratch,
+// `fwd` is the forward's scratch from the same inputs, read only; hn and
+// the biases are not read (the intermediates hold their effect).
+int grappa_fused_gnn_bwd(const float* feat, const float* nbr,
+                         const float* mask, const float* wr, const float* g2,
+                         const float* w1, const float* w2, const float* dy,
+                         uint32_t seed, uint32_t threshold, float drop_scale,
+                         int drop_on, const float* fwd, float* scratch,
                          float* dfeat, float* dnbr, float* dhn, float* dwr,
                          float* dbr, float* dg2, float* db2, float* dw1,
                          float* dc1, float* dw2, float* dc2, int n, int f,
                          int hid, int d, int n_heads, float scale,
                          void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const FwdLayout lf = fwd_layout(n, f, hid);
+  const float *attn0 = fwd + lf.attn0, *x1 = fwd + lf.x1,
+              *x1n = fwd + lf.x1n, *e1 = fwd + lf.e1, *e2 = fwd + lf.e2;
   const BwdLayout l = bwd_layout(n, f, hid);
   float* s = scratch;
-  float *attn0 = s + l.attn0, *x1 = s + l.x1, *x1n = s + l.x1n,
-        *t1 = s + l.t1, *t2 = s + l.t2, *dt2 = s + l.dt2, *dt1 = s + l.dt1,
-        *dx1n = s + l.dx1n, *da1 = s + l.da1, *dattn0 = s + l.dattn0,
-        *mean = s + l.mean, *rstd = s + l.rstd, *wpart = s + l.wpart,
-        *cpart = s + l.cpart;
+  float *dt2 = s + l.dt2, *dt1 = s + l.dt1, *dx1n = s + l.dx1n,
+        *da1 = s + l.da1, *dattn0 = s + l.dattn0, *mean = s + l.mean,
+        *rstd = s + l.rstd, *wpart = s + l.wpart, *cpart = s + l.cpart;
   const Drop m1 = make_drop(seed, 0, threshold, drop_scale, drop_on, f);
   const Drop m2 = make_drop(seed, 1, threshold, drop_scale, drop_on, f);
 
-  // recompute the forward's intermediates
-  RETURN_IF_ERR(attention(feat, nbr, mask, attn0, n, f, d, n_heads, scale,
-                          st));
-  RETURN_IF_ERR(block_tail(attn0, hn, wr, br, g2, b2, w1, c1, w2, c2, m1, m2,
-                           x1, x1n, t1, t2, n, f, hid, true, st));
-
-  // y = elu(t2) * mask2 + x1n
-  RETURN_IF_ERR(mask_grad(dy, m2, t2, dt2, n, f, st));
-  // t2 = elu(t1) w2^T + c2
-  RETURN_IF_ERR(gemm_wgrad(tr(Mat{dt2, f}), tr(Elu<Mat>{Mat{t1, hid}}), dw2,
-                           f, hid, n, wpart, st));
+  // y = e2 * mask2 + x1n, e2 = elu(t2), t2 = e1 w2^T + c2
+  RETURN_IF_ERR(mask_grad(dy, m2, e2, dt2, n, f, st));
+  RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dt2, f}), tr(Mat{e1, hid}), dw2, f, hid,
+                              n, wpart, st));
   RETURN_IF_ERR(colsum(Mat{dt2, f}, dc2, n, f, cpart, st));
-  Out o = out_to(dt1, hid);
-  o.gate = t1;
-  o.ldg = hid;
-  RETURN_IF_ERR(gemm(Mat{dt2, f}, tr(Mat{w2, hid}), o, n, hid, f, st));
-  // t1 = x1n w1^T + c1
-  RETURN_IF_ERR(gemm_wgrad(tr(Mat{dt1, hid}), tr(Mat{x1n, f}), dw1, hid, f,
-                           n, wpart, st));
+  RETURN_IF_ERR(tc_gemm(Mat{dt2, f}, tr(Mat{w2, hid}),
+                        EluGradOut{dt1, hid, e1, hid}, n, hid, f, st));
+  // e1 = elu(t1), t1 = x1n w1^T + c1; x1n also feeds the residual
+  RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dt1, hid}), tr(Mat{x1n, f}), dw1, hid, f,
+                              n, wpart, st));
   RETURN_IF_ERR(colsum(Mat{dt1, hid}, dc1, n, hid, cpart, st));
-  o = out_to(dx1n, f);
+  Out o = out_to(dx1n, f);
   o.R = dy;
   o.ldr = f;
-  RETURN_IF_ERR(gemm(Mat{dt1, hid}, tr(Mat{w1, f}), o, n, f, hid, st));
+  RETURN_IF_ERR(tc_gemm(Mat{dt1, hid}, tr(Mat{w1, f}), o, n, f, hid, st));
   // x1n = LN(x1); x1 = a1 * mask1 + hn, so dhn = dx1
   RETURN_IF_ERR(layernorm_bwd(dx1n, Mat{x1, f}, g2, dhn, dg2, db2, n, f, mean,
                               rstd, cpart, st));
@@ -297,11 +311,11 @@ int grappa_fused_gnn_bwd(const float* feat, const float* nbr, const float* hn,
     da = da1;
   }
   // a1 = attn0 wr^T + br
-  RETURN_IF_ERR(gemm_wgrad(tr(Mat{da, f}), tr(Mat{attn0, f}), dwr, f, f, n,
-                           wpart, st));
+  RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{da, f}), tr(Mat{attn0, f}), dwr, f, f, n,
+                              wpart, st));
   RETURN_IF_ERR(colsum(Mat{da, f}, dbr, n, f, cpart, st));
-  RETURN_IF_ERR(gemm(Mat{da, f}, tr(Mat{wr, f}), out_to(dattn0, f), n, f, f,
-                     st));
+  RETURN_IF_ERR(tc_gemm(Mat{da, f}, tr(Mat{wr, f}), out_to(dattn0, f), n, f,
+                        f, st));
   if (n > 0)
     gnn_attention_bwd_kernel<<<cdiv((long long)n * n_heads, kWarps), kThreads,
                                0, st>>>(feat, nbr, mask, dattn0, dfeat, dnbr,

@@ -11,28 +11,37 @@
 //
 // Bound on an H100 SXM: with P permutations, width W=256 and 3 layers the
 // products are 2*P*(S*F*W + 4*W*W + W*out) FLOP a tuple: 3.2 MFLOP for a
-// (4, 512) tuple and 2 permutations, bound by operations at the 67 TFLOP/s
-// fp32 peak outside the tensor cores. The backward's own work is twice
-// that; this design also recomputes the chain, 3x. At the 128-molecule
-// training batch the four heads' calls are 56 GFLOP forward (0.83 ms at
-// the peak) and 111 GFLOP backward (1.67 ms).
+// (4, 512) tuple and 2 permutations, bound by operations. The backward's
+// work is twice that. At the 128-molecule training batch the four heads'
+// calls are 56 GFLOP forward (0.83 ms at the 67 TFLOP/s fp32 peak outside
+// the tensor cores) and 111 GFLOP backward (1.67 ms there, 0.68 ms as
+// 3xTF32 at the 495 TFLOP/s tensor-core peak).
 //
-// Design (bring-up, right before fast): all P permutations run as one batch
-// of P*T rows. The first layer's rows are never stored permuted: a
-// statistics pass computes each permuted row's mean and 1/std by addressing
-// the S planes of x through the permutation, and the first GEMM's A loader
-// forms the normalised row element by element from those planes. Later
-// layers are LayerNorm + two GEMMs each (elu and the skip residual in the
-// GEMM epilogues); a last pass sums the P row blocks in permutation order.
-// The backward recomputes each layer's input, normalised input and
-// pre-activation, then walks the chain back: dW = dY^T X over all P*T rows
-// in split-K slices (so the sum over permutations is part of the product,
-// in a fixed order), dX = dY W with elu' or the skip in the epilogue, a
-// LayerNorm backward per layer (the first one reads x through the
-// permutation), and a last pass that adds each permuted row's gradient back
-// into the S planes of dx in permutation order -- no permuted copy, no
-// atomics.
-#include "common.cuh"
+// Design: all P permutations run as one batch of P*T rows. Forward (fp32
+// FFMA GEMMs of common.cuh) -- the first layer's rows are never stored
+// permuted: a statistics pass computes each permuted row's mean and 1/std
+// by addressing the S planes of x through the permutation, and the first
+// GEMM's A loader forms the normalised row element by element from those
+// planes. Later layers are LayerNorm + two GEMMs each (elu and the skip
+// residual in the GEMM epilogues); a last pass sums the P row blocks in
+// permutation order. The forward's scratch keeps what the backward reads:
+// layer 0's row mean and 1/std, and per layer its activation elu(t_i) and,
+// from layer 1 on, its input h_i and normalised input hn_i. Backward --
+// every product on the tensor cores through tc_gemm.cuh (3xTF32 mma.sync
+// fed by a cp.async ring, which takes stored operands only): one
+// elementwise pass first writes layer 0's normalised permuted rows hn_0
+// (P*T x S*F) from x and the saved statistics; then per layer, last first,
+// dW = dY^T X over all P*T rows in fixed split-K slices summed in slice
+// order (so the sum over permutations is part of the product, in a fixed
+// order), dX = dY W with elu' (formed from the stored activation) or the
+// skip in the epilogue, column sums and a LayerNorm backward. Layer 0's
+// LayerNorm backward reads x through the permutation with the saved
+// statistics, in two passes: the row means, then one thread a column of x
+// that adds each permutation's gradient at that element into dx in
+// permutation order (no permuted gradient is stored) and keeps the dg / db
+// partial sums. The element passes address x slot by slot, with no
+// division per element. No atomics: two runs give the same bits.
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -46,14 +55,19 @@ struct PermRows {
   int T, F;
   int perm[kMaxPerm][kMaxS];
   static constexpr bool kAlongK = true;
+  // slot s of permutation p's row for tuple t: x[perm[p][s], t, :]
+  __device__ __forceinline__ const float* slot(int p, int s, int t) const {
+    return x + ((size_t)perm[p][s] * T + t) * F;
+  }
   __device__ __forceinline__ float operator()(int r, int k) const {
     const int p = r / T, t = r - p * T;
-    const int s = k / F, f = k - s * F;
-    return x[((size_t)perm[p][s] * T + t) * F + f];
+    const int s = k / F;
+    return slot(p, s, t)[k - s * F];
   }
 };
 
-// The first layer's A operand: LayerNorm of the permuted row, formed on load.
+// The first layer's A operand: LayerNorm of the permuted row (the forward's
+// FFMA GEMM forms it on load, the backward stores it once: perm_ln_kernel).
 struct PermLNLoad {
   PermRows rows;
   const float* mean;
@@ -66,27 +80,10 @@ struct PermLNLoad {
   }
 };
 
-// dx[s, t, f] = sum_p dflat[p*T + t, pos[p][s]*F + f] in permutation order,
-// pos[p][s] being the place of slot s in permutation p.
+// pos[p][s]: the place of slot s in permutation p (perm[p][pos[p][s]] = s).
 struct PermPos {
   int pos[kMaxPerm][kMaxS];
 };
-
-__global__ void __launch_bounds__(kThreads)
-perm_scatter_kernel(const float* __restrict__ dflat, float* __restrict__ dx,
-                    PermPos pp, int P, int S, int T, int F) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long total = (long long)S * T * F;
-  if (i >= total) return;
-  const int f = (int)(i % F);
-  const int t = (int)((i / F) % T);
-  const int s = (int)(i / ((long long)F * T));
-  const size_t width = (size_t)S * F;
-  float acc = 0.f;
-  for (int p = 0; p < P; ++p)
-    acc += dflat[((size_t)p * T + t) * width + pp.pos[p][s] * F + f];
-  dx[i] = acc;
-}
 
 // dz[r, o] = dy[r % T, o]: the output gradient of every permutation's row.
 __global__ void __launch_bounds__(kThreads)
@@ -108,77 +105,210 @@ PermRows perm_rows(const float* x, int s, int t, int f, const int* perms,
   return pr;
 }
 
+constexpr int kMaxLayers = 16;
+
 bool bad_shape(int s, int n_perm, int n_layers) {
   return s < 1 || s > kMaxS || n_perm < 1 || n_perm > kMaxPerm ||
-         n_layers < 1;
+         n_layers < 1 || n_layers > kMaxLayers;
 }
 
-struct Layout {
-  size_t mean, rstd, e, h, hn, z, total;
+// hn_0[r, :] = LayerNorm of the permuted row r from the forward's row
+// statistics, one warp a row, slot by slot (no division per element):
+// layer 0's A operand, stored for tc_gemm.
+__global__ void __launch_bounds__(kThreads)
+perm_ln_kernel(PermLNLoad ln, float* __restrict__ hn0, int M, int S) {
+  const PermRows& pr = ln.rows;
+  const int r = blockIdx.x * kWarps + threadIdx.x / 32, F = pr.F;
+  if (r >= M) return;
+  const int p = r / pr.T, t = r - p * pr.T;
+  const float mu = ln.mean[r], rs = ln.rstd[r];
+  float* out = hn0 + (size_t)r * S * F;
+  for (int s = 0; s < S; ++s) {
+    const float* xr = pr.slot(p, s, t);
+    for (int f = threadIdx.x & 31; f < F; f += 32) {
+      const int k = s * F + f;
+      out[k] = (xr[f] - mu) * rs * ln.g[k] + ln.b[k];
+    }
+  }
+}
+
+// Layer 0's LayerNorm backward through the permutation, with the forward's
+// row statistics (L = S*F, xhat = (x - mean) rstd, dxhat = dy g):
+//   dx = (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) rstd,
+//   dg = sum over rows of dy xhat, db = sum over rows of dy.
+// Pass 1, one warp a permuted row: its two means into ma, mb.
+__global__ void __launch_bounds__(kThreads)
+perm_ln_bwd_rows_kernel(const float* __restrict__ dy, PermRows pr,
+                        const float* __restrict__ mean,
+                        const float* __restrict__ rstd,
+                        const float* __restrict__ g, float* __restrict__ ma,
+                        float* __restrict__ mb, int M, int S) {
+  const int r = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (r >= M) return;
+  const int F = pr.F, L = S * F;
+  const int p = r / pr.T, t = r - p * pr.T;
+  const float mu = mean[r], rs = rstd[r];
+  const float* dyr = dy + (size_t)r * L;
+  float a = 0.f, b = 0.f;
+  for (int s = 0; s < S; ++s) {
+    const float* xr = pr.slot(p, s, t);
+    for (int f = lane; f < F; f += 32) {
+      const float dxh = dyr[s * F + f] * g[s * F + f];
+      a += dxh;
+      b += dxh * (xr[f] - mu) * rs;
+    }
+  }
+  a = warp_sum(a) / L;
+  b = warp_sum(b) / L;
+  if (lane == 0) {
+    ma[r] = a;
+    mb[r] = b;
+  }
+}
+
+// Pass 2, one thread a column (s, f) of x over chunks of 64 tuples: for
+// each permutation p, the gradient at x[s, t, f]'s place in p's row, col[p]
+// = pos[p][s]*F + f, summed over p into dx in permutation order (the
+// permuted rows' gradient is never stored); and per p the chunk's partial
+// sums of dy xhat (pg) and dy (pb) at col[p], slice chunk*P + p, added in
+// slice order by sum_slices.
+__global__ void __launch_bounds__(kThreads)
+perm_ln_bwd_cols_kernel(const float* __restrict__ dy,
+                        const float* __restrict__ x, PermPos pp,
+                        const float* __restrict__ mean,
+                        const float* __restrict__ rstd,
+                        const float* __restrict__ g,
+                        const float* __restrict__ ma,
+                        const float* __restrict__ mb, float* __restrict__ dx,
+                        float* __restrict__ pg, float* __restrict__ pb, int P,
+                        int S, int T, int F) {
+  const int L = S * F;
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= L) return;
+  const int s = c / F, f = c - s * F;
+  int col[kMaxPerm];
+  float gk[kMaxPerm], sg[kMaxPerm], sb[kMaxPerm];
+#pragma unroll
+  for (int p = 0; p < kMaxPerm; ++p) {
+    col[p] = p < P ? pp.pos[p][s] * F + f : 0;
+    gk[p] = p < P ? g[col[p]] : 0.f;
+    sg[p] = sb[p] = 0.f;
+  }
+  const int t0 = blockIdx.y * kColChunk, t1 = min(T, t0 + kColChunk);
+  for (int t = t0; t < t1; ++t) {
+    const size_t at = ((size_t)s * T + t) * F + f;
+    const float xv = x[at];
+    float acc = 0.f;
+#pragma unroll
+    for (int p = 0; p < kMaxPerm; ++p) {
+      if (p < P) {
+        const int r = p * T + t;
+        const float rs = rstd[r];
+        const float xhat = (xv - mean[r]) * rs;
+        const float d = dy[(size_t)r * L + col[p]];
+        acc += (d * gk[p] - ma[r] - xhat * mb[r]) * rs;
+        sg[p] += d * xhat;
+        sb[p] += d;
+      }
+    }
+    dx[at] = acc;
+  }
+#pragma unroll
+  for (int p = 0; p < kMaxPerm; ++p) {
+    if (p < P) {
+      const size_t at = ((size_t)blockIdx.y * P + p) * L + col[p];
+      pg[at] = sg[p];
+      pb[at] = sb[p];
+    }
+  }
+}
+
+int tuple_chunks(int t) { return t > 0 ? cdiv(t, kColChunk) : 1; }
+
+// The two passes, then dg and db from their partials (2 x tuple_chunks(T)
+// x P x L floats of `partial`): dx (S, T, F) directly.
+int perm_layernorm_bwd(const float* dy, const PermRows& pr, const PermPos& pp,
+                       int P, int S, const float* mean, const float* rstd,
+                       const float* g, float* dx, float* dg, float* db,
+                       float* ma, float* mb, float* partial,
+                       cudaStream_t st) {
+  const int T = pr.T, F = pr.F, L = S * F, M = P * T;
+  if (M > 0)
+    perm_ln_bwd_rows_kernel<<<cdiv(M, kWarps), kThreads, 0, st>>>(
+        dy, pr, mean, rstd, g, ma, mb, M, S);
+  RETURN_IF_ERR((int)cudaGetLastError());
+  if (L == 0) return (int)cudaGetLastError();
+  const int slices = tuple_chunks(T) * P;
+  float* pb = partial + (size_t)slices * L;
+  perm_ln_bwd_cols_kernel<<<dim3(cdiv(L, kThreads), tuple_chunks(T)),
+                            kThreads, 0, st>>>(dy, pr.x, pp, mean, rstd, g,
+                                               ma, mb, dx, partial, pb, P, S,
+                                               T, F);
+  RETURN_IF_ERR((int)cudaGetLastError());
+  RETURN_IF_ERR(sum_slices(partial, dg, slices, L, st));
+  return sum_slices(pb, db, slices, L, st);
+}
+
+// The forward's scratch, which the backward reads: layer 0's row mean and
+// 1/std, then per layer i its input h_i and normalised input hn_i (i >= 1;
+// h_i is layer i-1's output) and its activation e_i = elu(hn_i w1^T + c1);
+// z, the last layer's output per permutation before their sum.
+struct FwdLayout {
+  size_t mean0, rstd0, h[kMaxLayers], hn[kMaxLayers], e[kMaxLayers], z,
+      total;
 };
 
-// dims[3*i .. 3*i+2] = (in, hid, out) of layer i.
-Layout layout(long long rows, int n_layers, const int* dims) {
-  long long hid = 0, mid = 0, in_later = 0;
+// dims[3*i .. 3*i+2] = (in, hid, out) of layer i; n_layers <= kMaxLayers.
+FwdLayout fwd_layout(long long rows, int n_layers, const int* dims) {
+  FwdLayout l;
+  size_t o = 0;
+  l.mean0 = carve(o, rows);
+  l.rstd0 = carve(o, rows);
   for (int i = 0; i < n_layers; ++i) {
-    hid = dims[3 * i + 1] > hid ? dims[3 * i + 1] : hid;
-    if (i < n_layers - 1 && dims[3 * i + 2] > mid) mid = dims[3 * i + 2];
-    if (i > 0 && dims[3 * i] > in_later) in_later = dims[3 * i];
+    const long long in = dims[3 * i], hid = dims[3 * i + 1];
+    l.h[i] = i > 0 ? carve(o, rows * in) : 0;
+    l.hn[i] = i > 0 ? carve(o, rows * in) : 0;
+    l.e[i] = carve(o, rows * hid);
   }
-  Layout l;
-  l.mean = 0;
-  l.rstd = l.mean + rows;
-  l.e = l.rstd + rows;
-  l.h = l.e + rows * hid;
-  l.hn = l.h + rows * mid;
-  l.z = l.hn + rows * in_later;
-  l.total = l.z + rows * dims[3 * (n_layers - 1) + 2];
+  l.z = carve(o, rows * dims[3 * (n_layers - 1) + 2]);
+  l.total = o;
   return l;
 }
 
-// Backward scratch: the forward's per-layer input h_i, normalised input
-// hn_i (layers >= 1) and pre-activation t_i (every layer), then the
-// gradient buffers, row statistics and reduction partials.
+// The backward's own scratch: hn_0 (P*T x S*F, layer 0's A operand); the
+// output and input gradients of the layer being walked; row statistics and
+// reduction partials (column sums, or layer 0's LayerNorm backward's two
+// at once).
 struct BwdLayout {
-  size_t layer[16][3];      // offsets of h_i, hn_i, t_i (layers < 16)
-  size_t mean0, rstd0, mean, rstd, dout, dt, dhn, dflat, wpart, cpart, total;
+  size_t hn0, dout, dt, dhn, mean, rstd, wpart, cpart, total;
 };
 
-constexpr int kMaxLayers = 16;
-
-BwdLayout bwd_layout(long long rows, int s, int f, int n_layers,
-                     const int* dims) {
-  BwdLayout l;
-  size_t o = 0;
-  long long wide = (long long)s * f, hid = 0, wmax = 0;
+BwdLayout bwd_layout(int n_perm, int t, int n_layers, const int* dims) {
+  const long long rows = (long long)n_perm * t;
+  long long in_max = 0, hid = 0, out_max = 0, wmax = 0;
   for (int i = 0; i < n_layers; ++i) {
     const long long in = dims[3 * i], hd = dims[3 * i + 1],
                     out = dims[3 * i + 2];
-    l.layer[i][0] = o;
-    l.layer[i][1] = o;
-    if (i > 0) {
-      o += rows * in;
-      l.layer[i][1] = o;
-      o += rows * in;
-    }
-    l.layer[i][2] = o;
-    o += rows * hd;
+    in_max = in > in_max ? in : in_max;
     hid = hd > hid ? hd : hid;
-    wide = in > wide ? in : wide;
-    wide = out > wide ? out : wide;
+    out_max = out > out_max ? out : out_max;
     const long long w = (in > out ? in : out) * hd;
     wmax = w > wmax ? w : wmax;
   }
-  l.mean0 = o; o += rows;
-  l.rstd0 = o; o += rows;
-  l.mean = o; o += rows;
-  l.rstd = o; o += rows;
-  l.dout = o; o += rows * wide;
-  l.dt = o; o += rows * hid;
-  l.dhn = o; o += rows * wide;
-  l.dflat = o; o += rows * (long long)s * f;
-  l.wpart = o; o += kMaxSplits * wmax;
-  l.cpart = o; o += colsum_scratch(rows, wide > hid ? wide : hid);
+  const long long wide = in_max > out_max ? in_max : out_max;
+  const long long sums = colsum_scratch(rows, wide > hid ? wide : hid),
+                  ln0 = 2LL * tuple_chunks(t) * n_perm * dims[0];
+  BwdLayout l;
+  size_t o = 0;
+  l.hn0 = carve(o, rows * dims[0]);
+  l.dout = carve(o, rows * out_max);   // in_i = out_{i-1} for i >= 1
+  l.dt = carve(o, rows * hid);
+  l.dhn = carve(o, rows * in_max);
+  l.mean = carve(o, rows);
+  l.rstd = carve(o, rows);
+  l.wpart = carve(o, kMaxSplits * wmax);
+  l.cpart = carve(o, sums > ln0 ? sums : ln0);
   l.total = o;
   return l;
 }
@@ -187,9 +317,12 @@ BwdLayout bwd_layout(long long rows, int s, int f, int n_layers,
 
 extern "C" {
 
+// Floats of the forward's scratch (FwdLayout); -1 above kMaxLayers. The
+// backward reads it: keep the scratch until it has run.
 long long grappa_fused_symmetriser_scratch(int n_perm, int t, int n_layers,
                                            const int* dims) {
-  return (long long)layout((long long)n_perm * t, n_layers, dims).total;
+  if (n_layers < 1 || n_layers > kMaxLayers) return -1;
+  return (long long)fwd_layout((long long)n_perm * t, n_layers, dims).total;
 }
 
 // x: (S, T, F); perms: n_perm x S host ints; params: host array of
@@ -203,94 +336,76 @@ int grappa_fused_symmetriser_fwd(const float* x, int s, int t, int f,
   if (bad_shape(s, n_perm, n_layers)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = n_perm * t;
-  const Layout l = layout(rows, n_layers, dims);
-  float* mean = scratch + l.mean;
-  float* rstd = scratch + l.rstd;
-  float* e = scratch + l.e;
-  float* h = scratch + l.h;
-  float* hn = scratch + l.hn;
-  float* z = scratch + l.z;
+  const FwdLayout l = fwd_layout(rows, n_layers, dims);
+  float* mean0 = scratch + l.mean0;
+  float* rstd0 = scratch + l.rstd0;
   const PermRows pr = perm_rows(x, s, t, f, perms, n_perm);
-  RETURN_IF_ERR(row_stats(pr, mean, rstd, rows, s * f, st));
+  RETURN_IF_ERR(row_stats(pr, mean0, rstd0, rows, s * f, st));
 
   for (int i = 0; i < n_layers; ++i) {
     const float* const* p = params + 6 * i;
     const int in = dims[3 * i], hid = dims[3 * i + 1], out = dims[3 * i + 2];
     const bool last = i == n_layers - 1;
     const bool skip = i > 0 && !last;
-    float* dst = last ? z : h;
+    float* e = scratch + l.e[i];
+    float* hn = scratch + l.hn[i];
     if (i == 0) {
-      PermLNLoad a{pr, mean, rstd, p[0], p[1]};
+      PermLNLoad a{pr, mean0, rstd0, p[0], p[1]};
       RETURN_IF_ERR(gemm(a, p[2], in, p[3], nullptr, 0, e, hid, rows, hid,
                          in, true, st));
     } else {
-      // h is consumed here, so the second GEMM may overwrite it below
-      RETURN_IF_ERR(layernorm(h, in, hn, in, p[0], p[1], rows, in, st));
+      RETURN_IF_ERR(layernorm(scratch + l.h[i], in, hn, in, p[0], p[1], rows,
+                              in, st));
       RETURN_IF_ERR(gemm(Mat{hn, in}, p[2], in, p[3], nullptr, 0, e, hid,
                          rows, hid, in, true, st));
     }
+    float* dst = scratch + (last ? l.z : l.h[i + 1]);
     RETURN_IF_ERR(gemm(Mat{e, hid}, p[4], hid, p[5], skip ? hn : nullptr, in,
                        dst, out, rows, out, hid, false, st));
   }
-  return sum_slices(z, y, n_perm, (long long)t * dims[3 * (n_layers - 1) + 2],
-                    st);
+  return sum_slices(scratch + l.z, y, n_perm,
+                    (long long)t * dims[3 * (n_layers - 1) + 2], st);
 }
 
-long long grappa_fused_symmetriser_bwd_scratch(int s, int f, int n_perm,
-                                               int t, int n_layers,
+long long grappa_fused_symmetriser_bwd_scratch(int n_perm, int t,
+                                               int n_layers,
                                                const int* dims) {
-  if (n_layers > kMaxLayers) return -1;
-  return (long long)bwd_layout((long long)n_perm * t, s, f, n_layers, dims)
-      .total;
+  if (n_layers < 1 || n_layers > kMaxLayers) return -1;
+  return (long long)bwd_layout(n_perm, t, n_layers, dims).total;
 }
 
 // Gradients of the forward above for dy (T, out): dx (S, T, F) and, in
 // grads (6 * n_layers device pointers, the order of params), every
-// parameter gradient summed over the permutations.
+// parameter gradient summed over the permutations. `fwd` is the forward's
+// scratch from the same inputs, read only; the linear biases are not read.
 int grappa_fused_symmetriser_bwd(const float* x, int s, int t, int f,
                                  const int* perms, int n_perm,
                                  const float* const* params, const int* dims,
                                  int n_layers, const float* dy,
-                                 float* scratch, float* dx,
+                                 const float* fwd, float* scratch, float* dx,
                                  float* const* grads, void* stream) {
-  if (bad_shape(s, n_perm, n_layers) || n_layers > kMaxLayers)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(s, n_perm, n_layers)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = n_perm * t;
-  const BwdLayout l = bwd_layout(rows, s, f, n_layers, dims);
+  const FwdLayout lf = fwd_layout(rows, n_layers, dims);
+  const BwdLayout l = bwd_layout(n_perm, t, n_layers, dims);
   float* q = scratch;
-  float *mean0 = q + l.mean0, *rstd0 = q + l.rstd0, *mean = q + l.mean,
-        *rstd = q + l.rstd, *dout = q + l.dout, *dt = q + l.dt,
-        *dhn = q + l.dhn, *dflat = q + l.dflat, *wpart = q + l.wpart,
-        *cpart = q + l.cpart;
+  float *hn0 = q + l.hn0, *dout = q + l.dout, *dt = q + l.dt,
+        *dhn = q + l.dhn, *mean = q + l.mean, *rstd = q + l.rstd,
+        *wpart = q + l.wpart, *cpart = q + l.cpart;
   const PermRows pr = perm_rows(x, s, t, f, perms, n_perm);
-  const PermLNLoad ln0{pr, mean0, rstd0, params[0], params[1]};
+  PermPos pp;
+  for (int p = 0; p < kMaxPerm; ++p)
+    for (int j = 0; j < kMaxS; ++j) pp.pos[p][j] = 0;
+  for (int p = 0; p < n_perm; ++p)
+    for (int j = 0; j < s; ++j) pp.pos[p][perms[p * s + j]] = j;
 
-  // recompute: h_i (i >= 1), hn_i (i >= 1) and t_i
-  RETURN_IF_ERR(row_stats(pr, mean0, rstd0, rows, s * f, st));
-  for (int i = 0; i < n_layers; ++i) {
-    const float* const* p = params + 6 * i;
-    const int in = dims[3 * i], hid = dims[3 * i + 1], out = dims[3 * i + 2];
-    float* hn = q + l.layer[i][1];
-    float* ti = q + l.layer[i][2];
-    if (i == 0) {
-      RETURN_IF_ERR(gemm(ln0, p[2], in, p[3], nullptr, 0, ti, hid, rows, hid,
-                         in, false, st));
-    } else {
-      RETURN_IF_ERR(gemm(Mat{hn, in}, p[2], in, p[3], nullptr, 0, ti, hid,
-                         rows, hid, in, false, st));
-    }
-    if (i == n_layers - 1) break;
-    // h_{i+1} = elu(t_i) w2^T + c2 (+ hn_i on the middle layers), then LN
-    const bool skip = i > 0;
-    float* hnext = q + l.layer[i + 1][0];
-    RETURN_IF_ERR(gemm(Elu<Mat>{Mat{ti, hid}}, p[4], hid, p[5],
-                       skip ? hn : nullptr, in, hnext, out, rows, out, hid,
-                       false, st));
-    const float* const* pn = params + 6 * (i + 1);
-    RETURN_IF_ERR(layernorm(hnext, out, q + l.layer[i + 1][1], out, pn[0],
-                            pn[1], rows, out, st));
-  }
+  // hn_0: layer 0's normalised permuted rows, the A operand of its dW1
+  const float *mean0 = fwd + lf.mean0, *rstd0 = fwd + lf.rstd0;
+  if (rows > 0)
+    perm_ln_kernel<<<cdiv(rows, kWarps), kThreads, 0, st>>>(
+        PermLNLoad{pr, mean0, rstd0, params[0], params[1]}, hn0, rows, s);
+  RETURN_IF_ERR((int)cudaGetLastError());
 
   // every permutation's output row gets dy
   const int out_last = dims[3 * (n_layers - 1) + 2];
@@ -305,52 +420,36 @@ int grappa_fused_symmetriser_bwd(const float* x, int s, int t, int f,
     float* const* g = grads + 6 * i;
     const int in = dims[3 * i], hid = dims[3 * i + 1], out = dims[3 * i + 2];
     const bool skip = i > 0 && i < n_layers - 1;
-    const float* ti = q + l.layer[i][2];
-    // out = elu(t_i) w2^T + c2 (+ hn_i)
-    RETURN_IF_ERR(gemm_wgrad(tr(Mat{dout, out}), tr(Elu<Mat>{Mat{ti, hid}}),
-                             g[4], out, hid, rows, wpart, st));
+    const float* e = fwd + lf.e[i];
+    const float* hn = i > 0 ? fwd + lf.hn[i] : hn0;
+    // out = e_i w2^T + c2 (+ hn_i), e_i = elu(t_i)
+    RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dout, out}), tr(Mat{e, hid}), g[4],
+                                out, hid, rows, wpart, st));
     RETURN_IF_ERR(colsum(Mat{dout, out}, g[5], rows, out, cpart, st));
-    Out o = out_to(dt, hid);
-    o.gate = ti;
-    o.ldg = hid;
-    RETURN_IF_ERR(gemm(Mat{dout, out}, tr(Mat{p[4], hid}), o, rows, hid, out,
-                       st));
+    RETURN_IF_ERR(tc_gemm(Mat{dout, out}, tr(Mat{p[4], hid}),
+                          EluGradOut{dt, hid, e, hid}, rows, hid, out, st));
     // t_i = hn_i w1^T + c1
-    if (i == 0)
-      RETURN_IF_ERR(gemm_wgrad(tr(Mat{dt, hid}), tr(ln0), g[2], hid, in, rows,
-                               wpart, st));
-    else
-      RETURN_IF_ERR(gemm_wgrad(tr(Mat{dt, hid}), tr(Mat{q + l.layer[i][1],
-                                                          in}),
-                               g[2], hid, in, rows, wpart, st));
+    RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dt, hid}), tr(Mat{hn, in}), g[2], hid,
+                                in, rows, wpart, st));
     RETURN_IF_ERR(colsum(Mat{dt, hid}, g[3], rows, hid, cpart, st));
-    o = out_to(dhn, in);
+    Out o = out_to(dhn, in);
     if (skip) {
       o.R = dout;
       o.ldr = out;
     }
-    RETURN_IF_ERR(gemm(Mat{dt, hid}, tr(Mat{p[2], in}), o, rows, in, hid,
-                       st));
-    // hn_i = LN(h_i); h_i is the previous layer's output (or, for layer 0,
-    // the permuted row of x)
+    RETURN_IF_ERR(tc_gemm(Mat{dt, hid}, tr(Mat{p[2], in}), o, rows, in, hid,
+                          st));
+    // hn_i = LN(h_i); h_i is the previous layer's output (for layer 0, the
+    // permuted row of x, whose gradient goes straight into dx)
     if (i > 0)
-      RETURN_IF_ERR(layernorm_bwd(dhn, Mat{q + l.layer[i][0], in}, p[0], dout,
+      RETURN_IF_ERR(layernorm_bwd(dhn, Mat{fwd + lf.h[i], in}, p[0], dout,
                                   g[0], g[1], rows, in, mean, rstd, cpart,
                                   st));
     else
-      RETURN_IF_ERR(layernorm_bwd(dhn, pr, p[0], dflat, g[0], g[1], rows, in,
-                                  mean, rstd, cpart, st));
+      RETURN_IF_ERR(perm_layernorm_bwd(dhn, pr, pp, n_perm, s, mean0, rstd0,
+                                       p[0], dx, g[0], g[1], mean, rstd,
+                                       cpart, st));
   }
-
-  PermPos pp;
-  for (int p = 0; p < kMaxPerm; ++p)
-    for (int j = 0; j < kMaxS; ++j) pp.pos[p][j] = 0;
-  for (int p = 0; p < n_perm; ++p)
-    for (int j = 0; j < s; ++j) pp.pos[p][perms[p * s + j]] = j;
-  const long long n = (long long)s * t * f;
-  if (n > 0)
-    perm_scatter_kernel<<<cdiv(n, kThreads), kThreads, 0, st>>>(
-        dflat, dx, pp, n_perm, s, t, f);
   return (int)cudaGetLastError();
 }
 

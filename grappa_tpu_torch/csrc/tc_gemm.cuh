@@ -1,8 +1,9 @@
 // A float32 GEMM on the H100's tensor cores: 3xTF32 mma.sync products fed
-// by a cp.async ring of shared-memory stages. Same contract as common.cuh's
-// FFMA gemm: epi(z, m, n, sum_k A(m, k) B(n, k)) over blockIdx.z's slice of
-// the reduction, operands given as the loader views Mat and Tr<Mat>, and
-// any epilogue of that contract (Out, Partial, ...).
+// by a cp.async ring of shared-memory stages. The epilogue contract of
+// common.cuh's FFMA gemm: epi(z, m, n, sum_k A(m, k) B(n, k)) over
+// blockIdx.z's slice of the reduction, operands given as the loader views
+// Mat and Tr<Mat>, and any epilogue of that contract (Out, EluGradOut,
+// Partial, ...).
 //
 // Arithmetic. Each operand element is split as a = big + small with
 // big = cvt.rna.tf32(a) and small = cvt.rna.tf32(a - big); the products
@@ -26,9 +27,9 @@
 // Copies are 16 bytes where the operand's base and row stride are 16-byte
 // aligned (checked on the host per launch), else 4 bytes; the ragged M, N
 // and K edges are zero-filled by the copies' source size. A transform on
-// load (common.cuh's Elu loader) cannot ride cp.async and is not taken:
-// applied to each fragment it is recomputed by every warp that reads the
-// element, so a caller stores the transformed operand instead.
+// load (an elu, a LayerNorm of gathered rows) cannot ride cp.async and is
+// not taken: applied to each fragment it is recomputed by every warp that
+// reads the element, so a caller stores the transformed operand instead.
 //
 // Tiles. 128 x 128 blocks of 8 warps, each warp 64 x 32 (4 x 4 m16n8
 // tiles), 4 stages (147 KB of dynamic shared memory, one block an SM);

@@ -40,7 +40,7 @@ _SIGNATURES = {
     'grappa_fused_gnn_fwd': (_I, [_P] * 12 + _DROP + [_P] * 2 + [_I] * 5
                              + [_F, _P]),
     'grappa_fused_gnn_bwd_scratch': (_LL, [_I, _I, _I]),
-    'grappa_fused_gnn_bwd': (_I, [_P] * 13 + _DROP + [_P] * 12 + [_I] * 5
+    'grappa_fused_gnn_bwd': (_I, [_P] * 8 + _DROP + [_P] * 13 + [_I] * 5
                              + [_F, _P]),
     'grappa_fused_block_scratch': (_LL, [_I, _I, _I, _I]),
     'grappa_fused_block_fwd': (_I, [_P] * 13 + _DROP + [_P] * 2 + [_I] * 5
@@ -51,9 +51,9 @@ _SIGNATURES = {
     'grappa_fused_symmetriser_scratch': (_LL, [_I, _I, _I, _P]),
     'grappa_fused_symmetriser_fwd': (
         _I, [_P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P]),
-    'grappa_fused_symmetriser_bwd_scratch': (_LL, [_I] * 5 + [_P]),
+    'grappa_fused_symmetriser_bwd_scratch': (_LL, [_I, _I, _I, _P]),
     'grappa_fused_symmetriser_bwd': (
-        _I, [_P, _I, _I, _I, _P, _I, _P, _P, _I] + [_P] * 5),
+        _I, [_P, _I, _I, _I, _P, _I, _P, _P, _I] + [_P] * 6),
     'grappa_dropout_masks': (_I, [_U, _U, _F, _LL, _P, _P, _P]),
     'grappa_torsion_energy': (_I, [_P, _P, _P, _I, _I, _I, _P]),
 }

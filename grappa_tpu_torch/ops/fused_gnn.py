@@ -14,12 +14,14 @@ scatter-add of dnbr) stay in torch autograd (in `models.gnn`), as the JAX
 package leaves them to XLA.
 
 On CUDA tensors `fused_gnn_block` launches the hand-written kernels in
-`csrc/fused_gnn.cu`: the forward, and in the backward a kernel chain that
-recomputes the forward and returns dfeat, dnbr, dhn and the eight parameter
-gradients (the source notes give the card's bound and the design). On CPU
-tensors it runs `reference_gnn_block`, the plain PyTorch version, and
-autograd differentiates it. `fused_gnn_block.launches` and
-`fused_gnn_block.bwd_launches` count kernel launches.
+`csrc/fused_gnn.cu`: the forward, whose scratch of intermediates autograd
+keeps, and in the backward a kernel chain that reads them, runs its
+products on the tensor cores (`csrc/tc_gemm.cuh`) and returns dfeat, dnbr,
+dhn and the eight parameter gradients (the source notes give the card's
+bound and the design). On CPU tensors it runs `reference_gnn_block`, the
+plain PyTorch version, and autograd differentiates it.
+`fused_gnn_block.launches` and `fused_gnn_block.bwd_launches` count
+kernel launches.
 
 Dropout (training mode, rate > 0) takes a 32-bit `seed`: mask 1 (after
 head_reducer) and mask 2 (after the FF's elu) are Philox bits keyed by
@@ -116,25 +118,29 @@ class _GnnBlockKernel(torch.autograd.Function):
             n_heads, _cuda.head_scale(f // n_heads), _cuda.stream_of(feat))
         _cuda.check(rc, 'grappa_fused_gnn_fwd')
         fused_gnn_block.launches += 1
-        ctx.save_for_backward(feat, nbr, hn, mask, *params)
+        # the scratch holds the forward's intermediates: the backward reads
+        # them instead of recomputing the forward
+        ctx.save_for_backward(feat, nbr, mask, scratch, *params)
         ctx.n_heads, ctx.drop = n_heads, drop
         return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        feat, nbr, hn, mask, *params = ctx.saved_tensors
+        feat, nbr, mask, saved, *params = ctx.saved_tensors
+        wr, _, g2, _, w1, _, w2, _ = params    # the biases are not read
         dy = _cuda.grad_output(dy, feat, 'fused_gnn_block')
-        (d, n, f), hid = nbr.shape, params[4].shape[0]
+        (d, n, f), hid = nbr.shape, w1.shape[0]
         lib = _cuda.lib()
         scratch = torch.empty(lib.grappa_fused_gnn_bwd_scratch(n, f, hid),
                               dtype=torch.float32, device=feat.device)
-        grads = [torch.empty_like(t) for t in (feat, nbr, hn, *params)]
+        # dfeat, dnbr, dhn (hn has feat's shape) and the parameters'
+        grads = [torch.empty_like(t) for t in (feat, nbr, feat, *params)]
         rc = lib.grappa_fused_gnn_bwd(
-            *[t.data_ptr() for t in (feat, nbr, hn, mask, *params, dy)],
-            *ctx.drop, scratch.data_ptr(), *[g.data_ptr() for g in grads],
-            n, f, hid, d, ctx.n_heads, _cuda.head_scale(f // ctx.n_heads),
-            _cuda.stream_of(feat))
+            *[t.data_ptr() for t in (feat, nbr, mask, wr, g2, w1, w2, dy)],
+            *ctx.drop, saved.data_ptr(), scratch.data_ptr(),
+            *[g.data_ptr() for g in grads], n, f, hid, d, ctx.n_heads,
+            _cuda.head_scale(f // ctx.n_heads), _cuda.stream_of(feat))
         _cuda.check(rc, 'grappa_fused_gnn_bwd')
         fused_gnn_block.bwd_launches += 1
         dfeat, dnbr, dhn, *dparams = grads

@@ -9,8 +9,10 @@ function; its counterpart is the flax `Symmetriser` module, and here
 `reference_symmetriser`.
 
 On CUDA tensors `fused_symmetriser` launches the hand-written kernels in
-`csrc/fused_symmetriser.cu`: the forward, and in the backward a kernel
-chain that recomputes each permutation's chain and returns dx and every
+`csrc/fused_symmetriser.cu`: the forward, whose scratch (each layer's
+activation, input and normalised input, the first layer's row statistics)
+autograd keeps, and in the backward a kernel chain that reads it, runs its
+products on the tensor cores (`csrc/tc_gemm.cuh`) and returns dx and every
 parameter gradient summed over the permutations (the source notes give the
 card's bound and the design). On CPU tensors it runs
 `reference_symmetriser`, and autograd differentiates it.
@@ -37,7 +39,7 @@ from grappa_tpu_torch.ops import _cuda
 
 MAX_PERMUTATIONS = 6   # the kernel's permutation table
 MAX_ARITY = 4
-MAX_LAYERS = 16        # the backward kernel's layer table
+MAX_LAYERS = 16        # the kernels' layer table
 
 
 def reference_symmetriser(x, layers: Sequence[Sequence[torch.Tensor]],
@@ -118,14 +120,16 @@ class _SymmetriserKernel(torch.autograd.Function):
             _cuda.stream_of(x))
         _cuda.check(rc, 'grappa_fused_symmetriser_fwd')
         fused_symmetriser.launches += 1
-        ctx.save_for_backward(x, *flat)
+        # the scratch holds the forward's intermediates, which the backward
+        # reads
+        ctx.save_for_backward(x, scratch, *flat)
         ctx.permutations, ctx.n_layers = permutations, n_layers
         return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        x, *flat = ctx.saved_tensors
+        x, saved, *flat = ctx.saved_tensors
         dy = _cuda.grad_output(dy, x, 'fused_symmetriser')
         s, t, f = x.shape
         n_layers, permutations = ctx.n_layers, ctx.permutations
@@ -135,14 +139,15 @@ class _SymmetriserKernel(torch.autograd.Function):
         lib = _cuda.lib()
         scratch = torch.empty(
             lib.grappa_fused_symmetriser_bwd_scratch(
-                s, f, len(permutations), t, n_layers, dims),
+                len(permutations), t, n_layers, dims),
             dtype=torch.float32, device=x.device)
         dx = torch.empty_like(x)
         grads = [torch.empty_like(p) for p in flat]
         rc = lib.grappa_fused_symmetriser_bwd(
             x.data_ptr(), s, t, f, perms, len(permutations), _pointers(flat),
-            dims, n_layers, dy.data_ptr(), scratch.data_ptr(), dx.data_ptr(),
-            _pointers(grads), _cuda.stream_of(x))
+            dims, n_layers, dy.data_ptr(), saved.data_ptr(),
+            scratch.data_ptr(), dx.data_ptr(), _pointers(grads),
+            _cuda.stream_of(x))
         _cuda.check(rc, 'grappa_fused_symmetriser_bwd')
         fused_symmetriser.bwd_launches += 1
         return (dx, None, None, *grads)

@@ -9,10 +9,10 @@ without JAX (`python -m pytest tests/test_torch_port_kernels.py
 --noconftest`; the suite's conftest imports JAX). Shapes cover the serving
 path's and the edges the kernels mask: ragged rows, head widths below a
 warp (dh=9, 16), reductions that are not a multiple of the GEMM's K step,
-D < 8 slots, 1-3 symmetriser layers, 6 permutations; for K2 / K2b (whose
-products run on the tensor cores) also the n4 head at the training batch,
-shapes ragged against every tile edge and row widths that are not 16-byte
-aligned. Tolerance: forward
+D < 8 slots, 1-3 symmetriser layers, 6 permutations; for K2 / K2b, K1b and
+K3b (whose products run on the tensor cores) also the training batch's
+shapes (the n4 head; N = 3376 nodes), shapes ragged against every tile edge
+and row widths that are not 16-byte aligned. Tolerance: forward
 outputs elementwise |kernel - plain| <= 1e-4 + 1e-4 |plain| (float32 sums
 in another order); gradients max |kernel - plain| <= 1e-4 * max |plain|
 per tensor (weight gradients sum thousands of rows, so an element that
@@ -217,8 +217,11 @@ def _assert_grads(got, want, names):
         assert err <= GRAD_RTOL * max(scale, 1e-30), (name, err, scale)
 
 
+# the training batch's padded nodes, and one more (ragged against the
+# tensor-core GEMM's tiles and split-K slices)
 @pytest.mark.parametrize('n,f,heads,d,rate', [
-    (50, 64, 4, 6, 0.0), (33, 36, 4, 3, 0.3), (1376, 512, 16, 8, 0.3)])
+    (50, 64, 4, 6, 0.0), (33, 36, 4, 3, 0.3), (1376, 512, 16, 8, 0.3),
+    (3376, 512, 16, 8, 0.3), (3377, 512, 16, 8, 0.3)])
 def test_gnn_backward_matches_plain(cuda, n, f, heads, d, rate):
     (feat, nbr, hn, mask), p = _gnn_case(cuda, n, f, d)
     dy = torch.randn((n, f), generator=torch.Generator().manual_seed(7))
@@ -264,11 +267,16 @@ def test_block_backward_matches_plain(cuda, s, t, f, heads, hid, rate):
                              'b2', 'w1', 'c1', 'w2', 'c2'])
 
 
+# the n4 head at the training batch (split-K weight gradients, 16-byte
+# copies), and an n2 shape whose rows (F = 18, width 30, out = 2) take the
+# tensor-core GEMM's 4-byte copies
 @pytest.mark.parametrize('perms,t,f,width,out,n_layers', [
     (PERMUTATIONS['n4'], 2152, 512, 256, 12, 3),
     (WRONG_SYMMETRY_IMPROPER, 552, 512, 256, 6, 3),
     (PERMUTATIONS['n2'], 70, 36, 64, 1, 1),
-    (PERMUTATIONS['n3'], 101, 64, 48, 2, 2)])
+    (PERMUTATIONS['n3'], 101, 64, 48, 2, 2),
+    (PERMUTATIONS['n4'], 8256, 512, 256, 12, 3),
+    (PERMUTATIONS['n2'], 3377, 18, 30, 2, 3)])
 def test_symmetriser_backward_matches_plain(cuda, perms, t, f, width, out,
                                             n_layers):
     x, layers = _sym_case(cuda, len(perms[0]), t, f, width, out, n_layers)
@@ -291,11 +299,16 @@ def test_symmetriser_backward_matches_plain(cuda, perms, t, f, width, out,
 
 def test_backward_kernels_are_deterministic(cuda):
     """No atomics: two runs of each backward give the same bits."""
-    (feat, nbr, hn, mask), p = _gnn_case(cuda, 700, 128, 8)
-    dy = torch.randn_like(feat)
-    fn = lambda a, b, c, *q: tfg.fused_gnn_block(a, b, c, mask, q, 8, 0.3,
-                                                 True, 5)
-    runs = [_grads(fn, [feat, nbr, hn, *p], dy)[1] for _ in range(2)]
+    runs = []
+    for n, f, heads in ((700, 128, 8), (3376, 512, 16)):
+        # the second: the training batch's node count, whose dW products
+        # split K
+        (feat, nbr, hn, mask), p = _gnn_case(cuda, n, f, 8)
+        dy = torch.randn_like(feat)
+        fn = lambda a, b, c, *q: tfg.fused_gnn_block(a, b, c, mask, q, heads,
+                                                     0.3, True, 5)
+        runs += list(zip(*[_grads(fn, [feat, nbr, hn, *p], dy)[1]
+                           for _ in range(2)]))
     runs_b = []
     for s, t, f, heads, hid in ((4, 900, 128, 4, 128), (4, 8256, 512, 8, 512)):
         # the second: the n4 training shape, whose dW products split K
@@ -305,16 +318,17 @@ def test_backward_kernels_are_deterministic(cuda):
                                                        True, 6)
         runs_b += list(zip(*[_grads(fb, [x, *pb], dyb)[1]
                              for _ in range(2)]))
-    xs, layers = _sym_case(cuda, 4, 900, 128, 64, 12, 3)
-    flat = [q for layer in layers for q in layer]
-    dys = torch.randn((900, 12), device=cuda)
-    fs = lambda a, *q: tfs.fused_symmetriser(
-        a, [q[6 * i:6 * i + 6] for i in range(3)], PERMUTATIONS['n4'])
-    runs_s = [_grads(fs, [xs, *flat], dys)[1] for _ in range(2)]
-    for a, b in (runs, runs_s):
-        for ga, gb in zip(a, b):
-            assert torch.equal(ga, gb)
-    for ga, gb in runs_b:
+    runs_s = []
+    for t, f, width in ((900, 128, 64), (8256, 512, 256)):
+        # the second: the n4 training shape
+        xs, layers = _sym_case(cuda, 4, t, f, width, 12, 3)
+        flat = [q for layer in layers for q in layer]
+        dys = torch.randn((t, 12), device=cuda)
+        fs = lambda a, *q: tfs.fused_symmetriser(
+            a, [q[6 * i:6 * i + 6] for i in range(3)], PERMUTATIONS['n4'])
+        runs_s += list(zip(*[_grads(fs, [xs, *flat], dys)[1]
+                             for _ in range(2)]))
+    for ga, gb in runs + runs_b + runs_s:
         assert torch.equal(ga, gb)
 
 
