@@ -36,7 +36,8 @@ Phases, each printing its own lines:
      conformers; (b) ten steps with the config's dropout on the 128 x 32
      batch (QM-phase loss weights, lr 1.5e-5): finite losses, 7 / 12 / 4
      forward and 7 / 12 / 4 backward launches per step (counts zeroed
-     before each step), the step's time split and peak memory; (c) twenty
+     before each step), the step's time split, peak memory and the
+     device's idle share in a step (torch.profiler); (c) twenty
      steps without dropout at lr 1e-4 on the 8-molecule batch must lower
      the loss.
   6. the torsion kernel K5 and the paths that use energies and forces:
@@ -66,7 +67,7 @@ training steps for K1-K3; phase 6's four paths for K5;
 `launches_per_path` gives each), and `ms`, `plain_ms`, `bound_ms`,
 `gflop` and `mbytes` sum one call at each shape of each path; K1-K3 and
 K1b-K3b also give `bound_tc_ms` (3 x their FLOPs at the 495 TFLOP/s TF32
-peak: the bound of 3xTF32 products, as K2, K1b, K2b and K3b run them).
+peak: the bound of 3xTF32 products, as every product of theirs runs).
 Any failure exits non-zero before those lines. `--kernels-only` stops
 after phase 4 and prints the kernels' sums as a `kernel_times` line
 instead. Needs one CUDA device; imports nothing of JAX or of grappa_tpu.
@@ -90,8 +91,8 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 # kernels made of float32 products: their line also gives the bound of 3
-# TF32 products per float32 product on the tensor cores, as K2, K1b, K2b and
-# K3b run them (tc_gemm.cuh); K1 and K3 still run FFMA products
+# TF32 products per float32 product on the tensor cores, as every product
+# of theirs runs (tc_gemm.cuh)
 TENSOR_CORE_KERNELS = ('fused_transformer_block',
                        'fused_transformer_block.backward',
                        'fused_gnn_block.backward',
@@ -250,6 +251,35 @@ def device_events(torch, fn, iters):
                     key=lambda e: e.time_range.start)
     return [(short_kernel_name(e.name), e.time_range.elapsed_us() / 1e3)
             for e in events]
+
+
+def idle_share(torch, fn, reps=3):
+    """Each of `reps` calls of fn() under torch.profiler, after one that is
+    not kept: its wall ms (host clock from the call to the end of a
+    synchronize), the union of its kernels' device intervals (overlaps
+    counted once) in ms, the idle share 1 - busy / wall and the number of
+    kernels; None when the profiler cannot trace the card."""
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+    if ProfilerActivity.CUDA not in supported_activities():
+        return None
+    runs = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        spans = sorted(
+            (e.time_range.start, e.time_range.end) for e in prof.events()
+            if str(getattr(e, 'device_type', '')).endswith('CUDA')
+            and not e.name.startswith(('Memcpy', 'Memset')))
+        busy, end = 0.0, float('-inf')
+        for a, b in spans:
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        runs.append((wall, busy / 1e3, 1 - busy / 1e3 / wall, len(spans)))
+    return runs[1:]
 
 
 def block_profile(torch, batch, iters=3):
@@ -789,6 +819,15 @@ def training_phase(torch, graphs, batch, cfg):
     print(f'(b) step split, median of 3 (CUDA events): forward '
           f'{med[0]:.2f} ms, MM energy + dE/dx + loss {med[1]:.2f} ms, '
           f'backward {med[2]:.2f} ms, optimizer {med[3]:.2f} ms', flush=True)
+    # how much of a step the card spends idle, waiting on the host
+    runs = idle_share(torch, lambda: step(batch, w, TRAIN_LR, gen))
+    print('(b) step device idle share (torch.profiler, 3 steps): ' + (
+        'not measured (no device time in a torch.profiler trace)'
+        if runs is None else f'median {np.median([r[2] for r in runs]):.4f}; '
+        + '; '.join(
+            f'wall {wall:.2f} ms, kernels busy {busy:.2f} ms (union of '
+            f'{n} kernels\' device intervals), idle share {idle:.4f}'
+            for wall, busy, idle, n in runs)), flush=True)
 
     # (c) twenty steps without dropout on the 8-molecule batch
     small = perturbed_model(torch, make_model, no_drop).cuda()

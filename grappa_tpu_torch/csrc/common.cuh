@@ -1,11 +1,9 @@
 // Building blocks shared by the port's hand-written Hopper kernels
-// (fused_gnn.cu, fused_block.cu, fused_symmetriser.cu, dropout.cu): an fp32
-// FFMA GEMM tiled through shared memory whose operands are read through
-// loader functors and whose result goes through an epilogue functor (the
-// forwards K1 and K3 run on it; tc_gemm.cuh takes the same operands and
-// epilogues on the tensor cores), a fixed-order sum of split-K slices,
-// column sums, warp-per-row LayerNorm forward and backward, and a
-// Philox4x32-10 dropout mask.
+// (fused_gnn.cu, fused_block.cu, fused_symmetriser.cu, dropout.cu): the
+// operand views (Mat, Tr) and epilogue functors of tc_gemm.cuh's
+// tensor-core GEMM, on which every product of the port runs, a fixed-order
+// sum of split-K slices, column sums, warp-per-row LayerNorm forward and
+// backward, and a Philox4x32-10 dropout mask.
 //
 // Every op is a chain of these launches on the caller's stream. Each
 // launcher returns cudaGetLastError() so a refused launch (too many threads,
@@ -104,16 +102,16 @@ inline Drop make_drop(uint32_t seed, uint32_t stream, uint32_t threshold,
   return d;
 }
 
-// ---------------------------------------------------------------- loaders
-// A GEMM operand is read as L(i, k): row i of the product's side, k along
-// the reduction. kAlongK says which index is contiguous in memory, so the
-// shared-memory fill lets neighbouring threads read neighbouring addresses.
+// ---------------------------------------------------------------- operands
+// A GEMM operand is viewed as L(i, k): row i of the product's side, k along
+// the reduction. A forward product A @ W^T reads a torch Linear weight W
+// (out, in) as Mat{W, in}; dX = dY @ W reads it as tr(Mat{W, in}); dW =
+// dY^T @ X reads both operands transposed.
 
 // Row-major matrix: (r, k) -> a[r * ld + k].
 struct Mat {
   const float* a;
   int ld;
-  static constexpr bool kAlongK = true;
   __device__ __forceinline__ float operator()(int r, int k) const {
     return a[(size_t)r * ld + k];
   }
@@ -123,16 +121,15 @@ struct Mat {
 template <class L>
 struct Tr {
   L in;
-  static constexpr bool kAlongK = !L::kAlongK;
-  __device__ __forceinline__ float operator()(int r, int k) const {
-    return in(k, r);
-  }
 };
 
 template <class L>
 Tr<L> tr(const L& l) { return Tr<L>{l}; }
 
 // ---------------------------------------------------------------- epilogues
+// tc_gemm.cuh hands each sum to epi(z, m, n, v): z the split-K slice, (m, n)
+// the element's place in the M x N product, v = sum_k A(m, k) B(n, k).
+
 // The output epilogue, in this order: + bias[n], elu, x dropout mask,
 // + R[m, n] (residual), store to C[m, n].
 struct Out {
@@ -188,125 +185,7 @@ struct Partial {
   }
 };
 
-// ---------------------------------------------------------------- GEMM
-// epi(0, m, n, sum_k A(m, k) * B(n, k)) over k in [0, K) (the epilogue
-// contract of tc_gemm.cuh, whose first argument is a split-K slice). A
-// forward product A @ W^T reads a torch Linear weight W (out, in) as
-// Mat{W, in}; dX = dY @ W reads it as tr(Mat{W, in}); dW = dY^T @ X reads
-// both operands transposed.
-//
-// Tile BM x BN per block of 256 threads, K in steps of 8 through shared
-// memory (stored K-major, padded by 4 floats against bank conflicts); each
-// thread owns a TM x TN micro-tile strided by 16 rows / 16 columns so its
-// shared-memory reads are conflict-free. Ragged M, N and K are masked.
-template <int BM, int BN, int TM, int TN, class AL, class BL, class Epi>
-__global__ void __launch_bounds__(kThreads)
-gemm_kernel(AL A, BL B, Epi epi, int M, int N, int K) {
-  constexpr int BK = 8;
-  constexpr int RT = BM / TM;
-  constexpr int CT = BN / TN;
-  static_assert(RT * CT == kThreads, "one micro-tile per thread");
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + 4];
-
-  const int tid = threadIdx.x;
-  const int tr_ = tid / CT, tc = tid % CT;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int i = tid; i < BM * BK; i += kThreads) {
-      int r, c;
-      if constexpr (AL::kAlongK) {
-        r = i / BK;
-        c = i % BK;
-      } else {
-        c = i / BM;
-        r = i % BM;
-      }
-      const int gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < K) ? A(gm, gk) : 0.f;
-    }
-#pragma unroll
-    for (int i = tid; i < BN * BK; i += kThreads) {
-      int r, c;
-      if constexpr (BL::kAlongK) {
-        r = i / BK;
-        c = i % BK;
-      } else {
-        c = i / BN;
-        r = i % BN;
-      }
-      const int gn = n0 + r, gk = k0 + c;
-      Bs[c][r] = (gn < N && gk < K) ? B(gn, gk) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][tr_ + i * RT];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tc + j * CT];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + tr_ + i * RT;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tc + j * CT;
-      if (gn < N) epi(0, gm, gn, acc[i][j]);
-    }
-  }
-}
-
-// epi(A B^T): 128x128 tiles when they alone give at least one block per SM
-// of the H100 (132), else 64x64 tiles for more blocks.
-template <class AL, class BL, class Epi>
-int gemm(const AL& a, const BL& b, const Epi& epi, int M, int N, int K,
-         cudaStream_t st) {
-  if (M == 0 || N == 0) return (int)cudaGetLastError();
-  if ((long long)cdiv(M, 128) * cdiv(N, 128) >= 132) {
-    dim3 grid(cdiv(M, 128), cdiv(N, 128));
-    gemm_kernel<128, 128, 8, 8, AL, BL, Epi><<<grid, kThreads, 0, st>>>(
-        a, b, epi, M, N, K);
-  } else {
-    dim3 grid(cdiv(M, 64), cdiv(N, 64));
-    gemm_kernel<64, 64, 4, 4, AL, BL, Epi><<<grid, kThreads, 0, st>>>(
-        a, b, epi, M, N, K);
-  }
-  return (int)cudaGetLastError();
-}
-
-// The forward form: C = epilogue(A @ W^T) with W (N, K) row-major.
-template <class AL>
-int gemm(const AL& a, const float* W, int ldw, const float* bias,
-         const float* R, int ldr, float* C, int ldc, int M, int N, int K,
-         bool act_elu, cudaStream_t st,
-         Drop drop = make_drop(0, 0, 0, 1.f, 0, 0)) {
-  Out o = out_to(C, ldc);
-  o.bias = bias;
-  o.act_elu = act_elu;
-  o.drop = drop;
-  o.R = R;
-  o.ldr = ldr;
-  return gemm(a, Mat{W, ldw}, o, M, N, K, st);
-}
-
+// ---------------------------------------------------------------- sums
 // y[i] = sum_z P[z * n + i] for z in 0..Z-1, in that order.
 __global__ void __launch_bounds__(kThreads)
 sum_slices_kernel(const float* __restrict__ P, float* __restrict__ y, int Z,
@@ -421,31 +300,6 @@ int layernorm(const float* x, int ldx, float* y, int ldy, const float* g,
   if (M > 0)
     layernorm_kernel<<<cdiv(M, kWarps), kThreads, 0, st>>>(x, ldx, y, ldy, g,
                                                            b, M, L);
-  return (int)cudaGetLastError();
-}
-
-// Row statistics only (mean[m], rstd[m]) of rows read through a loader.
-template <class XL>
-__global__ void __launch_bounds__(kThreads)
-row_stats_kernel(XL x, float* __restrict__ mean, float* __restrict__ rstd,
-                 int M, int L) {
-  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= M) return;
-  float mu, rs;
-  row_moments(x, row, L, lane, mu, rs);
-  if (lane == 0) {
-    mean[row] = mu;
-    rstd[row] = rs;
-  }
-}
-
-template <class XL>
-int row_stats(const XL& x, float* mean, float* rstd, int M, int L,
-              cudaStream_t st) {
-  if (M > 0)
-    row_stats_kernel<XL><<<cdiv(M, kWarps), kThreads, 0, st>>>(x, mean, rstd,
-                                                               M, L);
   return (int)cudaGetLastError();
 }
 

@@ -17,24 +17,25 @@
 // and output with D=8 slots: bound by operations. The backward's work is
 // two products per forward product (dX = dY W and dW = dY^T X), 9.4 MFLOP
 // a row. At the 128-molecule training batch (N=3376 padded rows): 15.9
-// GFLOP forward, 0.24 ms at the 67 TFLOP/s fp32 peak outside the tensor
-// cores; 31.9 GFLOP backward, 0.48 ms there, or 0.19 ms as 3xTF32 (three
-// TF32 products per float32 product) at the 495 TFLOP/s tensor-core peak.
+// GFLOP forward and 31.9 GFLOP backward; as 3xTF32 (three TF32 products
+// per float32 product) at the 495 TFLOP/s tensor-core peak, 0.097 and 0.19
+// ms (0.24 and 0.48 ms at the 67 TFLOP/s fp32 peak outside them).
 //
-// Design: chains of launches on the caller's stream. Forward (fp32 FFMA
-// GEMMs of common.cuh) -- the attention pass (one warp per node and head,
-// the D slot scores reduced across the warp's lanes), the head_reducer GEMM
-// with dropout and the + hn residual in its epilogue, LayerNorm, the two FF
-// GEMMs (elu; then elu, dropout and the + x1n residual, whose epilogue also
-// stores the activation e2 before dropout). The forward's scratch keeps
+// Design: chains of launches on the caller's stream, every product on the
+// tensor cores through tc_gemm.cuh (3xTF32 mma.sync fed by a cp.async
+// ring; its note gives the design). Forward -- the attention pass (one warp
+// per node and head, the D slot scores reduced across the warp's lanes),
+// the head_reducer GEMM with dropout and the + hn residual in its epilogue,
+// LayerNorm, the two FF GEMMs (elu; then elu, dropout and the + x1n
+// residual, whose epilogue also stores the activation e2 before dropout).
+// Each epilogue keys its dropout mask by the element's flat index, so the
+// masks do not depend on the GEMM's tiling. The forward's scratch keeps
 // attn0, x1, x1n, e1 = elu(t1) and e2 = elu(t2), N x (4F + hid) floats, and
 // the backward reads them instead of recomputing the forward. Backward --
-// every product on the tensor cores through tc_gemm.cuh (3xTF32 mma.sync
-// fed by a cp.async ring; its note gives the design): the masks
-// regenerated from the seed (no mask is stored) with elu' formed from the
-// stored activation (1 where a > 0, else a + 1) in one elementwise pass or
-// in a GEMM's epilogue, dX = dY W GEMMs with the residual or elu' in their
-// epilogue, split-K dW = dY^T X GEMMs whose fixed slices are summed in
+// the masks regenerated from the seed (no mask is stored) with elu' formed
+// from the stored activation (1 where a > 0, else a + 1) in one elementwise
+// pass or in a GEMM's epilogue, dX = dY W GEMMs with the residual or elu' in
+// their epilogue, split-K dW = dY^T X GEMMs whose fixed slices are summed in
 // slice order (no atomics: two runs give the same bits), column sums, the
 // LayerNorm backward (re-deriving the row statistics from x1 in its row
 // pass) and the attention backward (one warp per node and head). The ragged
@@ -248,13 +249,13 @@ int grappa_fused_gnn_fwd(const float* feat, const float* nbr, const float* hn,
   const Drop m2 = make_drop(seed, 1, threshold, drop_scale, drop_on, f);
   RETURN_IF_ERR(attention(feat, nbr, mask, attn0, n, f, d, n_heads, scale,
                           st));
-  RETURN_IF_ERR(gemm(Mat{attn0, f}, wr, f, br, hn, f, x1, f, n, f, f, false,
-                     st, m1));
+  RETURN_IF_ERR(tc_gemm(Mat{attn0, f}, wr, f, br, hn, f, x1, f, n, f, f,
+                        false, st, m1));
   RETURN_IF_ERR(layernorm(x1, f, x1n, f, g2, b2, n, f, st));
-  RETURN_IF_ERR(gemm(Mat{x1n, f}, w1, f, c1, nullptr, 0, e1, hid, n, hid, f,
-                     true, st));
-  return gemm(Mat{e1, hid}, Mat{w2, hid}, TailOut{c2, m2, x1n, e2, y, f}, n,
-              f, hid, st);
+  RETURN_IF_ERR(tc_gemm(Mat{x1n, f}, w1, f, c1, nullptr, 0, e1, hid, n, hid,
+                        f, true, st));
+  return tc_gemm(Mat{e1, hid}, Mat{w2, hid}, TailOut{c2, m2, x1n, e2, y, f},
+                 n, f, hid, st);
 }
 
 long long grappa_fused_gnn_bwd_scratch(int n, int f, int hid) {

@@ -13,34 +13,33 @@
 // products are 2*P*(S*F*W + 4*W*W + W*out) FLOP a tuple: 3.2 MFLOP for a
 // (4, 512) tuple and 2 permutations, bound by operations. The backward's
 // work is twice that. At the 128-molecule training batch the four heads'
-// calls are 56 GFLOP forward (0.83 ms at the 67 TFLOP/s fp32 peak outside
-// the tensor cores) and 111 GFLOP backward (1.67 ms there, 0.68 ms as
-// 3xTF32 at the 495 TFLOP/s tensor-core peak).
+// calls are 56 GFLOP forward and 111 GFLOP backward: 0.34 and 0.68 ms as
+// 3xTF32 (three TF32 products per float32 product) at the 495 TFLOP/s
+// tensor-core peak (0.83 and 1.67 ms at the 67 TFLOP/s fp32 peak outside
+// them).
 //
-// Design: all P permutations run as one batch of P*T rows. Forward (fp32
-// FFMA GEMMs of common.cuh) -- the first layer's rows are never stored
-// permuted: a statistics pass computes each permuted row's mean and 1/std
-// by addressing the S planes of x through the permutation, and the first
-// GEMM's A loader forms the normalised row element by element from those
-// planes. Later layers are LayerNorm + two GEMMs each (elu and the skip
-// residual in the GEMM epilogues); a last pass sums the P row blocks in
-// permutation order. The forward's scratch keeps what the backward reads:
-// layer 0's row mean and 1/std, and per layer its activation elu(t_i) and,
-// from layer 1 on, its input h_i and normalised input hn_i. Backward --
-// every product on the tensor cores through tc_gemm.cuh (3xTF32 mma.sync
-// fed by a cp.async ring, which takes stored operands only): one
-// elementwise pass first writes layer 0's normalised permuted rows hn_0
-// (P*T x S*F) from x and the saved statistics; then per layer, last first,
-// dW = dY^T X over all P*T rows in fixed split-K slices summed in slice
-// order (so the sum over permutations is part of the product, in a fixed
-// order), dX = dY W with elu' (formed from the stored activation) or the
-// skip in the epilogue, column sums and a LayerNorm backward. Layer 0's
-// LayerNorm backward reads x through the permutation with the saved
-// statistics, in two passes: the row means, then one thread a column of x
-// that adds each permutation's gradient at that element into dx in
-// permutation order (no permuted gradient is stored) and keeps the dg / db
-// partial sums. The element passes address x slot by slot, with no
-// division per element. No atomics: two runs give the same bits.
+// Design: all P permutations run as one batch of P*T rows, and every product
+// runs on the tensor cores through tc_gemm.cuh (3xTF32 mma.sync fed by a
+// cp.async ring, which takes stored operands only). Forward -- one row pass
+// (a warp a tuple, addressing the S planes of x slot by slot, with no
+// division per element) computes the row mean and 1/std that the tuple's P
+// permuted rows share and writes layer 0's normalised input hn_0 (P*T x S*F),
+// reading x once; later layers start with a LayerNorm pass; each layer is two
+// GEMMs (elu, then the skip residual on the middle layers, in the GEMM
+// epilogues); a last pass sums the P row blocks in permutation order. The
+// forward's scratch keeps what the backward reads: layer 0's row mean and
+// 1/std, and per layer its normalised input hn_i, its activation elu(t_i)
+// and, from layer 1 on, its input h_i. Backward -- per layer, last first, dW
+// = dY^T X over all P*T rows in fixed split-K slices summed in slice order
+// (so the sum over permutations is part of the product, in a fixed order), dX
+// = dY W with elu' (formed from the stored activation) or the skip in the
+// epilogue, column sums and a LayerNorm backward. Layer 0's LayerNorm
+// backward reads x through the permutation with the forward's statistics
+// (those hn_0 was built from), in two passes: the row means, then one thread
+// a column of x that adds each permutation's gradient at that element into dx
+// in permutation order (no permuted gradient is stored) and keeps the dg / db
+// partial sums. The element passes address x slot by slot, with no division
+// per element. No atomics: two runs give the same bits.
 #include "tc_gemm.cuh"
 
 namespace {
@@ -48,35 +47,15 @@ namespace {
 constexpr int kMaxPerm = 6;
 constexpr int kMaxS = 4;
 
-// Row r = p*T + t of the permuted flattening: element k is
-// x[perm[p][k / F], t, k % F].
+// Row r = p*T + t of the permuted flattening: element s*F + f is
+// x[perm[p][s], t, f].
 struct PermRows {
   const float* x;
   int T, F;
   int perm[kMaxPerm][kMaxS];
-  static constexpr bool kAlongK = true;
   // slot s of permutation p's row for tuple t: x[perm[p][s], t, :]
   __device__ __forceinline__ const float* slot(int p, int s, int t) const {
     return x + ((size_t)perm[p][s] * T + t) * F;
-  }
-  __device__ __forceinline__ float operator()(int r, int k) const {
-    const int p = r / T, t = r - p * T;
-    const int s = k / F;
-    return slot(p, s, t)[k - s * F];
-  }
-};
-
-// The first layer's A operand: LayerNorm of the permuted row (the forward's
-// FFMA GEMM forms it on load, the backward stores it once: perm_ln_kernel).
-struct PermLNLoad {
-  PermRows rows;
-  const float* mean;
-  const float* rstd;
-  const float* g;
-  const float* b;
-  static constexpr bool kAlongK = true;
-  __device__ __forceinline__ float operator()(int r, int k) const {
-    return (rows(r, k) - mean[r]) * rstd[r] * g[k] + b[k];
   }
 };
 
@@ -112,22 +91,53 @@ bool bad_shape(int s, int n_perm, int n_layers) {
          n_layers < 1 || n_layers > kMaxLayers;
 }
 
-// hn_0[r, :] = LayerNorm of the permuted row r from the forward's row
-// statistics, one warp a row, slot by slot (no division per element):
-// layer 0's A operand, stored for tc_gemm.
+// Layer 0's LayerNorm of the permuted rows, one warp a tuple t. Its P
+// permuted rows hold the same S*F elements, so they share the row mean and
+// 1/std, computed once from x[:, t, :] (two passes, the mean and then the
+// variance of the centred row, as row_moments) and written at each row
+// r = p*T + t; then hn_0[r, :] = (row - mean) rstd g + b for every p, x
+// addressed slot by slot (no division per element). x is read once from
+// device memory, and hn_0 is stored once: layer 0's A operand in the
+// forward and in the backward's dW1.
 __global__ void __launch_bounds__(kThreads)
-perm_ln_kernel(PermLNLoad ln, float* __restrict__ hn0, int M, int S) {
-  const PermRows& pr = ln.rows;
-  const int r = blockIdx.x * kWarps + threadIdx.x / 32, F = pr.F;
-  if (r >= M) return;
-  const int p = r / pr.T, t = r - p * pr.T;
-  const float mu = ln.mean[r], rs = ln.rstd[r];
-  float* out = hn0 + (size_t)r * S * F;
+perm_ln_kernel(PermRows pr, int P, int S, const float* __restrict__ g,
+               const float* __restrict__ b, float* __restrict__ mean,
+               float* __restrict__ rstd, float* __restrict__ hn0) {
+  const int t = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int T = pr.T, F = pr.F, L = S * F;
+  if (t >= T) return;
+  float acc = 0.f;
   for (int s = 0; s < S; ++s) {
-    const float* xr = pr.slot(p, s, t);
-    for (int f = threadIdx.x & 31; f < F; f += 32) {
-      const int k = s * F + f;
-      out[k] = (xr[f] - mu) * rs * ln.g[k] + ln.b[k];
+    const float* xr = pr.x + ((size_t)s * T + t) * F;
+#pragma unroll 4
+    for (int f = lane; f < F; f += 32) acc += xr[f];
+  }
+  const float mu = warp_sum(acc) / L;
+  acc = 0.f;
+  for (int s = 0; s < S; ++s) {
+    const float* xr = pr.x + ((size_t)s * T + t) * F;
+#pragma unroll 4
+    for (int f = lane; f < F; f += 32) {
+      const float d = xr[f] - mu;
+      acc += d * d;
+    }
+  }
+  const float rs = rsqrtf(warp_sum(acc) / L + kLnEps);
+  for (int p = 0; p < P; ++p) {
+    const size_t r = (size_t)p * T + t;
+    if (lane == 0) {
+      mean[r] = mu;
+      rstd[r] = rs;
+    }
+    float* out = hn0 + r * L;
+    for (int s = 0; s < S; ++s) {
+      const float* xr = pr.slot(p, s, t);
+#pragma unroll 4
+      for (int f = lane; f < F; f += 32) {
+        const int k = s * F + f;
+        out[k] = (xr[f] - mu) * rs * g[k] + b[k];
+      }
     }
   }
 }
@@ -251,9 +261,10 @@ int perm_layernorm_bwd(const float* dy, const PermRows& pr, const PermPos& pp,
 }
 
 // The forward's scratch, which the backward reads: layer 0's row mean and
-// 1/std, then per layer i its input h_i and normalised input hn_i (i >= 1;
-// h_i is layer i-1's output) and its activation e_i = elu(hn_i w1^T + c1);
-// z, the last layer's output per permutation before their sum.
+// 1/std, then per layer i its input h_i (i >= 1; layer i-1's output), its
+// normalised input hn_i (for layer 0 the permuted rows of x, normalised)
+// and its activation e_i = elu(hn_i w1^T + c1); z, the last layer's output
+// per permutation before their sum.
 struct FwdLayout {
   size_t mean0, rstd0, h[kMaxLayers], hn[kMaxLayers], e[kMaxLayers], z,
       total;
@@ -268,7 +279,7 @@ FwdLayout fwd_layout(long long rows, int n_layers, const int* dims) {
   for (int i = 0; i < n_layers; ++i) {
     const long long in = dims[3 * i], hid = dims[3 * i + 1];
     l.h[i] = i > 0 ? carve(o, rows * in) : 0;
-    l.hn[i] = i > 0 ? carve(o, rows * in) : 0;
+    l.hn[i] = carve(o, rows * in);
     l.e[i] = carve(o, rows * hid);
   }
   l.z = carve(o, rows * dims[3 * (n_layers - 1) + 2]);
@@ -276,12 +287,11 @@ FwdLayout fwd_layout(long long rows, int n_layers, const int* dims) {
   return l;
 }
 
-// The backward's own scratch: hn_0 (P*T x S*F, layer 0's A operand); the
-// output and input gradients of the layer being walked; row statistics and
-// reduction partials (column sums, or layer 0's LayerNorm backward's two
-// at once).
+// The backward's own scratch: the output and input gradients of the layer
+// being walked; row statistics and reduction partials (column sums, or
+// layer 0's LayerNorm backward's two at once).
 struct BwdLayout {
-  size_t hn0, dout, dt, dhn, mean, rstd, wpart, cpart, total;
+  size_t dout, dt, dhn, mean, rstd, wpart, cpart, total;
 };
 
 BwdLayout bwd_layout(int n_perm, int t, int n_layers, const int* dims) {
@@ -301,7 +311,6 @@ BwdLayout bwd_layout(int n_perm, int t, int n_layers, const int* dims) {
                   ln0 = 2LL * tuple_chunks(t) * n_perm * dims[0];
   BwdLayout l;
   size_t o = 0;
-  l.hn0 = carve(o, rows * dims[0]);
   l.dout = carve(o, rows * out_max);   // in_i = out_{i-1} for i >= 1
   l.dt = carve(o, rows * hid);
   l.dhn = carve(o, rows * in_max);
@@ -337,10 +346,11 @@ int grappa_fused_symmetriser_fwd(const float* x, int s, int t, int f,
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = n_perm * t;
   const FwdLayout l = fwd_layout(rows, n_layers, dims);
-  float* mean0 = scratch + l.mean0;
-  float* rstd0 = scratch + l.rstd0;
-  const PermRows pr = perm_rows(x, s, t, f, perms, n_perm);
-  RETURN_IF_ERR(row_stats(pr, mean0, rstd0, rows, s * f, st));
+  if (t > 0)
+    perm_ln_kernel<<<cdiv(t, kWarps), kThreads, 0, st>>>(
+        perm_rows(x, s, t, f, perms, n_perm), n_perm, s, params[0],
+        params[1], scratch + l.mean0, scratch + l.rstd0, scratch + l.hn[0]);
+  RETURN_IF_ERR((int)cudaGetLastError());
 
   for (int i = 0; i < n_layers; ++i) {
     const float* const* p = params + 6 * i;
@@ -349,19 +359,14 @@ int grappa_fused_symmetriser_fwd(const float* x, int s, int t, int f,
     const bool skip = i > 0 && !last;
     float* e = scratch + l.e[i];
     float* hn = scratch + l.hn[i];
-    if (i == 0) {
-      PermLNLoad a{pr, mean0, rstd0, p[0], p[1]};
-      RETURN_IF_ERR(gemm(a, p[2], in, p[3], nullptr, 0, e, hid, rows, hid,
-                         in, true, st));
-    } else {
+    if (i > 0)
       RETURN_IF_ERR(layernorm(scratch + l.h[i], in, hn, in, p[0], p[1], rows,
                               in, st));
-      RETURN_IF_ERR(gemm(Mat{hn, in}, p[2], in, p[3], nullptr, 0, e, hid,
-                         rows, hid, in, true, st));
-    }
+    RETURN_IF_ERR(tc_gemm(Mat{hn, in}, p[2], in, p[3], nullptr, 0, e, hid,
+                          rows, hid, in, true, st));
     float* dst = scratch + (last ? l.z : l.h[i + 1]);
-    RETURN_IF_ERR(gemm(Mat{e, hid}, p[4], hid, p[5], skip ? hn : nullptr, in,
-                       dst, out, rows, out, hid, false, st));
+    RETURN_IF_ERR(tc_gemm(Mat{e, hid}, p[4], hid, p[5], skip ? hn : nullptr,
+                          in, dst, out, rows, out, hid, false, st));
   }
   return sum_slices(scratch + l.z, y, n_perm,
                     (long long)t * dims[3 * (n_layers - 1) + 2], st);
@@ -390,9 +395,9 @@ int grappa_fused_symmetriser_bwd(const float* x, int s, int t, int f,
   const FwdLayout lf = fwd_layout(rows, n_layers, dims);
   const BwdLayout l = bwd_layout(n_perm, t, n_layers, dims);
   float* q = scratch;
-  float *hn0 = q + l.hn0, *dout = q + l.dout, *dt = q + l.dt,
-        *dhn = q + l.dhn, *mean = q + l.mean, *rstd = q + l.rstd,
-        *wpart = q + l.wpart, *cpart = q + l.cpart;
+  float *dout = q + l.dout, *dt = q + l.dt, *dhn = q + l.dhn,
+        *mean = q + l.mean, *rstd = q + l.rstd, *wpart = q + l.wpart,
+        *cpart = q + l.cpart;
   const PermRows pr = perm_rows(x, s, t, f, perms, n_perm);
   PermPos pp;
   for (int p = 0; p < kMaxPerm; ++p)
@@ -400,13 +405,7 @@ int grappa_fused_symmetriser_bwd(const float* x, int s, int t, int f,
   for (int p = 0; p < n_perm; ++p)
     for (int j = 0; j < s; ++j) pp.pos[p][perms[p * s + j]] = j;
 
-  // hn_0: layer 0's normalised permuted rows, the A operand of its dW1
   const float *mean0 = fwd + lf.mean0, *rstd0 = fwd + lf.rstd0;
-  if (rows > 0)
-    perm_ln_kernel<<<cdiv(rows, kWarps), kThreads, 0, st>>>(
-        PermLNLoad{pr, mean0, rstd0, params[0], params[1]}, hn0, rows, s);
-  RETURN_IF_ERR((int)cudaGetLastError());
-
   // every permutation's output row gets dy
   const int out_last = dims[3 * (n_layers - 1) + 2];
   const long long total = (long long)rows * out_last;
@@ -421,7 +420,7 @@ int grappa_fused_symmetriser_bwd(const float* x, int s, int t, int f,
     const int in = dims[3 * i], hid = dims[3 * i + 1], out = dims[3 * i + 2];
     const bool skip = i > 0 && i < n_layers - 1;
     const float* e = fwd + lf.e[i];
-    const float* hn = i > 0 ? fwd + lf.hn[i] : hn0;
+    const float* hn = fwd + lf.hn[i];
     // out = e_i w2^T + c2 (+ hn_i), e_i = elu(t_i)
     RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dout, out}), tr(Mat{e, hid}), g[4],
                                 out, hid, rows, wpart, st));

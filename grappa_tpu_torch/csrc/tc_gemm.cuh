@@ -1,9 +1,9 @@
 // A float32 GEMM on the H100's tensor cores: 3xTF32 mma.sync products fed
-// by a cp.async ring of shared-memory stages. The epilogue contract of
-// common.cuh's FFMA gemm: epi(z, m, n, sum_k A(m, k) B(n, k)) over
-// blockIdx.z's slice of the reduction, operands given as the loader views
-// Mat and Tr<Mat>, and any epilogue of that contract (Out, EluGradOut,
-// Partial, ...).
+// by a cp.async ring of shared-memory stages. Every product of the port's
+// kernels (K1-K3 forward, K1b-K3b backward) runs on it. It computes
+// epi(z, m, n, sum_k A(m, k) B(n, k)) over blockIdx.z's slice of the
+// reduction, operands given as common.cuh's views Mat and Tr<Mat>, and any
+// epilogue of common.cuh's contract (Out, EluGradOut, Partial, ...).
 //
 // Arithmetic. Each operand element is split as a = big + small with
 // big = cvt.rna.tf32(a) and small = cvt.rna.tf32(a - big); the products

@@ -14,12 +14,13 @@ scatter-add of dnbr) stay in torch autograd (in `models.gnn`), as the JAX
 package leaves them to XLA.
 
 On CUDA tensors `fused_gnn_block` launches the hand-written kernels in
-`csrc/fused_gnn.cu`: the forward, whose scratch of intermediates autograd
-keeps, and in the backward a kernel chain that reads them, runs its
-products on the tensor cores (`csrc/tc_gemm.cuh`) and returns dfeat, dnbr,
-dhn and the eight parameter gradients (the source notes give the card's
-bound and the design). On CPU tensors it runs `reference_gnn_block`, the
-plain PyTorch version, and autograd differentiates it.
+`csrc/fused_gnn.cu`, both running their products on the tensor cores
+(`csrc/tc_gemm.cuh`): the forward, whose scratch of intermediates autograd
+keeps, and in the backward a kernel chain that reads them and returns
+dfeat, dnbr, dhn and the eight parameter gradients (the source notes give
+the card's bound and the design). On CPU tensors it runs
+`reference_gnn_block`, the plain PyTorch version, and autograd
+differentiates it.
 `fused_gnn_block.launches` and `fused_gnn_block.bwd_launches` count
 kernel launches.
 

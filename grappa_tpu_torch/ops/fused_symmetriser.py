@@ -9,13 +9,16 @@ function; its counterpart is the flax `Symmetriser` module, and here
 `reference_symmetriser`.
 
 On CUDA tensors `fused_symmetriser` launches the hand-written kernels in
-`csrc/fused_symmetriser.cu`: the forward, whose scratch (each layer's
-activation, input and normalised input, the first layer's row statistics)
-autograd keeps, and in the backward a kernel chain that reads it, runs its
-products on the tensor cores (`csrc/tc_gemm.cuh`) and returns dx and every
-parameter gradient summed over the permutations (the source notes give the
-card's bound and the design). On CPU tensors it runs
-`reference_symmetriser`, and autograd differentiates it.
+`csrc/fused_symmetriser.cu`, both running their products on the tensor
+cores (`csrc/tc_gemm.cuh`): the forward, whose scratch (each layer's
+normalised input -- for the first layer the permuted rows of x, normalised
+-- activation and input, the first layer's row statistics) is allocated on
+every call, `torch.inference_mode()` included, since its own products read
+it, and is kept by autograd; and in the backward a kernel chain that reads
+it and returns dx and every parameter gradient summed over the
+permutations (the source notes give the card's bound and the design). On
+CPU tensors it runs `reference_symmetriser`, and autograd differentiates
+it.
 `fused_symmetriser.launches` and `fused_symmetriser.bwd_launches` count
 kernel launches.
 

@@ -9,10 +9,10 @@ without JAX (`python -m pytest tests/test_torch_port_kernels.py
 --noconftest`; the suite's conftest imports JAX). Shapes cover the serving
 path's and the edges the kernels mask: ragged rows, head widths below a
 warp (dh=9, 16), reductions that are not a multiple of the GEMM's K step,
-D < 8 slots, 1-3 symmetriser layers, 6 permutations; for K2 / K2b, K1b and
-K3b (whose products run on the tensor cores) also the training batch's
-shapes (the n4 head; N = 3376 nodes), shapes ragged against every tile edge
-and row widths that are not 16-byte aligned. Tolerance: forward
+D < 8 slots, 1-3 symmetriser layers, 6 permutations; since every product
+runs on the tensor cores, also the training batch's shapes (the n4 head;
+N = 3376 nodes), shapes ragged against every tile edge and row widths
+that are not 16-byte aligned, forward and backward. Tolerance: forward
 outputs elementwise |kernel - plain| <= 1e-4 + 1e-4 |plain| (float32 sums
 in another order); gradients max |kernel - plain| <= 1e-4 * max |plain|
 per tensor (weight gradients sum thousands of rows, so an element that
@@ -99,8 +99,12 @@ def _sym_case(device, s, t, f, width, out, n_layers, seed=0):
     return x, layers
 
 
+# the serving and training batches' nodes (N = 1376, 3376), one more
+# (ragged against the GEMM's tiles), and F = 18, whose rows are not 16-byte
+# aligned (4-byte copies)
 @pytest.mark.parametrize('n,f,heads,d', [
-    (50, 64, 4, 6), (33, 36, 4, 3), (1376, 512, 16, 8)])
+    (50, 64, 4, 6), (33, 36, 4, 3), (1376, 512, 16, 8), (3376, 512, 16, 8),
+    (3377, 512, 16, 8), (45, 18, 2, 5)])
 def test_gnn_kernel_matches_plain(cuda, n, f, heads, d):
     args, p = _gnn_case(cuda, n, f, d)
     before = tfg.fused_gnn_block.launches
@@ -136,11 +140,16 @@ def test_block_kernel_matches_plain(cuda, s, t, f, heads, hid, rate):
                                **TOL)
 
 
+# the n4 head at the training batch (layer 0's K = 2048 over 16512 rows),
+# and an n2 shape whose rows (F = 18, width 30, out = 2) take the
+# tensor-core GEMM's 4-byte copies
 @pytest.mark.parametrize('perms,t,f,width,out,n_layers', [
     (PERMUTATIONS['n4'], 2152, 512, 256, 12, 3),
     (WRONG_SYMMETRY_IMPROPER, 552, 512, 256, 6, 3),
     (PERMUTATIONS['n2'], 70, 36, 64, 1, 1),
-    (PERMUTATIONS['n3'], 101, 64, 48, 2, 2)])
+    (PERMUTATIONS['n3'], 101, 64, 48, 2, 2),
+    (PERMUTATIONS['n4'], 8256, 512, 256, 12, 3),
+    (PERMUTATIONS['n2'], 3377, 18, 30, 2, 3)])
 def test_symmetriser_kernel_matches_plain(cuda, perms, t, f, width, out,
                                           n_layers):
     x, layers = _sym_case(cuda, len(perms[0]), t, f, width, out, n_layers)
@@ -298,7 +307,8 @@ def test_symmetriser_backward_matches_plain(cuda, perms, t, f, width, out,
 
 
 def test_backward_kernels_are_deterministic(cuda):
-    """No atomics: two runs of each backward give the same bits."""
+    """No atomics: two runs of each backward, and of the K1 / K3 forwards,
+    give the same bits."""
     runs = []
     for n, f, heads in ((700, 128, 8), (3376, 512, 16)):
         # the second: the training batch's node count, whose dW products
@@ -307,8 +317,9 @@ def test_backward_kernels_are_deterministic(cuda):
         dy = torch.randn_like(feat)
         fn = lambda a, b, c, *q: tfg.fused_gnn_block(a, b, c, mask, q, heads,
                                                      0.3, True, 5)
-        runs += list(zip(*[_grads(fn, [feat, nbr, hn, *p], dy)[1]
-                           for _ in range(2)]))
+        outs = [_grads(fn, [feat, nbr, hn, *p], dy) for _ in range(2)]
+        runs += [(outs[0][0], outs[1][0])]
+        runs += list(zip(*[g for _, g in outs]))
     runs_b = []
     for s, t, f, heads, hid in ((4, 900, 128, 4, 128), (4, 8256, 512, 8, 512)):
         # the second: the n4 training shape, whose dW products split K
@@ -326,8 +337,9 @@ def test_backward_kernels_are_deterministic(cuda):
         dys = torch.randn((t, 12), device=cuda)
         fs = lambda a, *q: tfs.fused_symmetriser(
             a, [q[6 * i:6 * i + 6] for i in range(3)], PERMUTATIONS['n4'])
-        runs_s += list(zip(*[_grads(fs, [xs, *flat], dys)[1]
-                             for _ in range(2)]))
+        outs = [_grads(fs, [xs, *flat], dys) for _ in range(2)]
+        runs_s += [(outs[0][0], outs[1][0])]
+        runs_s += list(zip(*[g for _, g in outs]))
     for ga, gb in runs + runs_b + runs_s:
         assert torch.equal(ga, gb)
 
@@ -348,14 +360,18 @@ def test_mask_dump_is_bit_equal_to_plain_philox(cuda, op, shape, rate):
     assert abs(keep - (1 - rate)) <= 4 * np.sqrt(rate * (1 - rate) / n) + 1e-9
 
 
-def test_dropout_forward_uses_the_dumped_masks(cuda):
+# K1 at a small shape and at the training batch's nodes, whose epilogues
+# run on other GEMM tiles: the masks are keyed by the flat index alone
+@pytest.mark.parametrize('n,f,heads,d', [(300, 64, 4, 5),
+                                         (3376, 512, 16, 8)])
+def test_dropout_forward_uses_the_dumped_masks(cuda, n, f, heads, d):
     """The kernels' forward with dropout equals the plain version fed the
     dumped masks by hand."""
-    (feat, nbr, hn, mask), p = _gnn_case(cuda, 300, 64, 5)
+    (feat, nbr, hn, mask), p = _gnn_case(cuda, n, f, d)
     m = tfg.dropout_masks(3, feat.shape, 0.3, device=cuda)
-    y = tfg.fused_gnn_block(feat, nbr, hn, mask, p, 4, 0.3, True, 3)
+    y = tfg.fused_gnn_block(feat, nbr, hn, mask, p, heads, 0.3, True, 3)
     torch.testing.assert_close(
-        y, tfg.reference_gnn_block(feat, nbr, hn, mask, p, 4, m), **TOL)
+        y, tfg.reference_gnn_block(feat, nbr, hn, mask, p, heads, m), **TOL)
     x, pb = _block_case(cuda, 3, 200, 64, 64)
     mb = tfb.dropout_masks(4, x.shape, 0.5, device=cuda)
     yb = tfb.fused_transformer_block(x, pb, 4, 0.5, True, 4)

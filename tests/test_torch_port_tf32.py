@@ -1,5 +1,6 @@
-"""CPU rehearsal of the numerics of the tensor-core GEMM that K2 / K2b run
-(`grappa_tpu_torch/csrc/tc_gemm.cuh`), emulated in numpy.
+"""CPU rehearsal of the numerics of the tensor-core GEMM on which every
+product of the port's kernels runs (`grappa_tpu_torch/csrc/tc_gemm.cuh`),
+emulated in numpy.
 
 The kernel rounds each operand element to TF32 with `cvt.rna` (keep 10
 mantissa bits, round to nearest, ties away from zero), splits it as
@@ -7,12 +8,13 @@ a = big + small with big = rna(a), small = rna(a - big), and sums the
 products small*big + big*small + big*big (3xTF32) in float32, eight
 reduction steps per mma; a weight gradient splits its rows into fixed
 slices of a multiple of 32 rows whose sums are added in slice order. This
-file repeats that arithmetic on seeded products of K2b's reduction
-lengths (K = 512 and 1536; a dW over the n4 training shape's 33,024 rows
-in 2 and 16 slices) against float64, and holds it to the port's own
-tolerances: forward / dX outputs elementwise 1e-4 + 1e-4 |y|
-(KERNEL_ATOL / KERNEL_RTOL), weight gradients max |err| <= 1e-4 x max |dW|
-(GRAD_RTOL). One TF32 pass (big*big alone) is shown to err at least 10x
+file repeats that arithmetic on seeded products of the kernels'
+reduction lengths (K = 512 and 1536; K = 2048, the longest forward
+reduction, K1's FF2 and K3's layer 0; a dW over the n4 training shape's
+33,024 rows in 2 and 16 slices) against float64, and holds it to the
+port's own tolerances: forward / dX outputs elementwise 1e-4 + 1e-4 |y|
+(KERNEL_ATOL / KERNEL_RTOL), weight gradients max |err| <= 1e-4 x max
+|dW| (GRAD_RTOL). One TF32 pass (big*big alone) is shown to err at least 10x
 more on the dW case, which is why the kernel pays for three. Imports
 neither JAX nor the port: the emulation is the point.
 """
@@ -62,10 +64,11 @@ def _exact(a, b):
     return a.astype(np.float64) @ b.astype(np.float64).T
 
 
-@pytest.mark.parametrize('k', [512, 1536])
+@pytest.mark.parametrize('k', [512, 1536, 2048])
 def test_3xtf32_products_meet_the_kernel_tolerance(k):
     """A forward or dX product: LayerNorm-scale activations (N(0, 1))
-    against weights N(0, 1 / K), K = F or hid (512) or 3F (1536)."""
+    against weights N(0, 1 / K), K = F or hid (512), 3F (1536) or 4F and
+    S*F (2048)."""
     rng = np.random.default_rng(k)
     x = rng.standard_normal((64, k)).astype(np.float32)
     w = (rng.standard_normal((48, k)) / np.sqrt(k)).astype(np.float32)
