@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # phases 1, 2 and 4 alone
+    python3 chip_smoke.py --torsion        # phase 1 and the K5 path's times
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit, the torch / CUDA versions;
@@ -23,12 +24,13 @@ Phases, each printing its own lines:
      make_moldata): K1 / K2 forward with dropout at the default rates and
      K3 forward, K1b / K2b / K3b against autograd through the plain
      versions (same dropout seeds), the K1m / K2m mask dumps bit-equal to
-     the plain Philox, with times and bounds. Then the `block_profile`
-     line: K2 / K2b at the n4 training shape (S=4, T=8256, F=hid=512,
-     dropout 0.5), K1 / K1b at the training batch's nodes (N=3376, dropout
-     0.3) and K3 / K3b at the n4 training shape under torch.profiler, each
-     launch of one call with its device ms and share (printed above the
-     line) and the device ms by kernel name, beside one torch.matmul
+     the plain Philox, with times, device times and bounds. Then the
+     `block_profile` line: K2 / K2b at the n4 training shape (S=4,
+     T=8256, F=hid=512, dropout 0.5), K1 / K1b at the training batch's
+     nodes (N=3376, dropout 0.3) and K3 / K3b at the n4 training shape
+     under torch.profiler, each launch of one call with its device ms and
+     share (printed above the line) and the device ms by kernel name,
+     beside one torch.matmul
      (fp32, TF32 off) of K2's largest product, 33024 x 1536 x 512, a
      yardstick the port never calls.
   5. training at the default config: (a) one step on the card against the
@@ -40,21 +42,26 @@ Phases, each printing its own lines:
      device's idle share in a step (torch.profiler); (c) twenty
      steps without dropout at lr 1e-4 on the 8-molecule batch must lower
      the loss.
-  6. the torsion kernel K5 and the paths that use energies and forces:
-     (a) K5 against its plain version at the training batch's propers /
-     impropers (C=32), a 12,000- and a 40,000-atom molecule's (C=4) and
-     benchmarks/kernel_bench.py's (4096, 32) and (16384, 128), with
-     degenerate tuples and zeroed k rows, and its first-order gradients;
-     (b) benchmarks/fusion_decision.py's measurement at 12,000 and 40,000
-     atoms x 4 conformers with the default model's predicted parameters:
+  6. the torsion kernel K5, its backward K5b and the paths that use
+     energies and forces: (a) K5 and K5b against their plain versions at
+     the training batch's propers / impropers (C=32), a 12,000- and a
+     40,000-atom molecule's (C=4) and benchmarks/kernel_bench.py's (4096,
+     32) and (16384, 128), with degenerate tuples and zeroed k rows: K5's
+     energies, K5b's dpos and dk against the plain vjp
+     (`reference_torsion_energy_grad`), autograd through both against
+     autograd through the plain version, the device time of each
+     (torch.profiler); (b) benchmarks/
+     fusion_decision.py's measurement at 12,000 and 40,000 atoms x 4
+     conformers with the default model's predicted parameters:
      energy_and_gradient with use_fused_torsion=True against the plain
-     path on the card (2 / 0 K5 launches per call), the proper / improper
-     energies per tuple and pooled (K5's output itself: dE/dx is the plain
-     vjp and the total is mostly bond energy), and the stage times,
-     printed as `fusion_decision {...}` lines; (c) the fused energy, dE/dx
-     and torsion energies at 12,000 atoms with the batch's reference
-     parameters, card vs CPU; (d) StreamingEvaluator on the training
-     batch, card (K5) vs CPU.
+     path on the card (2 K5 and 2 K5b launches per fused call, 0 / 0
+     plain), the proper / improper energies per tuple and pooled (K5's
+     output itself: the total is mostly bond energy), and the stage
+     times, the CUDA kernels one call of each path launches and K5's host
+     time a call on the path's propers, printed as `fusion_decision {...}`
+     lines; (c) the fused energy, dE/dx and torsion energies at 12,000
+     atoms with the batch's reference parameters, card vs CPU; (d)
+     StreamingEvaluator on the training batch, card (K5 / K5b) vs CPU.
   7. MD with the batches' reference parameters: (a) 50 NVE steps, card vs
      CPU; (b) at 12,000 atoms x 4 replicas: minimize lowers the energy,
      then from the minimum NVE at 0.2 fs conserves the total energy and
@@ -63,19 +70,29 @@ Phases, each printing its own lines:
 The last three lines are a JSON object describing the kernels, the card's
 name and power limit, and {"ok": true, "device": {...}}. In the kernels'
 line, `launches` sums the main paths (the two predict paths and the ten
-training steps for K1-K3; phase 6's four paths for K5;
+training steps for K1-K3; phase 6's four paths for K5 and K5b;
 `launches_per_path` gives each), and `ms`, `plain_ms`, `bound_ms`,
 `gflop` and `mbytes` sum one call at each shape of each path; K1-K3 and
 K1b-K3b also give `bound_tc_ms` (3 x their FLOPs at the 495 TFLOP/s TF32
-peak: the bound of 3xTF32 products, as every product of theirs runs).
-Any failure exits non-zero before those lines. `--kernels-only` stops
-after phase 4 and prints the kernels' sums as a `kernel_times` line
-instead. Needs one CUDA device; imports nothing of JAX or of grappa_tpu.
+peak: the bound of 3xTF32 products, as every product of theirs runs);
+K5, K5b and the mask dumps `device_ms` (torch.profiler). The mask dumps'
+bound counts their Philox work from the kernel's SASS (cuobjdump): the
+SM clocks its instructions take an element on the busiest of the FMA
+pipe (integer multiply-adds, 64 a clock), the ALU pipe (the other
+integer instructions, 64 a clock) and issue (every instruction, 128 a
+clock), over the card's SM clocks (`g_sm_clocks`), against their
+stores. Any failure exits non-zero before those lines. `--kernels-only` stops after phase 4 and prints the kernels' sums as a
+`kernel_times` line instead; `--torsion` prints only K5's host time by
+part at the propers' shapes (`k5_host` lines) and the energy + dE/dx
+path's times and kernels (`torsion_path_phase`), with names a parent
+checkout shares, so that one copy of this script times both. Needs one CUDA device; imports nothing of JAX or
+of grappa_tpu.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -90,6 +107,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# the issue rates of an SM of compute capability 9.0 (132 of them, at the
+# card's maximum SM clock as nvidia-smi reads it, `clocks.max.sm`), in
+# thread instructions a clock: 32-bit integer multiply-adds run on the FMA
+# pipe at 64, the other integer instructions (add, logic, compare, select,
+# shift) on the ALU pipe at 64, beside each other; the four schedulers
+# issue 128 instructions of any kind (the CUDA programming guide's
+# throughput table)
+INT_OPS_PER_CLOCK_SM, ISSUE_PER_CLOCK_SM, SMS = 64, 128, 132
+INT_FMA_OPCODES = ('IMAD', 'IMUL')
+INT_ALU_OPCODES = ('IADD3', 'IADD', 'LOP3', 'LOP', 'ISETP', 'SHF', 'SHL',
+                   'SHR', 'LEA', 'SEL', 'IABS', 'IMNMX', 'VIADD', 'VIMNMX',
+                   'PRMT', 'FLO', 'POPC', 'BMSK', 'BREV')
 # kernels made of float32 products: their line also gives the bound of 3
 # TF32 products per float32 product on the tensor cores, as every product
 # of theirs runs (tc_gemm.cuh)
@@ -128,6 +157,11 @@ FORCE_RTOL = 1e-4
 FUSION_ATOMS, FUSION_CONFS = (12000, 40000), 4
 # K5 at the JAX package's benchmarks/kernel_bench.py shapes (T, C), P = 6
 KERNEL_BENCH_TC = ((4096, 32), (16384, 128))
+# the propers' (T, C) on phase 6's paths (padded T of the training batch
+# and of the 12,000- and 40,000-atom molecules): `--torsion`'s shapes
+K5_HOST_SHAPES = (('train propers', 8256, 32),
+                  ('12000-atom propers', 20096, 4),
+                  ('40000-atom propers', 66304, 4))
 REF_FIELDS = {'n2_k': ('n2', 'k_ref'), 'n2_eq': ('n2', 'eq_ref'),
               'n3_k': ('n3', 'k_ref'), 'n3_eq': ('n3', 'eq_ref'),
               'n4_k': ('n4', 'k_ref'),
@@ -212,12 +246,21 @@ def host_ms(torch, fn, reps=5):
             ', '.join(f'{t:.2f}' for t in times))
 
 
-def profiled_ms(torch, fn, kernel, iters=20):
+def profiled_ms(torch, fn, kernel, iters=20, tries=3):
     """Mean device ms a call of the CUDA kernels whose name holds
-    `kernel`, from a torch.profiler trace of `iters` calls; None when the
-    profiler cannot trace the card or shows no device time for them."""
-    ms = sum(m for name, m in device_events(torch, fn, iters) or ()
-             if kernel in name) / iters
+    `kernel`, from a torch.profiler trace of `iters` calls; a trace that
+    holds none of them is taken again, up to `tries` traces, and a line
+    says so. None when the profiler cannot trace the card or no trace
+    shows device time for them."""
+    for n in range(1, tries + 1):
+        ms = sum(m for name, m in device_events(torch, fn, iters) or ()
+                 if kernel in name) / iters
+        if ms or n == tries:
+            break
+    if n > 1:
+        print(f'  torch.profiler: {n} traces of {kernel} taken, ' + (
+            f'the first {n - 1} without its events' if ms
+            else 'none with its events'), flush=True)
     return ms or None
 
 
@@ -392,6 +435,47 @@ def bound(flops, nbytes, peak=PEAK_FP32_FLOPS):
                                      else 'bytes')
 
 
+def sm_clock_rate():
+    """SM clocks a second over the card: its SMs times its maximum SM
+    clock."""
+    mhz = subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.max.sm',
+         '--format=csv,noheader,nounits'], capture_output=True, text=True,
+        timeout=60).stdout.split()[0]
+    return SMS * float(mhz) * 1e6
+
+
+def issue_clocks(opcodes):
+    """The least SM clocks one thread's instructions take on an SM: the
+    busiest of its FMA pipe (integer multiply-adds), its ALU pipe (the
+    other integer instructions) and its schedulers (every instruction);
+    with the instructions counted for each."""
+    base = [op.split('.')[0] for op in opcodes]
+    n = dict(fma=sum(op in INT_FMA_OPCODES for op in base),
+             alu=sum(op in INT_ALU_OPCODES for op in base), all=len(base))
+    return max(n['fma'] / INT_OPS_PER_CLOCK_SM,
+               n['alu'] / INT_OPS_PER_CLOCK_SM,
+               n['all'] / ISSUE_PER_CLOCK_SM), n
+
+
+def sass_opcodes(so, kernel):
+    """The opcodes of `kernel`'s SASS in the built library (cuobjdump
+    -sass), padding NOPs and the branch to itself after the last EXIT
+    (never issued) left out; None when its output lacks the kernel."""
+    from grappa_tpu_torch.ops import _cuda
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), 'cuobjdump')
+    sass = subprocess.run([tool, '-sass', str(so)], capture_output=True,
+                          text=True, timeout=300).stdout
+    m = re.search(r'Function : (\S*' + kernel + r'\S*)\n(.*?)'
+                  r'(?=\n\s*Function :|\Z)', sass, re.S)
+    if not m:
+        return None
+    ops = re.findall(r'/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?'
+                     r'([A-Z][A-Z0-9_.]*)', m.group(2))
+    ops = [op for op in ops if op != 'NOP']
+    return ops[:len(ops) - ops[::-1].index('EXIT')] if 'EXIT' in ops else ops
+
+
 def rand_params(torch, gen, shapes):
     """Seeded non-zero parameters: weights ~ N(0, 1/fan_in), vectors are
     LayerNorm scales around 1 or biases around 0 (every entry non-zero,
@@ -408,15 +492,23 @@ def rand_params(torch, gen, shapes):
     return tuple(out)
 
 
-def accumulate(entries, name, max_abs, ms, plain_ms, flops, nbytes):
-    """The JSON line sums one call at each shape of each path."""
+def accumulate(entries, name, max_abs, ms, plain_ms, flops, nbytes,
+               peak=PEAK_FP32_FLOPS, device_ms=False):
+    """The JSON line sums one call at each shape of each path; `flops` are
+    operations at `peak` a second (SM clocks of issue for the mask
+    dump); `device_ms` is torch.profiler's (None: not measured; False:
+    not asked for)."""
     e = entries.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                                      flops=0.0, nbytes=0.0))
+                                      flops=0.0, nbytes=0.0, peak=peak))
     e['max_abs_err'] = max(e['max_abs_err'], max_abs)
     e['ms'] += ms
     e['plain_ms'] += plain_ms
     e['flops'] += flops
     e['nbytes'] += nbytes
+    if device_ms is not False:
+        prev = e.get('device_ms', 0.0)
+        e['device_ms'] = (None if prev is None or device_ms is None
+                          else prev + device_ms)
 
 
 def compare_out(torch, entries, name, label, kernel, plain, flops, nbytes,
@@ -586,8 +678,23 @@ def training_kernel_phase(torch, batch, entries):
     sym_out = {'n2': 2, 'n3': 2, 'n4': 12, 'n4_improper': 6}
     compare = lambda *a, **k: compare_out(torch, entries, *a, **k)
 
+    # the mask dump's integer work: each thread draws one element's two
+    # masks in straight-line code, so every instruction of its SASS runs
+    # once an element (a wide multiply counted once)
+    from collections import Counter
+    from grappa_tpu_torch.ops import _cuda
+    opcodes = sass_opcodes(_cuda.build(), 'dropout_masks_kernel') or []
+    clk, counts = issue_clocks(opcodes)
+    check(counts['fma'] + counts['alu'] > 0,
+          f'dropout_masks_kernel SASS: {counts["all"]} instructions an '
+          f'element, {counts["fma"]} integer on the FMA pipe and '
+          f'{counts["alu"]} on the ALU pipe: at least {clk:.4f} SM clocks '
+          f'an element; ' + json.dumps(dict(Counter(opcodes).most_common())))
+    clock_rate = sm_clock_rate()
+
     def mask_check(op, name, shape, rate, seed):
-        m1, m2 = op.dropout_masks(seed, shape, rate, device='cuda')
+        call = lambda: op.dropout_masks(seed, shape, rate, device='cuda')
+        m1, m2 = call()
         want = [philox.dropout_mask(seed, s, shape, rate, device='cuda')
                 for s in (0, 1)]
         torch.cuda.synchronize()
@@ -595,19 +702,29 @@ def training_kernel_phase(torch, batch, entries):
         keep = float((m1 > 0).float().mean())
         n = m1.numel()
         sigma = np.sqrt(rate * (1 - rate) / n)
-        ms = timed(torch, lambda: op.dropout_masks(seed, shape, rate,
-                                                   device='cuda'))
+        ms = timed(torch, call)
         plain_ms = timed(torch, lambda: [
             philox.dropout_mask(seed, s, shape, rate, device='cuda')
             for s in (0, 1)])
+        dev_ms = profiled_ms(torch, call, 'dropout_masks_kernel')
         nbytes = 2 * 4 * n
-        b_ms, b_by = bound(0, nbytes)
+        b_ms, b_by = bound(n * clk, nbytes, clock_rate)
+        share = ('not measured' if dev_ms is None
+                 else f'{b_ms / dev_ms:.3f} of it')
         check(same and abs(keep - (1 - rate)) <= 4 * sigma,
               f'{name} {tuple(shape)} rate {rate}: bit-equal to the plain '
               f'Philox {same}, keep fraction {keep:.6f} (1 - rate = '
               f'{1 - rate}, 4 sigma = {4 * sigma:.2e}) kernel {ms:.4f} ms '
-              f'plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})')
-        accumulate(entries, name, 0.0, ms, plain_ms, 0, nbytes)
+              f'plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}: '
+              f'{clk:.4f} SM clocks an element at '
+              f'{clock_rate / 1e12:.4f} T SM clocks/s; stores alone '
+              f'{nbytes / PEAK_BYTES * 1e3:.4f} ms)')
+        print(f'  mask dump {tuple(shape)}: device '
+              f'{"not measured" if dev_ms is None else f"{dev_ms:.4f} ms"}'
+              f' a call (torch.profiler), restated bound {b_ms:.4f} ms '
+              f'({b_by}), the bound {share}', flush=True)
+        accumulate(entries, name, 0.0, ms, plain_ms, n * clk, nbytes,
+                   peak=clock_rate, device_ms=dev_ms)
 
     # K1 / K1b / K1m at the batch's padded nodes and neighbour list
     nb = batch.neighbors
@@ -861,10 +978,77 @@ def distinct_quads(torch, gen, n_atoms, t):
     return (i0 + offs) % n_atoms
 
 
+def k5_host_us(torch, tk, pos, k, calls=2000):
+    """Where K5's wrapper spends its host time: us a call (host clock over
+    `calls` calls, no synchronize) of the whole wrapper without and with a
+    graph to build, and of its parts (the shape checks, `on_cuda`, the
+    autograd Function, the launch and, within it, the output's allocation,
+    the stream handle and the ctypes call). Reads the module's internals
+    under the names both this tree and its parent give them."""
+    from grappa_tpu_torch.ops import _cuda
+    t, _, _, c = pos.shape
+    pos_g = pos.detach().requires_grad_(True)
+    lib, stream = _cuda.lib(), _cuda.stream_of(pos)
+    out = tk.torsion_energy_fused(pos, k)
+    check_args = (pos, k, 'x')[:tk._check.__code__.co_argcount]
+    parts = {
+        'wrapper': lambda: tk.torsion_energy_fused(pos, k),
+        'wrapper_graph': lambda: tk.torsion_energy_fused(pos_g, k),
+        'check': lambda: tk._check(*check_args),
+        'on_cuda': lambda: _cuda.on_cuda((pos, k), 'x'),
+        'function_apply': lambda: tk.TorsionEnergy.apply(pos_g, k),
+        'launch': lambda: tk._launch(pos, k),
+        'torch_empty': lambda: torch.empty((t, c), dtype=torch.float32,
+                                           device=pos.device),
+        'stream_of': lambda: _cuda.stream_of(pos),
+        'ctypes_call': lambda: lib.grappa_torsion_energy(
+            pos.data_ptr(), k.data_ptr(), out.data_ptr(), t, c,
+            k.shape[1], stream)}
+    before = tk.torsion_energy_fused.launches
+    res = {name: enqueue_ms(torch, fn, calls) * 1e3
+           for name, fn in parts.items()}
+    tk.torsion_energy_fused.launches = before
+    return res
+
+
+def torsion_path_phase(torch):
+    """`--torsion`: K5's wrapper host time by part at the propers' shapes
+    of phase 6 (the training batch's, the 12,000- and 40,000-atom
+    molecules'), on seeded positions; then energy + dE/dx at 12,000 and
+    40,000 atoms x 4 conformers with the reference parameters, with and
+    without use_fused_torsion: ms a call (CUDA events over 10 calls) and
+    the CUDA kernels of one call (`torsion_path` lines). Drives only names
+    that this tree and its parent share, so a copy of this script times
+    the parent."""
+    from grappa_tpu_torch.data.graph_batch import MolGraph, collate
+    from grappa_tpu_torch.data.synthetic import make_moldata
+    from grappa_tpu_torch.models import mm_energy
+    from grappa_tpu_torch.ops import torsion_kernel as tk
+    gen = torch.Generator().manual_seed(556)
+    for label, t, c in K5_HOST_SHAPES:
+        xyz = 2.0 * torch.randn((t // 2, c, 3), generator=gen)
+        idxs = distinct_quads(torch, gen, t // 2, t)
+        pos = tk.gather_torsion_positions(xyz.cuda(), idxs.cuda())
+        k = (0.5 * torch.randn((t, 6), generator=gen)).cuda()
+        print(f'  k5_host {label}: ' + json.dumps(
+            k5_host_us(torch, tk, pos, k)), flush=True)
+    for n_atoms in FUSION_ATOMS:
+        batch = collate([MolGraph.from_moldata(make_moldata(
+            seed=0, n_confs=FUSION_CONFS, n_atoms=n_atoms))])
+        params = ref_params(torch, batch)
+        res = {'n_atoms': n_atoms, **energy_path_times(
+            torch, lambda: mm_energy.energy_and_gradient(batch, params),
+            lambda: mm_energy.energy_and_gradient(
+                batch, params, use_fused_torsion=True))}
+        print('torsion_path ' + json.dumps(res), flush=True)
+
+
 def torsion_kernel_phase(torch, entries, shapes):
-    """Phase 6(a): K5 against its plain version at each (T, C, P), with
-    degenerate tuples (four equal atoms) and zeroed k rows; its
-    first-order gradients against autograd through the plain version."""
+    """Phase 6(a): K5 and K5b against their plain versions at each (T, C,
+    P), with degenerate tuples (four equal atoms) and zeroed k rows: K5's
+    energies, K5b's dpos and dk (each within GRAD_RTOL x max |plain|),
+    and autograd through K5 / K5b against autograd through the plain
+    version; both kernels' device time (torch.profiler)."""
     from grappa_tpu_torch.ops import torsion_kernel as tk
     gen = torch.Generator().manual_seed(555)
     for label, t, c, p, on_path in shapes:
@@ -874,31 +1058,65 @@ def torsion_kernel_phase(torch, entries, shapes):
         idxs[::7] = idxs[::7, :1]                 # degenerate tuples
         k = 0.5 * torch.randn((t, p), generator=gen)
         k[::5] = 0.0                              # masked / padded rows
+        g = torch.randn((t, c), generator=gen).cuda()
         pos = tk.gather_torsion_positions(xyz.cuda(), idxs.cuda())
         k = k.cuda()
-        compare_out(torch, entries, 'torsion_energy_fused',
-                    f'{label} T={t} C={c} P={p}',
-                    lambda: tk.torsion_energy_fused(pos, k),
+        shape = f'{label} T={t} C={c} P={p}'
+        call = lambda: tk.torsion_energy_fused(pos, k)
+        compare_out(torch, entries, 'torsion_energy_fused', shape, call,
                     lambda: tk.reference_torsion_energy(pos, k),
                     flops=t * c * (60 + 5 * p),
                     nbytes=4 * (12 * t * c + t * p + t * c),
                     on_path=on_path)
         # the events above time back-to-back calls, which the host's
         # wrapper paces at small shapes: split the device's share out
-        call = lambda: tk.torsion_energy_fused(pos, k)
         dev_ms = profiled_ms(torch, call, 'torsion_energy_kernel')
-        device = ('not measured (no device time in a torch.profiler trace)'
-                  if dev_ms is None
-                  else f'{dev_ms * 1e3:.2f} us a launch (torch.profiler)')
-        print(f'  K5 {label}: device {device}; the wrapper\'s host time '
-              f'{enqueue_ms(torch, call) * 1e3:.2f} us a call (host clock '
-              f'over 200 calls, no synchronize)', flush=True)
+        print(f'  K5 {label}: device ' + (
+            'not measured (no device time in a torch.profiler trace)'
+            if dev_ms is None else f'{dev_ms * 1e3:.2f} us a launch '
+            f'(torch.profiler)'), flush=True)
         if on_path:
+            accumulate(entries, 'torsion_energy_fused', 0.0, 0.0, 0.0, 0, 0,
+                       device_ms=dev_ms)
+
+        # K5b: dpos and dk against the plain vjp; the main paths ask for
+        # dpos alone (their parameters are detached)
+        kernel = lambda need_k: tk.torsion_energy_grad(pos, k, g, need_k)
+        plain = lambda need_k: tk.reference_torsion_energy_grad(pos, k, g,
+                                                                need_k)
+        got, want = kernel(True), plain(True)
+        torch.cuda.synchronize()
+        ok, errs = True, []
+        for a, b in zip(got, want):
+            err = float((a - b).abs().max())
+            rel = err / max(float(b.abs().max()), 1e-30)
+            ok &= bool(torch.isfinite(a).all()) and rel <= GRAD_RTOL
+            errs.append((err, rel))
+        zero = bool((got[0][::7] == 0).all())
+        ms = timed(torch, lambda: kernel(False))
+        ms_k = timed(torch, lambda: kernel(True))
+        plain_ms = timed(torch, lambda: plain(False))
+        dev_b = profiled_ms(torch, lambda: kernel(False),
+                            'torsion_grad_kernel')
+        flops, nbytes = t * c * (180 + 6 * p), 4 * (25 * t * c + t * p)
+        b_ms, b_by = bound(flops, nbytes)
+        device = ('not measured (no device time in a torch.profiler trace)'
+                  if dev_b is None else f'{dev_b:.4f} ms')
+        check(ok and zero,
+              f'torsion_energy_grad {shape}: dpos max_abs_err '
+              f'{errs[0][0]:.3e} (max|err|/max|plain| {errs[0][1]:.3e}), '
+              f'dk {errs[1][0]:.3e} ({errs[1][1]:.3e}) (tol {GRAD_RTOL} x '
+              f'max|plain|); degenerate tuples\' dpos 0: {zero}; kernel '
+              f'{ms:.4f} ms ({ms_k:.4f} with dk), device {device}, plain '
+              f'{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, '
+              f'{nbytes / 1e6:.1f} MB)')
+        if on_path:
+            accumulate(entries, 'torsion_energy_grad', errs[0][0], ms,
+                       plain_ms, flops, nbytes, device_ms=dev_b)
             compare_grad(torch, entries, 'torsion_energy_fused gradients',
-                         f'{label} T={t} C={c} P={p} (the plain vjp)',
+                         f'{shape} (K5 and K5b through autograd)',
                          tk.torsion_energy_fused, tk.reference_torsion_energy,
-                         [pos, k], torch.randn((t, c), device='cuda'),
-                         flops=2 * t * c * (60 + 5 * p),
+                         [pos, k], g, flops=2 * t * c * (60 + 5 * p),
                          nbytes=4 * (2 * (12 * t * c + t * p) + t * c),
                          record=False)
 
@@ -960,21 +1178,51 @@ def close_torsion_terms(torch, label, got, want):
 
 
 def k5_launches(torch, fn):
-    """fn()'s result and the K5 launches it made (the count is set to 0
-    just before and read just after)."""
-    from grappa_tpu_torch.ops.torsion_kernel import torsion_energy_fused
-    torsion_energy_fused.launches = 0
+    """fn()'s result and the K5 and K5b launches it made (the counts are
+    set to 0 just before and read just after)."""
+    from grappa_tpu_torch.ops import torsion_kernel as tk
+    tk.torsion_energy_fused.launches = tk.torsion_energy_grad.launches = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, torsion_energy_fused.launches
+    return out, (tk.torsion_energy_fused.launches,
+                 tk.torsion_energy_grad.launches)
+
+
+def record_launches(launches, path, counts):
+    """Adds a path's K5 / K5b launch counts to the kernels line's."""
+    for name, n in zip(('torsion_energy_fused', 'torsion_energy_grad'),
+                       counts):
+        launches.setdefault(name, {})[path] = n
+
+
+def cuda_kernels(torch, fn):
+    """The CUDA kernels one call of fn() launches (torch.profiler, copies
+    and fills left out); None when the profiler cannot trace the card."""
+    events = device_events(torch, fn, 1)
+    if events is None:
+        return None
+    return sum(not name.startswith(('Memcpy', 'Memset'))
+               for name, _ in events)
+
+
+def energy_path_times(torch, plain, fused):
+    """energy_and_gradient's two paths: ms a call (CUDA events over 10
+    calls) and the CUDA kernels one call launches."""
+    return {'energy_forces_plain_ms': timed(torch, plain, iters=10),
+            'energy_forces_fused_ms': timed(torch, fused, iters=10),
+            'cuda_kernels_plain': cuda_kernels(torch, plain),
+            'cuda_kernels_fused': cuda_kernels(torch, fused)}
 
 
 def fusion_phase(torch, cfg, batches, launches):
     """Phase 6(b): benchmarks/fusion_decision.py's measurement at protein
     scale with the default model's predicted parameters: energy and dE/dx
-    through K5 against the plain path on the card, and the stage times."""
+    through K5 / K5b against the plain path on the card, the stage times,
+    the CUDA kernels one call of each path launches and the host time of
+    a K5 call on the path's own inputs."""
     from grappa_tpu_torch.models import mm_energy
     from grappa_tpu_torch.models.grappa_model import make_model
+    from grappa_tpu_torch.ops import torsion_kernel as tk
     from grappa_tpu_torch.train.trainer import make_optimizer, make_train_step
     model = perturbed_model(torch, make_model, cfg).cuda()
     for n_atoms, batch in batches.items():
@@ -983,15 +1231,15 @@ def fusion_phase(torch, cfg, batches, launches):
             pred = model(batch)
             fwd_ms = timed(torch, lambda: model(batch), iters=3, warmup=1)
         pred = {key: v.detach() for key, v in pred.items()}
-        (e_f, g_f), n_fused = k5_launches(
-            torch, lambda: mm_energy.energy_and_gradient(
-                batch, pred, use_fused_torsion=True))
-        (e_p, g_p), n_plain = k5_launches(
-            torch, lambda: mm_energy.energy_and_gradient(batch, pred))
-        launches[f'fusion {n_atoms} atoms'] = n_fused
-        check(n_fused == 2 and n_plain == 0,
-              f'{n_atoms} atoms: K5 launches per energy_and_gradient call: '
-              f'fused {n_fused} (2), plain {n_plain} (0)')
+        fused = lambda: mm_energy.energy_and_gradient(
+            batch, pred, use_fused_torsion=True)
+        plain = lambda: mm_energy.energy_and_gradient(batch, pred)
+        (e_f, g_f), n_fused = k5_launches(torch, fused)
+        (e_p, g_p), n_plain = k5_launches(torch, plain)
+        record_launches(launches, f'fusion {n_atoms} atoms', n_fused)
+        check(n_fused == (2, 2) and n_plain == (0, 0),
+              f'{n_atoms} atoms: K5 / K5b launches per energy_and_gradient '
+              f'call: fused {n_fused} (2, 2), plain {n_plain} (0, 0)')
         close_energy_gradient(torch, f'{n_atoms} atoms, predicted '
                               f'parameters, fused vs plain on the card',
                               e_f, g_f, e_p, g_p)
@@ -1002,12 +1250,16 @@ def fusion_phase(torch, cfg, batches, launches):
                'n_padded': batch.xyz.shape[0],
                'n_propers': int(batch.terms['n4'].mask.sum()),
                'forward_ms': fwd_ms,
-               'energy_forces_plain_ms': timed(
-                   torch, lambda: mm_energy.energy_and_gradient(batch, pred),
-                   iters=10),
-               'energy_forces_fused_ms': timed(
-                   torch, lambda: mm_energy.energy_and_gradient(
-                       batch, pred, use_fused_torsion=True), iters=10)}
+               **energy_path_times(torch, plain, fused)}
+        # K5 as the fused path calls it: the propers, a graph to build
+        tb = batch.terms['n4']
+        xyz = batch.xyz.detach().requires_grad_(True)
+        pos = tk.gather_torsion_positions(xyz, tb.idxs)
+        k = torch.where(tb.mask[:, None], pred['n4_k'], 0.0)
+        before = tk.torsion_energy_fused.launches
+        res['k5_host_us'] = enqueue_ms(
+            torch, lambda: tk.torsion_energy_fused(pos, k)) * 1e3
+        tk.torsion_energy_fused.launches = before
         if n_atoms == min(batches):
             step = make_train_step(model, make_optimizer())
             w = loss_weights(torch, batch.num_mols, 'cuda')
@@ -1035,10 +1287,10 @@ def evaluation_phase(torch, cfg, graphs, batch, big, launches):
     (e, g), n = k5_launches(torch, lambda: mm_energy.energy_and_gradient(
         big_card, ref_params(torch, big_card), use_fused_torsion=True))
     n_atoms = sum(gr.n_atoms for gr in big_graphs)
-    launches[f'reference {n_atoms} atoms'] = n
+    record_launches(launches, f'reference {n_atoms} atoms', n)
     e_c, g_c = mm_energy.energy_and_gradient(
         big_cpu, ref_params(torch, big_cpu), use_fused_torsion=True)
-    check(n == 2, f'(c) K5 launches: {n} (2)')
+    check(n == (2, 2), f'(c) K5 / K5b launches: {n} (2, 2)')
     close_energy_gradient(torch, f'(c) {n_atoms} atoms, reference '
                           f'parameters, fused, card vs CPU', e, g, e_c, g_c)
     close_torsion_terms(
@@ -1061,7 +1313,7 @@ def evaluation_phase(torch, cfg, graphs, batch, big, launches):
         ev_card.step(batch, e, g, names)
 
     _, n = k5_launches(torch, card_step)
-    launches['evaluate'] = n
+    record_launches(launches, 'evaluate', n)
     e, g = mm_energy.energy_and_gradient(
         cpu_batch, {key: v.cpu() for key, v in pred.items()})
     ev_cpu.step(cpu_batch, e, g, names)
@@ -1069,10 +1321,11 @@ def evaluation_phase(torch, cfg, graphs, batch, big, launches):
     worst = max(abs(got[d][key] - v) / max(abs(v), 1e-30)
                 for d in want for key, v in want[d].items())
     finite = all(np.isfinite(v) for d in got.values() for v in d.values())
-    check(n == 2 and finite and got.keys() == want.keys() and worst <= 1e-4,
+    check(n == (2, 2) and finite and got.keys() == want.keys()
+          and worst <= 1e-4,
           f'(d) StreamingEvaluator, {batch.num_mols} molecules x '
-          f'{TRAIN_CONFS} conformers, card (K5, {n} launches) vs CPU (plain '
-          f'path): worst relative difference {worst:.3e} (tol 1e-4); avg '
+          f'{TRAIN_CONFS} conformers, card (K5 / K5b, {n} launches) vs CPU '
+          f'(plain path): worst relative difference {worst:.3e} (tol 1e-4); avg '
           f'{got["avg"]}; early_stopping_loss '
           f'{early_stopping_loss(got):.6e} vs {early_stopping_loss(want):.6e}')
 
@@ -1289,6 +1542,7 @@ def main() -> int:
               '(grappa_tpu_torch/ not found)', file=sys.stderr)
         return 2
     kernels_only = sys.argv[1:] == ['--kernels-only']
+    torsion_only = sys.argv[1:] == ['--torsion']
     sys.path.insert(0, ROOT)
     import torch
     if not torch.cuda.is_available():
@@ -1315,6 +1569,9 @@ def main() -> int:
     _cuda.lib()
     print(f'kernels built in {time.time() - t0:.1f} s: '
           f'{os.path.relpath(so, ROOT)}', flush=True)
+    if torsion_only:
+        torsion_path_phase(torch)
+        return 1 if FAILURES else 0
 
     from grappa_tpu_torch.data.graph_batch import MolGraph, collate
     from grappa_tpu_torch.data.loader import bucketed_pad_spec
@@ -1392,11 +1649,9 @@ def main() -> int:
                     True)]
     shapes += [('kernel_bench', t, c, 6, False) for t, c in KERNEL_BENCH_TC]
     torsion_kernel_phase(torch, entries, shapes)
-    k5_paths = {}
-    fusion_phase(torch, cfg, {n: v[2] for n, v in fusion.items()}, k5_paths)
+    fusion_phase(torch, cfg, {n: v[2] for n, v in fusion.items()}, launches)
     evaluation_phase(torch, cfg, graphs, train_batch,
-                     (fusion[big_n][1], big), k5_paths)
-    launches['torsion_energy_fused'] = k5_paths
+                     (fusion[big_n][1], big), launches)
 
     phase('7. molecular dynamics on the card (reference parameters)')
     md_phase(torch, (fusion[big_n][0], big))
@@ -1419,11 +1674,14 @@ def main() -> int:
                               'fused_symmetriser.py:174'),
         'fused_symmetriser.backward': ('fused_symmetriser.cu',
                                        'fused_symmetriser.py:199'),
-        'torsion_energy_fused': ('torsion.cu', 'torsion_kernel.py:109')}
+        'torsion_energy_fused': ('torsion.cu', 'torsion_kernel.py:109'),
+        # K5's backward: in the JAX package the vjp of _energy_jnp run as
+        # one XLA program (_bwd), not a Pallas kernel
+        'torsion_energy_grad': ('torsion.cu', 'torsion_kernel.py:156')}
     kernels = []
     for name, (source, replaces) in sources.items():
         e = entries[name]
-        b_ms, b_by = bound(e['flops'], e['nbytes'])
+        b_ms, b_by = bound(e['flops'], e['nbytes'], e['peak'])
         per_path = launches.get(name, {})
         kernels.append(dict(
             name=name, route='cuda', source=csrc + source,
@@ -1431,8 +1689,13 @@ def main() -> int:
             launches=sum(per_path.values()), launches_per_path=per_path,
             max_abs_err=e['max_abs_err'], ms=e['ms'],
             plain_ms=e['plain_ms'], bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, gflop=e['flops'] / 1e9,
-            mbytes=e['nbytes'] / 1e6))
+            library_ms=None, mbytes=e['nbytes'] / 1e6))
+        if e['peak'] == PEAK_FP32_FLOPS:
+            kernels[-1]['gflop'] = e['flops'] / 1e9
+        else:
+            kernels[-1]['g_sm_clocks'] = e['flops'] / 1e9
+        if 'device_ms' in e:
+            kernels[-1]['device_ms'] = e['device_ms']
         if name in TENSOR_CORE_KERNELS:
             kernels[-1]['bound_tc_ms'] = bound(3 * e['flops'], e['nbytes'],
                                                PEAK_TF32_FLOPS)[0]

@@ -8,12 +8,26 @@
 // = flat element index), so the dump is bit-identical to what the kernels
 // apply.
 //
-// Bound on an H100 SXM: writing two float32 masks, 8 bytes an element (no
-// input): 13.8 MB for the (3376, 512) GNN masks of the 128-molecule
-// training batch, 4.1 us at 3.35 TB/s.
-// Philox4x32-10 costs 20 integer multiplies an element, far below the
-// integer rate, so the pass is bound by its stores. One thread an element,
-// coalesced stores.
+// Bound on an H100 SXM, the larger of two times:
+// - stores: two float32 masks, 8 bytes an element (no input), at 3.35
+//   TB/s: 13.8 MB and 4.1 us for the (3376, 512) GNN masks of the
+//   128-molecule training batch, 135 MB and 40.4 us for the
+//   (4, 8256, 512) masks of its n4 head;
+// - instructions: one thread an element runs the kernel's SASS once in
+//   straight line, two Philox4x32-10 draws. Built for sm_90a it issues
+//   132 instructions: 38 integer multiply-adds on the FMA pipe (28
+//   IMAD.WIDE.U32, 6 IMAD.HI.U32, 4 other IMAD), 45 other integer
+//   instructions on the ALU pipe (36 LOP3, 4 ISETP, 4 IADD3, 1 SHF), 32
+//   UIADD3 (the key schedule) and 6 ULDC on the uniform datapath, and 11
+//   others (special-register reads, constant loads, selects, stores,
+//   exits).
+//   An SM runs each pipe at 64 a clock, beside each other, and issues 128
+//   instructions a clock, so issue binds: 132 / 128 = 1.03 SM clocks an
+//   element, over 132 SMs at 1,980 MHz: 6.8 us for the GNN masks, 66.7 us
+//   for the n4 head's.
+// So the pass is bound by its instruction issue, not by its stores.
+// chip_smoke.py recounts this from the built library's SASS. One thread an
+// element, coalesced stores.
 #include "common.cuh"
 
 namespace {

@@ -64,13 +64,11 @@ def tuple_energies(batch: GraphBatch, params: ParamDict, xyz: torch.Tensor,
     """Masked per-tuple energies (T, C) for every term.
 
     use_fused_torsion routes the torsion terms through the torsion kernel
-    K5 (`ops.torsion_kernel`, launched on CUDA tensors); with
-    offset_torsion=True they take the Chebyshev path, as in the JAX
-    package. It stays the caller's choice and off by default, as in the
-    JAX package: on an H100, energy + dE/dx at 12,000 and 40,000 atoms took
-    as long with K5 as without, within the run-to-run spread (PERF.md §5),
-    because host launches pace this path and K5's backward recomputes the
-    plain forward."""
+    K5 and its backward K5b (`ops.torsion_kernel`, launched on CUDA
+    tensors); with offset_torsion=True they take the Chebyshev path, as in
+    the JAX package. It stays the caller's choice and off by default, as
+    in the JAX package (PERF.md §6 times energy + dE/dx with and without
+    it)."""
     energies = {
         'n2': harmonic_term_energy(params['n2_k'], params['n2_eq'],
                                    geometry.distance(*_points(

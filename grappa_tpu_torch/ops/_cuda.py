@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Iterable, Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -56,6 +56,7 @@ _SIGNATURES = {
         _I, [_P, _I, _I, _I, _P, _I, _P, _P, _I] + [_P] * 6),
     'grappa_dropout_masks': (_I, [_U, _U, _F, _LL, _P, _P, _P]),
     'grappa_torsion_energy': (_I, [_P, _P, _P, _I, _I, _I, _P]),
+    'grappa_torsion_grad': (_I, [_P] * 5 + [_I] * 3 + [_P]),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -135,18 +136,20 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f'{name}: CUDA error {rc} at launch')
 
 
-def on_cuda(tensors: Iterable[torch.Tensor], name: str) -> bool:
+def on_cuda(tensors: Sequence[torch.Tensor], name: str) -> bool:
     """True when every tensor is a contiguous float32 tensor on one CUDA
     device (the kernel's input), False when every one lies on the CPU (the
-    plain version's); raises on anything else."""
-    tensors = list(tensors)
-    devices = {t.device.type for t in tensors}
-    if devices == {'cpu'}:
-        return False
-    if devices != {'cuda'} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"{name}: all tensors must lie on one CUDA device "
-                         f"or all on the CPU, got {sorted(devices)}")
+    plain version's); raises on anything else. Reads each tensor's flags
+    directly: wrappers call it on every launch."""
+    first = tensors[0]
+    if not first.is_cuda:
+        if all(t.device.type == 'cpu' for t in tensors):
+            return False
+        _mixed(tensors, name)
+    index = first.get_device()
     for t in tensors:
+        if not t.is_cuda or t.get_device() != index:
+            _mixed(tensors, name)
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: the kernel takes float32, got "
                             f"{t.dtype}")
@@ -155,9 +158,20 @@ def on_cuda(tensors: Iterable[torch.Tensor], name: str) -> bool:
     return True
 
 
+def _mixed(tensors: Sequence[torch.Tensor], name: str) -> None:
+    raise ValueError(f"{name}: all tensors must lie on one CUDA device or "
+                     f"all on the CPU, got "
+                     f"{sorted({str(t.device) for t in tensors})}")
+
+
 def stream_of(t: torch.Tensor) -> int:
-    """The handle of the current CUDA stream on t's device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current CUDA stream on t's device (read as a raw
+    handle, without building a torch.cuda.Stream object).
+
+    `torch._C._cuda_getCurrentRawStream` is private (checked on torch
+    2.11); tests/test_torch_port_kernels.py holds it against
+    `torch.cuda.current_stream().cuda_stream`, so a rename fails there."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def grad_output(dy: torch.Tensor, like: torch.Tensor, name: str

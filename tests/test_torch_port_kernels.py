@@ -21,7 +21,9 @@ kernel's gradients against autograd through the plain version on the same
 inputs, dropout masks from the same seed. Masks: bit-equal to the plain
 Philox. K5: any T and C, with degenerate tuples (four equal atoms) and
 zeroed k rows; its gradients (first order, and the force loss's double
-backward w.r.t. k) on the card against the same graph on the CPU.
+backward w.r.t. k) on the card against the same graph on the CPU. K5b:
+dpos and dk against the plain vjp at any T, C and P (gradient rule
+above), bit-equal on a second call; its own backward, card against CPU.
 """
 import numpy as np
 import pytest
@@ -345,8 +347,10 @@ def test_backward_kernels_are_deterministic(cuda):
 
 
 # ---------------------------------------------------------------- masks
+# totals 704512, 4407296, 15 and 154154: the last two not a multiple of 4
 @pytest.mark.parametrize('op,shape,rate', [
-    (tfg, (1376, 512), 0.3), (tfb, (4, 2152, 512), 0.5), (tfg, (3, 5), 0.1)])
+    (tfg, (1376, 512), 0.3), (tfb, (4, 2152, 512), 0.5), (tfg, (3, 5), 0.1),
+    (tfb, (2, 1001, 77), 0.4)])
 def test_mask_dump_is_bit_equal_to_plain_philox(cuda, op, shape, rate):
     before = op.dropout_masks.launches
     m1, m2 = op.dropout_masks(77, shape, rate, device=cuda)
@@ -427,19 +431,97 @@ def _torsion_grads(xyz, idxs, k):
 
 @pytest.mark.parametrize('t,c', [(37, 5), (8256, 32)])
 def test_torsion_gradients_on_card_match_cpu(cuda, t, c):
+    """K5 twice, K5b once for the first-order gradients and once under
+    create_graph (whose own backward, the plain vjp, gives d2k)."""
     xyz, idxs, k = _torsion_case(t, c, 6, seed=1)
     before = ttk.torsion_energy_fused.launches
+    before_b = ttk.torsion_energy_grad.launches
     got = _torsion_grads(xyz.to(cuda), idxs.to(cuda), k.to(cuda))
     torch.cuda.synchronize()
     assert ttk.torsion_energy_fused.launches == before + 2
+    assert ttk.torsion_energy_grad.launches == before_b + 2
     want = _torsion_grads(xyz, idxs, k)
     _assert_grads([g.cpu() for g in got], want, ['dxyz', 'dk', 'd2k'])
 
 
+# K5b: P = 1, 3 and 6 (one pass of the dk sum), 10 (two passes); C = 1, 4,
+# 32 (32, 8 and 1 tuples a warp) and 128 (a lane walks 4 conformers);
+# T ragged against a warp's tuples
+@pytest.mark.parametrize('need_k', [False, True])
+@pytest.mark.parametrize('c', [1, 4, 32, 128])
+@pytest.mark.parametrize('t,n_per', [(1, 1), (37, 3), (8257, 6), (203, 10)])
+def test_torsion_grad_kernel_matches_plain(cuda, t, n_per, c, need_k):
+    xyz, idxs, k = _torsion_case(t, c, n_per, seed=2)
+    pos = ttk.gather_torsion_positions(xyz.to(cuda), idxs.to(cuda))
+    k = k.to(cuda)
+    g = torch.randn((t, c), generator=torch.Generator().manual_seed(3)
+                    ).to(cuda)
+    before = ttk.torsion_energy_grad.launches
+    dpos, dk = ttk.torsion_energy_grad(pos, k, g, need_k)
+    torch.cuda.synchronize()
+    assert ttk.torsion_energy_grad.launches == before + 1
+    assert dpos.shape == pos.shape
+    want_pos, want_k = ttk.reference_torsion_energy_grad(pos, k, g, need_k)
+    _assert_grads([dpos], [want_pos], ['dpos'])
+    # degenerate tuples take a zero gradient, as atan2's guard gives
+    assert bool((dpos[::7] == 0).all())
+    if need_k:
+        assert dk.shape == k.shape
+        _assert_grads([dk], [want_k], ['dk'])
+    else:
+        assert dk is None and want_k is None
+    # no atomics: the same bits on a second call
+    again = ttk.torsion_energy_grad(pos, k, g, need_k)
+    assert torch.equal(again[0], dpos)
+    assert not need_k or torch.equal(again[1], dk)
+
+
+def test_torsion_grad_double_backward_on_card_matches_cpu(cuda):
+    """K5b's own backward (the plain first-order version's vjp) w.r.t.
+    pos, k and g, card against CPU."""
+    xyz, idxs, k = _torsion_case(301, 4, 6, seed=4)
+    pos = ttk.gather_torsion_positions(xyz, idxs)
+    g = torch.randn((301, 4), generator=torch.Generator().manual_seed(5))
+    out = []
+    for device in (cuda, torch.device('cpu')):
+        leaves = [q.to(device).requires_grad_(True) for q in (pos, k, g)]
+        dpos, dk = ttk.torsion_energy_grad(*leaves, True)
+        loss = (dpos - 1.0).square().mean() + dk.square().sum()
+        out.append([q.cpu() for q in torch.autograd.grad(loss, leaves)])
+    _assert_grads(out[0], out[1], ['d2/dpos', 'd2/dk', 'd2/dg'])
+
+
+def test_torsion_grad_wrapper_raises(cuda):
+    xyz, idxs, k = _torsion_case(11, 4, 6)
+    pos = ttk.gather_torsion_positions(xyz.to(cuda), idxs.to(cuda))
+    k, g = k.to(cuda), torch.ones((11, 4), device=cuda)
+    with pytest.raises(ValueError, match='g \\(T, C\\)'):
+        ttk.torsion_energy_grad(pos, k, g[:, :3])
+    with pytest.raises(TypeError, match='float32'):
+        ttk.torsion_energy_grad(pos, k, g.double())
+    with pytest.raises(ValueError, match='contiguous'):
+        ttk.torsion_energy_grad(pos, k, torch.ones((4, 11), device=cuda).t())
+    with pytest.raises(ValueError, match='one CUDA device or all on the CPU'):
+        ttk.torsion_energy_grad(pos, k, g.cpu())
+
+
+def test_stream_of_is_the_current_stream(cuda):
+    """The wrappers launch on the handle of `_cuda.stream_of`, read through
+    a private torch call: it is the current stream's, on the default
+    stream and on a side stream."""
+    from grappa_tpu_torch.ops import _cuda
+    x = torch.zeros(1, device=cuda)
+    assert _cuda.stream_of(x) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert _cuda.stream_of(x) == side.cuda_stream
+        assert _cuda.stream_of(x) == torch.cuda.current_stream().cuda_stream
+
+
 def test_fused_energy_and_gradient_launch_k5_twice(cuda):
     """energy_and_gradient(use_fused_torsion=True) on the card: two K5
-    launches (propers, impropers), none without the flag; energies and
-    dE/dx against the CPU's plain path."""
+    and two K5b launches (propers, impropers), none without the flag;
+    energies and dE/dx against the CPU's plain path."""
     from grappa_tpu_torch.data import MolGraph, collate
     from grappa_tpu_torch.data.synthetic import make_moldata
     from grappa_tpu_torch.models import mm_energy
@@ -458,9 +540,11 @@ def test_fused_energy_and_gradient_launch_k5_twice(cuda):
     on_card = {key: v.to(cuda) for key, v in params.items()}
     for flag, launches in ((True, 2), (False, 0)):
         before = ttk.torsion_energy_fused.launches
+        before_b = ttk.torsion_energy_grad.launches
         e, g = mm_energy.energy_and_gradient(card, on_card,
                                              use_fused_torsion=flag)
         torch.cuda.synchronize()
         assert ttk.torsion_energy_fused.launches == before + launches
+        assert ttk.torsion_energy_grad.launches == before_b + launches
         torch.testing.assert_close(e.cpu(), e_cpu, **TOL)
         _assert_grads([g.cpu()], [g_cpu], ['dE/dx'])
