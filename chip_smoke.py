@@ -4,14 +4,18 @@
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # phases 1, 2 and 4 alone
     python3 chip_smoke.py --torsion        # phase 1 and the K5 path's times
+    python3 chip_smoke.py --trainrun       # phases 1 and 8 alone
+    python3 chip_smoke.py --train-step     # phases 1 and 5 alone
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit, the torch / CUDA versions;
      builds the hand-written kernels from grappa_tpu_torch/csrc and times it.
   2. kernels: each CUDA kernel against its plain PyTorch version on the same
      seeded inputs at the shapes the serving path gives it in both
-     workloads of phase 3, with the error, the kernel / plain times and the
-     card's bound.
+     workloads of phase 3 and at the shapes of phase 8's train, validation
+     and test batches (one of each from the loaders do_trainrun builds from
+     phase 8's dataset, made here), with the error, the kernel / plain
+     times and the card's bound.
   3. predict_many at the default model's full width (7 x 512 GNN, depth-3 x
      512 heads) on seeded non-zero weights, on two paths: 32 small
      molecules, then a 1224-atom protein-like molecule. Checks that every
@@ -21,10 +25,11 @@ Phases, each printing its own lines:
      CPU (the eager modules).
   4. training kernels at the training batch's shapes (the JAX package's
      128-molecule x 32-conformer bench batch, rebuilt by the port's
-     make_moldata): K1 / K2 forward with dropout at the default rates and
-     K3 forward, K1b / K2b / K3b against autograd through the plain
-     versions (same dropout seeds), the K1m / K2m mask dumps bit-equal to
-     the plain Philox, with times, device times and bounds. Then the
+     make_moldata) and at phase 8's train batch's: K1 / K2 forward with
+     dropout at the default rates and K3 forward, K1b / K2b / K3b against
+     autograd through the plain versions (same dropout seeds), the K1m /
+     K2m mask dumps (bench batch alone) bit-equal to the plain Philox,
+     with times, device times and bounds. Then the
      `block_profile` line: K2 / K2b at the n4 training shape (S=4,
      T=8256, F=hid=512, dropout 0.5), K1 / K1b at the training batch's
      nodes (N=3376, dropout 0.3) and K3 / K3b at the n4 training shape
@@ -66,11 +71,39 @@ Phases, each printing its own lines:
      CPU; (b) at 12,000 atoms x 4 replicas: minimize lowers the energy,
      then from the minimum NVE at 0.2 fs conserves the total energy and
      BAOAB at 300 K reaches (3N/2) kT within 10%; ms a step, peak memory.
+  8. the training run at the default width: (a) do_trainrun from a dataset
+     directory the port's Dataset.save wrote (make_dataset: 80 molecules x
+     32 conformers, 8-43 atoms; partition 0.8 / 0.1 / 0.1, batches 32 /
+     32 / 1, lr 1.5e-5, start_qm_epochs 1, warmup 3 steps, 3 epochs, a
+     checkpoint every epoch, written asynchronously, test_model on):
+     finite losses; the K1-K3 / K1b-K3b launches its 6 steps, 3 validation
+     passes of 1 batch, 8 test molecules and the smoke test imply (18
+     forwards, 6 backwards); best.ckpt and last.ckpt pass
+     _verify_checkpoint; model.npz reloaded through Grappa.from_model_dict
+     predicts what the Trainer's best weights predict;
+     resume_trainrun(extra_epochs=1) ends at epoch 4; then writer-free
+     epochs of the resumed Trainer: their steady train steps/s and its
+     spread, each epoch's loader wait, host ms of the steps and loss fetch,
+     beside the same with a wait for the card before each step and over
+     the batch cache (`steady_epochs`), the device idle share of two
+     epochs under torch.profiler, and Trainer.validate (a fetch a batch)
+     against one fetch for the pass over the 8 test batches (metrics at
+     VAL_RTOL); the `trainrun`
+     line (the run's epoch wall times and steps/s on the host clock,
+     those steady numbers, the time the Trainer waited on the loader,
+     validation, test-evaluation and checkpoint-write ms, peak memory,
+     and whether the native pre-processing ran).
+     (b) the same run without dropout on 8 molecules x 4 conformers (train
+     batches of 3), 2 epochs, on the card and on the CPU: the first step's
+     loss at rtol 1e-4, the later losses and the validation metrics at
+     TRAINRUN_RTOL.
 
-The last three lines are a JSON object describing the kernels, the card's
-name and power limit, and {"ok": true, "device": {...}}. In the kernels'
+The `trainrun {...}` line comes before the last three lines, which are a
+JSON object describing the kernels, the card's name and power limit, and
+{"ok": true, "device": {...}}. In the kernels'
 line, `launches` sums the main paths (the two predict paths and the ten
-training steps for K1-K3; phase 6's four paths for K5 and K5b;
+training steps and phase 8's training run for K1-K3; phase 6's four
+paths for K5 and K5b;
 `launches_per_path` gives each), and `ms`, `plain_ms`, `bound_ms`,
 `gflop` and `mbytes` sum one call at each shape of each path; K1-K3 and
 K1b-K3b also give `bound_tc_ms` (3 x their FLOPs at the 495 TFLOP/s TF32
@@ -82,7 +115,10 @@ pipe (integer multiply-adds, 64 a clock), the ALU pipe (the other
 integer instructions, 64 a clock) and issue (every instruction, 128 a
 clock), over the card's SM clocks (`g_sm_clocks`), against their
 stores. Any failure exits non-zero before those lines. `--kernels-only` stops after phase 4 and prints the kernels' sums as a
-`kernel_times` line instead; `--torsion` prints only K5's host time by
+`kernel_times` line instead; `--trainrun` runs phase 8 alone and
+`--train-step` phase 5 alone (with names a parent checkout shares, so that
+one copy of this script times the step of both); `--torsion` prints only
+K5's host time by
 part at the propers' shapes (`k5_host` lines) and the energy + dE/dx
 path's times and kernels (`torsion_path_phase`), with names a parent
 checkout shares, so that one copy of this script times both. Needs one CUDA device; imports nothing of JAX or
@@ -162,6 +198,17 @@ KERNEL_BENCH_TC = ((4096, 32), (16384, 128))
 K5_HOST_SHAPES = (('train propers', 8256, 32),
                   ('12000-atom propers', 20096, 4),
                   ('40000-atom propers', 66304, 4))
+# phase 8: the training run's dataset (the port's make_dataset) and the
+# card-vs-CPU run's later losses and validation metrics. A step's gradients
+# on the card and on the CPU agree to STEP_GRAD_RL2, but Adam normalises
+# every entry, so an entry whose gradient is near 0 moves by about +-lr in
+# the direction the rounding on each device picks; after 4 steps at lr
+# 1.5e-5 the losses and metrics may part by more than one step's 1e-4
+TRAINRUN_MOLS, TRAINRUN_CONFS, TRAINRUN_ATOMS = 80, 32, (8, 44)
+TRAINRUN_RTOL = 2e-3
+# two validation passes of the same weights on the card: dE/dx's scatter
+# sums run in another order each time, a few float32 ulps of each metric
+VAL_RTOL = 1e-5
 REF_FIELDS = {'n2_k': ('n2', 'k_ref'), 'n2_eq': ('n2', 'eq_ref'),
               'n3_k': ('n3', 'k_ref'), 'n3_eq': ('n3', 'eq_ref'),
               'n4_k': ('n4', 'k_ref'),
@@ -664,9 +711,10 @@ def compare_grad(torch, entries, name, label, kernel, plain, inputs, dy,
         accumulate(entries, name, max_abs, ms, plain_ms, flops, nbytes)
 
 
-def training_kernel_phase(torch, batch, entries):
+def training_kernel_phase(torch, batches, entries):
     """Phase 4: the kernels at the shapes one training step gives them on
-    the 128 x 32 batch, dropout on at the default rates."""
+    each of `batches` (label -> batch), dropout on at the default rates;
+    the mask dumps, off every main path, at the 'train' batch alone."""
     from grappa_tpu_torch.data.graph_batch import TERM_ARITY, TERMS
     from grappa_tpu_torch.models.heads import PERMUTATIONS
     from grappa_tpu_torch.ops import fused_block as fb
@@ -726,91 +774,93 @@ def training_kernel_phase(torch, batch, entries):
         accumulate(entries, name, 0.0, ms, plain_ms, n * clk, nbytes,
                    peak=clock_rate, device_ms=dev_ms)
 
-    # K1 / K1b / K1m at the batch's padded nodes and neighbour list
-    nb = batch.neighbors
-    n, d = nb.shape
-    feat = torch.randn((n, f), generator=gen).cuda()
-    hn = torch.randn((n, f), generator=gen).cuda()
-    nbr = feat[nb.t()].contiguous()
-    mask = batch.neighbor_mask.t().float().contiguous()
-    p1 = rand_params(torch, gen, [
-        ((f, f), 'w'), ((f,), 'b'), ((f,), 'g'), ((f,), 'b'),
-        ((hid, f), 'w'), ((hid,), 'b'), ((f, hid), 'w'), ((f,), 'b')])
-    rate1, seed1 = 0.3, 17
-    masks1 = [philox.dropout_mask(seed1, j, (n, f), rate1, device='cuda')
-              for j in (0, 1)]
-    fwd1 = 2 * n * (f * f + 2 * f * hid) + 4 * float(mask.sum()) * f
-    in1 = (2 + d) * n * f + d * n + sum(q.numel() for q in p1)
-    compare('fused_gnn_block', f'train N={n} D={d} dropout {rate1}',
-            lambda: fg.fused_gnn_block(feat, nbr, hn, mask, p1, heads, rate1,
-                                       True, seed1),
-            lambda: fg.reference_gnn_block(feat, nbr, hn, mask, p1, heads,
-                                           masks1),
-            flops=fwd1, nbytes=4 * (in1 + n * f))
-    dy1 = torch.randn((n, f), generator=gen).cuda()
-    compare_grad(torch, entries, 'fused_gnn_block.backward',
-                 f'train N={n} D={d} dropout {rate1}',
-                 lambda a, b, c, *q: fg.fused_gnn_block(
-                     a, b, c, mask, q, heads, rate1, True, seed1),
-                 lambda a, b, c, *q: fg.reference_gnn_block(
-                     a, b, c, mask, q, heads, masks1),
-                 [feat, nbr, hn, *p1], dy1, flops=2 * fwd1,
-                 nbytes=4 * (2 * in1 - d * n + n * f))
-    mask_check(fg, 'fused_gnn.dropout_masks', (n, f), rate1, seed1)
-
-    # K2 / K2b / K2m and K3 / K3b at the four heads' (S, T)
-    rate2 = 0.5
-    for i, term in enumerate(TERMS):
-        s, t = TERM_ARITY[term], batch.terms[term].idxs.shape[0]
-        r = s * t
-        x = torch.randn((s, t, f), generator=gen).cuda()
-        p2 = rand_params(torch, gen, [
-            ((f,), 'g'), ((f,), 'b'), ((3 * f, f), 'w'), ((3 * f,), 'b'),
+    for label, batch in batches.items():
+        # K1 / K1b / K1m at the batch's padded nodes and neighbour list
+        nb = batch.neighbors
+        n, d = nb.shape
+        feat = torch.randn((n, f), generator=gen).cuda()
+        hn = torch.randn((n, f), generator=gen).cuda()
+        nbr = feat[nb.t()].contiguous()
+        mask = batch.neighbor_mask.t().float().contiguous()
+        p1 = rand_params(torch, gen, [
             ((f, f), 'w'), ((f,), 'b'), ((f,), 'g'), ((f,), 'b'),
-            ((hid2, f), 'w'), ((hid2,), 'b'), ((f, hid2), 'w'), ((f,), 'b')])
-        seed2 = 100 + i
-        masks2 = [philox.dropout_mask(seed2, j, (s, t, f), rate2,
-                                      device='cuda') for j in (0, 1)]
-        fwd2 = 2 * r * (4 * f * f + 2 * f * hid2) + 4 * t * s * s * f
-        in2 = r * f + sum(q.numel() for q in p2)
-        compare('fused_transformer_block', f'train S={s} T={t} dropout '
-                f'{rate2}',
-                lambda: fb.fused_transformer_block(x, p2, 8, rate2, True,
-                                                   seed2),
-                lambda: fb.reference_block(x, p2, 8, masks2),
-                flops=fwd2, nbytes=4 * (in2 + r * f))
-        compare_grad(torch, entries, 'fused_transformer_block.backward',
-                     f'train S={s} T={t} dropout {rate2}',
-                     lambda a, *q: fb.fused_transformer_block(
-                         a, q, 8, rate2, True, seed2),
-                     lambda a, *q: fb.reference_block(a, q, 8, masks2),
-                     [x, *p2], torch.randn_like(x), flops=2 * fwd2,
-                     nbytes=4 * (2 * in2 + r * f))
-        if term == 'n4':
-            mask_check(fb, 'fused_block.dropout_masks', (s, t, f), rate2,
-                       seed2)
+            ((hid, f), 'w'), ((hid,), 'b'), ((f, hid), 'w'), ((f,), 'b')])
+        rate1, seed1 = 0.3, 17
+        masks1 = [philox.dropout_mask(seed1, j, (n, f), rate1, device='cuda')
+                  for j in (0, 1)]
+        fwd1 = 2 * n * (f * f + 2 * f * hid) + 4 * float(mask.sum()) * f
+        in1 = (2 + d) * n * f + d * n + sum(q.numel() for q in p1)
+        compare('fused_gnn_block', f'{label} N={n} D={d} dropout {rate1}',
+                lambda: fg.fused_gnn_block(feat, nbr, hn, mask, p1, heads, rate1,
+                                           True, seed1),
+                lambda: fg.reference_gnn_block(feat, nbr, hn, mask, p1, heads,
+                                               masks1),
+                flops=fwd1, nbytes=4 * (in1 + n * f))
+        dy1 = torch.randn((n, f), generator=gen).cuda()
+        compare_grad(torch, entries, 'fused_gnn_block.backward',
+                     f'{label} N={n} D={d} dropout {rate1}',
+                     lambda a, b, c, *q: fg.fused_gnn_block(
+                         a, b, c, mask, q, heads, rate1, True, seed1),
+                     lambda a, b, c, *q: fg.reference_gnn_block(
+                         a, b, c, mask, q, heads, masks1),
+                     [feat, nbr, hn, *p1], dy1, flops=2 * fwd1,
+                     nbytes=4 * (2 * in1 - d * n + n * f))
+        if label == 'train':
+            mask_check(fg, 'fused_gnn.dropout_masks', (n, f), rate1, seed1)
 
-        perms, out = PERMUTATIONS[term], sym_out[term]
-        dims = [(s * f, width, width), (width, width, width),
-                (width, width, out)]
-        layers = [rand_params(torch, gen, [
-            ((a,), 'g'), ((a,), 'b'), ((h, a), 'w'), ((h,), 'b'),
-            ((o, h), 'w'), ((o,), 'b')]) for a, h, o in dims]
-        flat = [q for layer in layers for q in layer]
-        fwd3 = 2 * len(perms) * t * sum(a * h + h * o for a, h, o in dims)
-        in3 = r * f + sum(q.numel() for q in flat)
-        split = lambda q: [q[6 * j:6 * j + 6] for j in range(3)]
-        compare('fused_symmetriser', f'train S={s} T={t} perms={len(perms)}',
-                lambda: fs.fused_symmetriser(x, layers, perms),
-                lambda: fs.reference_symmetriser(x, layers, perms),
-                flops=fwd3, nbytes=4 * (in3 + t * out))
-        compare_grad(torch, entries, 'fused_symmetriser.backward',
-                     f'train S={s} T={t} perms={len(perms)}',
-                     lambda a, *q: fs.fused_symmetriser(a, split(q), perms),
-                     lambda a, *q: fs.reference_symmetriser(a, split(q),
-                                                            perms),
-                     [x, *flat], torch.randn((t, out), device='cuda'),
-                     flops=2 * fwd3, nbytes=4 * (2 * in3 + t * out))
+        # K2 / K2b / K2m and K3 / K3b at the four heads' (S, T)
+        rate2 = 0.5
+        for i, term in enumerate(TERMS):
+            s, t = TERM_ARITY[term], batch.terms[term].idxs.shape[0]
+            r = s * t
+            x = torch.randn((s, t, f), generator=gen).cuda()
+            p2 = rand_params(torch, gen, [
+                ((f,), 'g'), ((f,), 'b'), ((3 * f, f), 'w'), ((3 * f,), 'b'),
+                ((f, f), 'w'), ((f,), 'b'), ((f,), 'g'), ((f,), 'b'),
+                ((hid2, f), 'w'), ((hid2,), 'b'), ((f, hid2), 'w'), ((f,), 'b')])
+            seed2 = 100 + i
+            masks2 = [philox.dropout_mask(seed2, j, (s, t, f), rate2,
+                                          device='cuda') for j in (0, 1)]
+            fwd2 = 2 * r * (4 * f * f + 2 * f * hid2) + 4 * t * s * s * f
+            in2 = r * f + sum(q.numel() for q in p2)
+            compare('fused_transformer_block', f'{label} S={s} T={t} dropout '
+                    f'{rate2}',
+                    lambda: fb.fused_transformer_block(x, p2, 8, rate2, True,
+                                                       seed2),
+                    lambda: fb.reference_block(x, p2, 8, masks2),
+                    flops=fwd2, nbytes=4 * (in2 + r * f))
+            compare_grad(torch, entries, 'fused_transformer_block.backward',
+                         f'{label} S={s} T={t} dropout {rate2}',
+                         lambda a, *q: fb.fused_transformer_block(
+                             a, q, 8, rate2, True, seed2),
+                         lambda a, *q: fb.reference_block(a, q, 8, masks2),
+                         [x, *p2], torch.randn_like(x), flops=2 * fwd2,
+                         nbytes=4 * (2 * in2 + r * f))
+            if term == 'n4' and label == 'train':
+                mask_check(fb, 'fused_block.dropout_masks', (s, t, f), rate2,
+                           seed2)
+
+            perms, out = PERMUTATIONS[term], sym_out[term]
+            dims = [(s * f, width, width), (width, width, width),
+                    (width, width, out)]
+            layers = [rand_params(torch, gen, [
+                ((a,), 'g'), ((a,), 'b'), ((h, a), 'w'), ((h,), 'b'),
+                ((o, h), 'w'), ((o,), 'b')]) for a, h, o in dims]
+            flat = [q for layer in layers for q in layer]
+            fwd3 = 2 * len(perms) * t * sum(a * h + h * o for a, h, o in dims)
+            in3 = r * f + sum(q.numel() for q in flat)
+            split = lambda q: [q[6 * j:6 * j + 6] for j in range(3)]
+            compare('fused_symmetriser', f'{label} S={s} T={t} perms={len(perms)}',
+                    lambda: fs.fused_symmetriser(x, layers, perms),
+                    lambda: fs.reference_symmetriser(x, layers, perms),
+                    flops=fwd3, nbytes=4 * (in3 + t * out))
+            compare_grad(torch, entries, 'fused_symmetriser.backward',
+                         f'{label} S={s} T={t} perms={len(perms)}',
+                         lambda a, *q: fs.fused_symmetriser(a, split(q), perms),
+                         lambda a, *q: fs.reference_symmetriser(a, split(q),
+                                                                perms),
+                         [x, *flat], torch.randn((t, out), device='cuda'),
+                         flops=2 * fwd3, nbytes=4 * (2 * in3 + t * out))
 
 
 def loss_weights(torch, m, device):
@@ -1536,6 +1586,342 @@ def predict_phase(torch, cfg, smalls, protein, paths):
     return launches
 
 
+def trainrun_config(default_config, data_dir):
+    """default_config() at the default width, trained from `data_dir` with
+    phase 8's settings."""
+    cfg = default_config()
+    cfg['data_config'].update(
+        datasets=[data_dir], pure_train_datasets=[], pure_val_datasets=[],
+        pure_test_datasets=[], weights={}, partition=[0.8, 0.1, 0.1],
+        train_batch_size=32, val_batch_size=32, test_batch_size=1,
+        conf_strategy=32)
+    cfg['lit_model_config'].update(lr=TRAIN_LR, start_qm_epochs=1,
+                                   warmup_steps=3)
+    cfg['trainer_config'].update(max_epochs=3, checkpoint_every=1,
+                                 async_checkpoints=True)
+    cfg['test_model'] = True
+    return cfg
+
+
+def trainrun_data(torch, work):
+    """Phase 8's dataset, saved under `work` (a directory .gitignore lists,
+    deleted at exit), and the loaders do_trainrun builds from it: their
+    first train batch, validation batch and test batches, on the card. The
+    train batches are fixed-padded to the worst case of 32 molecules and
+    the test batches to the worst single molecule, so these batches give
+    the kernels every shape of the run."""
+    import atexit
+    import copy
+    import shutil
+    from grappa_tpu_torch.data.dataset import Dataset
+    from grappa_tpu_torch.data.synthetic import make_dataset
+    from grappa_tpu_torch.train.config import default_config
+    from grappa_tpu_torch.train.run import get_dataloaders
+    shutil.rmtree(work, ignore_errors=True)
+    atexit.register(shutil.rmtree, work, True)
+    t0 = time.time()
+    data_dir = os.path.join(work, 'data', 'synthetic')
+    Dataset.from_moldata(make_dataset(
+        n_mols=TRAINRUN_MOLS, n_confs=TRAINRUN_CONFS, seed=0,
+        atom_range=TRAINRUN_ATOMS)).save(data_dir)
+    made = time.time() - t0
+    config = trainrun_config(default_config, data_dir)
+    train, val, test, _ = get_dataloaders(
+        copy.deepcopy(config['data_config']), device='cuda')
+    batches = list(test)
+    firsts = {'train': next(iter(train))[0], 'val': next(iter(val))[0],
+              'test': batches[0][0]}
+    for label, b in firsts.items():
+        print(f'training run\'s {label} batch, padded: N=%d, molecules %d, '
+              f'conformers %d, T bonds / angles / propers / impropers = %s'
+              % (b.xyz.shape[0], b.num_mols, b.xyz.shape[1], ' / '.join(
+                  str(b.terms[t].idxs.shape[0])
+                  for t in ('n2', 'n3', 'n4', 'n4_improper'))), flush=True)
+    check(len({b.shapes() for b, _ in batches}) == 1,
+          f'training run: its {len(batches)} test batches share one '
+          f'padded shape')
+    return data_dir, made, firsts, batches
+
+
+def steady_epochs(torch, trainer, epochs=3, rounds=2):
+    """Writer-free epochs of a fitted Trainer: train_epoch alone, host
+    clock to the end of its loss fetch, after one warm epoch. Variants,
+    interleaved: 'loader' is the Trainer as it is; 'wait' the same with a
+    wait for the card before each step (what the per-step copy of the loss
+    weights from pageable memory, which the Trainer had before, cost);
+    'cached' runs over its batch cache, without the loader's producer
+    thread. Returns {variant: [(epoch ms, steps/s, loader wait ms, host ms
+    of the steps, loss fetch ms), ...]}."""
+    t = trainer.timings
+    keep = trainer._loss_weights
+
+    def waited(*args):
+        weights = keep(*args)
+        torch.cuda.synchronize()
+        return weights
+
+    def run(variant):
+        trainer._loss_weights = waited if variant == 'wait' else keep
+        marks = {k: len(t[k]) for k in ('loader_wait_s', 'step_s', 'fetch_s')}
+        steps = trainer.global_step
+        t0 = time.perf_counter()
+        trainer.train_epoch()
+        wall = time.perf_counter() - t0
+        part = {k: round(sum(t[k][n:]) * 1e3, 3) for k, n in marks.items()}
+        return (round(wall * 1e3, 3), (trainer.global_step - steps) / wall,
+                part['loader_wait_s'], part['step_s'], part['fetch_s'])
+
+    out = {'loader': [], 'wait': []}
+    run('loader')
+    for _ in range(rounds):
+        for variant in ('loader', 'wait'):
+            out[variant] += [run(variant) for _ in range(epochs)]
+    trainer.cache_batches = True
+    run('cached')
+    out['cached'] = [run('cached') for _ in range(epochs * rounds)]
+    trainer.cache_batches, trainer._batch_cache = False, None
+    del trainer._loss_weights
+    return out
+
+
+def validation_fetches(torch, trainer, batches, reps=8):
+    """A validation pass over `batches` (collated, on the card): the
+    Trainer's validate, one fetch from the card a batch, against the same
+    pass with one fetch for the whole pass; `reps` runs of each,
+    interleaved, host clock, each run ending in a synchronize. Returns the
+    two lists of ms and the worst relative difference of their metrics
+    (dE/dx's scatter sums in another order from run to run)."""
+    from grappa_tpu_torch.train.evaluator import (StreamingEvaluator,
+                                                  _per_mol_sqerr)
+    evaluator = StreamingEvaluator()
+
+    def one_fetch():
+        stats, names = [], []
+        for batch, ds_names in batches:
+            energy, gradient = trainer.eval_step(batch)
+            stats.append(torch.stack(_per_mol_sqerr(batch, energy,
+                                                    gradient)))
+            names.append(ds_names)
+        host = torch.cat(stats, dim=1).cpu().numpy()
+        at = np.cumsum([0] + [x.shape[1] for x in stats])
+        for j, ds_names in enumerate(names):
+            evaluator.accumulate(*host[:, at[j]:at[j + 1]], ds_names)
+        return evaluator.pool()
+
+    saved, trainer.val_loader = trainer.val_loader, batches
+    try:
+        each, one = trainer.validate(), one_fetch()
+        worst = max(abs(one[ds][k] - each[ds][k]) / max(abs(each[ds][k]),
+                                                       1e-30)
+                    for ds in each for k in each[ds])
+        if one.keys() != each.keys():
+            worst = float('inf')
+        times = {'one': [], 'per_batch': []}
+        for _ in range(reps):
+            for key, fn in (('one', one_fetch),
+                            ('per_batch', trainer.validate)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[key].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        trainer.val_loader = saved
+    return times, worst
+
+
+def trainrun_phase(torch, work, data_dir, made, test_batches):
+    """Phase 8. Returns the training run's launches and the `trainrun`
+    line's fields."""
+    import copy
+    from pathlib import Path
+    from grappa_tpu_torch import Grappa, native
+    from grappa_tpu_torch.data.dataset import Dataset
+    from grappa_tpu_torch.data.synthetic import make_dataset, random_molecule
+    from grappa_tpu_torch.models.grappa_model import make_model
+    from grappa_tpu_torch.ops.fused_block import fused_transformer_block
+    from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
+    from grappa_tpu_torch.ops.fused_symmetriser import fused_symmetriser
+    from grappa_tpu_torch.train.config import default_config
+    from grappa_tpu_torch.train.export import load_model_dict
+    from grappa_tpu_torch.train.run import do_trainrun, resume_trainrun
+    from grappa_tpu_torch.train.trainer import _verify_checkpoint
+
+    phase('8. the training run (do_trainrun / resume_trainrun), default '
+          'config')
+    print(f'(a) dataset of {TRAINRUN_MOLS} molecules x {TRAINRUN_CONFS} '
+          f'conformers made and saved in {made:.1f} s; native '
+          f'graph pre-processing: '
+          f'{"ran" if native.available() else "absent (Python paths)"}',
+          flush=True)
+    config = trainrun_config(default_config, data_dir)
+    counters = (fused_gnn_block, fused_transformer_block, fused_symmetriser)
+    for c in counters:
+        c.launches = c.bwd_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = do_trainrun(copy.deepcopy(config), project_dir=work,
+                      run_name='trainrun')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {c.__name__: (c.launches, c.bwd_launches) for c in counters}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer, run_dir = out['trainer'], out['run_dir']
+
+    # forwards: each train step, each epoch's validation batches, each
+    # test molecule (batch 1) and test_model's smoke test
+    split = json.loads((Path(run_dir) / 'split.json').read_text())
+    steps = trainer.global_step
+    n_val = len(trainer.val_loader)
+    forwards = steps + trainer.epoch * n_val + len(split['test']) + 1
+    want = {'fused_gnn_block': (7 * forwards, 7 * steps),
+            'fused_transformer_block': (12 * forwards, 12 * steps),
+            'fused_symmetriser': (4 * forwards, 4 * steps)}
+    check(got == want and (steps, forwards) == (6, 18),
+          f'(a) launches (forward, backward) {got}: {steps} train steps, '
+          f'{trainer.epoch} validations of {n_val} batch(es), '
+          f'{len(split["test"])} test molecules, 1 smoke test = {forwards} '
+          f'forwards (want 6 steps, 18 forwards: 126 / 216 / 72 and 42 / '
+          f'72 / 24)')
+    losses = sum(trainer.train_losses, [])
+    es = [h['early_stopping_loss'] for h in trainer.history]
+    check(len(losses) == steps and bool(np.isfinite(losses).all())
+          and bool(np.isfinite(es).all()),
+          f'(a) finite losses: train {", ".join(f"{l:.6e}" for l in losses)}'
+          f'; early-stopping loss by epoch '
+          f'{", ".join(f"{l:.6e}" for l in es)}')
+    for name in ('best.ckpt', 'last.ckpt'):
+        path = Path(run_dir) / name
+        try:
+            _verify_checkpoint(path)
+            verified = 'passes _verify_checkpoint'
+        except RuntimeError as exc:
+            verified = f'fails _verify_checkpoint: {exc}'
+        has_opt = (path / 'opt_state.pt').exists()
+        check(verified.startswith('passes')
+              and has_opt == (name == 'last.ckpt'),
+              f'(a) {name} {verified}; optimizer state '
+              f'{"present" if has_opt else "absent"}')
+
+    # model.npz against the Trainer's best weights, both on the card
+    mols = [random_molecule(seed=s) for s in range(16)]
+    exported = Grappa.from_model_dict(load_model_dict(out['model_dict_path']))
+    best_model = make_model(config['model_config'])
+    best_model.load_state_dict(trainer._best_snapshot[0])
+    best = Grappa(best_model, config)
+    compare_outputs(f'(a) model.npz (best epoch {trainer._best_snapshot[1]})'
+                    f' vs the Trainer\'s best weights, 16 molecules,',
+                    stack(exported.predict_many(mols, check_eq_values=False)),
+                    stack(best.predict_many(mols, check_eq_values=False)))
+    del exported, best, best_model
+
+    t0 = time.perf_counter()
+    resumed = resume_trainrun(run_dir, extra_epochs=1)
+    resume_s = time.perf_counter() - t0
+    rt = resumed['trainer']
+    check(rt.epoch == 4 and bool(np.isfinite(rt.train_losses[-1]).all()),
+          f'(a) resume_trainrun(extra_epochs=1) ends at epoch {rt.epoch} '
+          f'(want 4) in {resume_s:.1f} s; its losses '
+          f'{", ".join(f"{l:.6e}" for l in rt.train_losses[-1])}')
+    # writer-free epochs: the steady rate and where an epoch's time goes
+    runs = idle_share(torch, rt.train_epoch, reps=2)
+    steady = steady_epochs(torch, rt)
+    rate = {k: [r[1] for r in v] for k, v in steady.items()}
+    for variant, rows in steady.items():
+        print(f'(a) {variant} epochs (ms, steps/s, loader wait ms, host ms of '
+              f'the steps, loss fetch ms): ' + '; '.join(
+                  f'{r[0]:.1f}, {r[1]:.3f}, {r[2]:.1f}, {r[3]:.1f}, '
+                  f'{r[4]:.1f}' for r in rows), flush=True)
+    if runs is not None:
+        print('(a) writer-free train epochs under torch.profiler (wall ms, '
+              'device busy ms, idle share, kernels): ' + '; '.join(
+                  f'{w:.1f}, {b:.1f}, {i:.3f}, {n}' for w, b, i, n in runs),
+              flush=True)
+    val_times, worst = validation_fetches(torch, rt, test_batches)
+    fmt = lambda xs: ', '.join(f'{x:.2f}' for x in xs)
+    check(worst <= VAL_RTOL,
+          f'(a) validation over the {len(test_batches)} test batches: '
+          f'Trainer.validate (a fetch a batch) median '
+          f'{np.median(val_times["per_batch"]):.2f} ms '
+          f'({fmt(val_times["per_batch"])}), one fetch for the pass median '
+          f'{np.median(val_times["one"]):.2f} ms '
+          f'({fmt(val_times["one"])}); metrics worst rel '
+          f'{worst:.2e} (tol {VAL_RTOL})')
+    ms = lambda xs: [round(x * 1e3, 3) for x in xs]
+    t = trainer.timings
+    line = {
+        'molecules': TRAINRUN_MOLS, 'conformers': TRAINRUN_CONFS,
+        'epochs': trainer.epoch, 'train_steps': steps,
+        'run_wall_s': round(wall, 3), 'epoch_ms': ms(t['epoch_s']),
+        'train_ms': ms(t['train_s']),
+        'run_train_steps_per_s': steps / sum(t['train_s']),
+        'steady_train_steps_per_s': float(np.median(rate['loader'])),
+        'steady_steps_per_s_min_max': [min(rate['loader']),
+                                       max(rate['loader'])],
+        'steady_epochs': len(rate['loader']),
+        'wait_train_steps_per_s': float(np.median(rate['wait'])),
+        'cached_train_steps_per_s': float(np.median(rate['cached'])),
+        'steady_epoch_ms': float(np.median(
+            [r[0] for r in steady['loader']])),
+        'steady_step_host_ms': float(np.median(
+            [r[3] for r in steady['loader']])) / len(rt.train_loader),
+        'steady_loader_wait_ms': float(np.median(
+            [r[2] for r in steady['loader']])),
+        'steady_fetch_ms': float(np.median([r[4] for r in steady['loader']])),
+        'loader_wait_ms': round(sum(t['loader_wait_s']) * 1e3, 3),
+        'val_ms': ms(t['val_s']),
+        'val_one_fetch_ms': float(np.median(val_times['one'])),
+        'val_per_batch_fetch_ms': float(np.median(val_times['per_batch'])),
+        'test_eval_ms': round(out['test_eval_s'] * 1e3, 3),
+        'ckpt_blocking_ms': ms(t['ckpt_blocking_s']),
+        'ckpt_async_ms': ms(t['ckpt_async_s']),
+        'peak_gib': round(peak, 3),
+        'epoch_idle_share': (None if runs is None
+                             else [round(r[2], 4) for r in runs]),
+        'epoch_profiled_ms': (None if runs is None
+                              else [round(r[0], 3) for r in runs]),
+        'epoch_busy_ms': (None if runs is None
+                          else [round(r[1], 3) for r in runs]),
+        'native_preprocessing': native.available(),
+        'launches': got}
+
+    # (b) card vs CPU without dropout
+    small_dir = os.path.join(work, 'data', 'small')
+    Dataset.from_moldata(make_dataset(n_mols=8, n_confs=4, seed=0,
+                                      atom_range=TRAINRUN_ATOMS)
+                         ).save(small_dir)
+    cfg = trainrun_config(default_config, small_dir)
+    cfg['model_config'].update(gnn_dropout_attention=0.0,
+                               parameter_dropout=0.0, gnn_dropout_final=0.0,
+                               gnn_dropout_initial=0.0)
+    cfg['data_config']['train_batch_size'] = 3
+    cfg['trainer_config']['max_epochs'] = 2
+    res = {}
+    for dev in ('cuda', 'cpu'):
+        t0 = time.perf_counter()
+        r = do_trainrun(copy.deepcopy(cfg), project_dir=work,
+                        run_name=f'vs_{dev}', device=dev)
+        res[dev] = (sum(r['trainer'].train_losses, []),
+                    [h['metrics'] for h in r['trainer'].history],
+                    time.perf_counter() - t0)
+    (lg, mg, sg), (lc, mc, sc) = res['cuda'], res['cpu']
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    first = rel(lg[0], lc[0]) if lg and lc else float('inf')
+    later = max((rel(a, b) for a, b in zip(lg[1:], lc[1:])), default=0.0)
+    metric = max((rel(x[ds][k], y[ds][k]) for x, y in zip(mg, mc)
+                  for ds in y for k in y[ds]), default=float('inf'))
+    check(len(lg) == len(lc) == 4 and first <= STEP_LOSS_RTOL
+          and later <= TRAINRUN_RTOL and metric <= TRAINRUN_RTOL
+          and all(x.keys() == y.keys() for x, y in zip(mg, mc)),
+          f'(b) card vs CPU, 8 molecules x 4 conformers, dropout off, '
+          f'{len(lg)} steps: first loss {lg[0]:.6e} vs {lc[0]:.6e} (rel '
+          f'{first:.2e}, tol {STEP_LOSS_RTOL}); later losses worst rel '
+          f'{later:.2e}, validation metrics worst rel {metric:.2e} (tol '
+          f'{TRAINRUN_RTOL}); card {sg:.1f} s, CPU {sc:.1f} s')
+    return {name: n for name, n in got.items()}, line
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, 'grappa_tpu_torch')):
         print('chip_smoke.py: run it from a checkout of the repository '
@@ -1543,6 +1929,8 @@ def main() -> int:
         return 2
     kernels_only = sys.argv[1:] == ['--kernels-only']
     torsion_only = sys.argv[1:] == ['--torsion']
+    trainrun_only = sys.argv[1:] == ['--trainrun']
+    train_step_only = sys.argv[1:] == ['--train-step']
     sys.path.insert(0, ROOT)
     import torch
     if not torch.cuda.is_available():
@@ -1572,12 +1960,27 @@ def main() -> int:
     if torsion_only:
         torsion_path_phase(torch)
         return 1 if FAILURES else 0
+    work = os.path.join(ROOT, 'runs', 'chip_smoke')
+    if trainrun_only:
+        data_dir, made, _, test_batches = trainrun_data(torch, work)
+        _, line = trainrun_phase(torch, work, data_dir, made, test_batches)
+        print('trainrun ' + json.dumps(line), flush=True)
+        return 1 if FAILURES else 0
 
     from grappa_tpu_torch.data.graph_batch import MolGraph, collate
     from grappa_tpu_torch.data.loader import bucketed_pad_spec
     from grappa_tpu_torch.data.molecule import Molecule
     from grappa_tpu_torch.data.synthetic import random_molecule
     from grappa_tpu_torch.models.grappa_model import get_default_model_config
+
+    cfg = get_default_model_config()
+    if train_step_only:
+        graphs = training_batches(torch)
+        phase('5. training steps, default config')
+        training_phase(torch, graphs, collate(
+            graphs, bucketed_pad_spec(graphs, TRAIN_CONFS), TRAIN_CONFS,
+            device='cuda'), cfg)
+        return 1 if FAILURES else 0
 
     protein = protein_like_molecule(Molecule)
     smalls = small_molecules(random_molecule)
@@ -1587,17 +1990,20 @@ def main() -> int:
         graphs = [MolGraph.from_molecule(m) for m in mols]
         workloads[label] = collate(graphs, bucketed_pad_spec(graphs, 1), 1,
                                    device='cuda')
+    # the training run's (phase 8) train, validation and test batches
+    data_dir, made, run_batches, test_batches = trainrun_data(torch, work)
+    workloads.update({f'trainrun {k}': v for k, v in run_batches.items()})
 
-    phase('2. kernels against their plain versions (both workloads\' '
-          'shapes)')
+    phase('2. kernels against their plain versions (the serving '
+          'workloads\' and the training run\'s shapes)')
     entries = kernel_phase(torch, workloads)
 
-    cfg = get_default_model_config()
     if not kernels_only:
         launches = predict_phase(torch, cfg, smalls, protein, paths)
 
     phase('4. training kernels against their plain versions (the 128 x 32 '
-          'training batch\'s shapes)')
+          'training batch\'s and the training run\'s train batch\'s '
+          'shapes)')
     graphs = training_batches(torch)
     train_batch = collate(graphs, bucketed_pad_spec(graphs, TRAIN_CONFS),
                           TRAIN_CONFS, device='cuda')
@@ -1607,7 +2013,9 @@ def main() -> int:
               ' / '.join(str(train_batch.terms[t].idxs.shape[0])
                          for t in ('n2', 'n3', 'n4', 'n4_improper'))),
           flush=True)
-    training_kernel_phase(torch, train_batch, entries)
+    training_kernel_phase(torch, {'train': train_batch,
+                                  'trainrun train': run_batches['train']},
+                          entries)
     block_profile(torch, train_batch)
     if kernels_only:
         print('kernel_times ' + json.dumps(entries), flush=True)
@@ -1655,6 +2063,13 @@ def main() -> int:
 
     phase('7. molecular dynamics on the card (reference parameters)')
     md_phase(torch, (fusion[big_n][0], big))
+    del fusion, big
+
+    run_launches, trainrun_line = trainrun_phase(torch, work, data_dir,
+                                                 made, test_batches)
+    for name, (nf, nb) in run_launches.items():
+        launches[name]['trainrun'] = nf
+        launches[f'{name}.backward']['trainrun'] = nb
 
     if FAILURES:
         print(f'chip_smoke.py: {len(FAILURES)} check(s) failed',
@@ -1699,6 +2114,7 @@ def main() -> int:
         if name in TENSOR_CORE_KERNELS:
             kernels[-1]['bound_tc_ms'] = bound(3 * e['flops'], e['nbytes'],
                                                PEAK_TF32_FLOPS)[0]
+    print('trainrun ' + json.dumps(trainrun_line))
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -45,6 +45,8 @@ class MolGraph:
     gradient_ref: np.ndarray                # (N, C, 3) float32
     k_ref: Dict[str, np.ndarray]            # n2_k, n2_eq, ..., n4_improper_k
     atom_ids: np.ndarray                    # (N,) original atom ids
+    mol_id: str = ''
+    ds_name: str = ''
 
     @property
     def n_atoms(self) -> int:
@@ -55,7 +57,7 @@ class MolGraph:
         return self.xyz.shape[1]
 
     @classmethod
-    def from_moldata(cls, md: MolData,
+    def from_moldata(cls, md: MolData, ds_name: str = '',
                      n_periodicity_proper: int =
                      constants.N_PERIODICITY_PROPER,
                      n_periodicity_improper: int =
@@ -82,6 +84,7 @@ class MolGraph:
             k_ref=md.classical_parameters.signed_k_dict(
                 n_periodicity_proper, n_periodicity_improper),
             atom_ids=np.asarray(mol.atoms, dtype=np.int64),
+            mol_id=md.mol_id, ds_name=ds_name,
         )
 
     @classmethod
@@ -122,7 +125,12 @@ def build_neighbor_list(bonds_idx: np.ndarray, n_atoms: int,
                         max_neighbors: int = constants.MAX_NEIGHBORS
                         ) -> Tuple[np.ndarray, np.ndarray]:
     """Fixed-width padded neighbor list from 0-based bond indices (sorted
-    neighbor ids per atom, as the JAX package's native and Python paths)."""
+    neighbor ids per atom), from the native library when available."""
+    if len(np.asarray(bonds_idx).reshape(-1)):
+        from grappa_tpu_torch import native
+        result = native.neighbor_list(bonds_idx, n_atoms, max_neighbors)
+        if result is not None:
+            return result
     lists: List[List[int]] = [[] for _ in range(n_atoms)]
     for a, b in np.asarray(bonds_idx).reshape(-1, 2):
         lists[int(a)].append(int(b))
@@ -171,6 +179,37 @@ class GraphBatch:
         return out.index_add(0, self.node_mol.long(),
                              self.node_mask.to(torch.float32))[:self.num_mols]
 
+    def _map(self, fn) -> 'GraphBatch':
+        terms = {t: TermBatch(idxs=fn(b.idxs), mask=fn(b.mask), mol=fn(b.mol),
+                              k_ref=fn(b.k_ref),
+                              eq_ref=None if b.eq_ref is None
+                              else fn(b.eq_ref))
+                 for t, b in self.terms.items()}
+        return GraphBatch(
+            feats={k: fn(v) for k, v in self.feats.items()},
+            node_mask=fn(self.node_mask), node_mol=fn(self.node_mol),
+            neighbors=fn(self.neighbors),
+            neighbor_mask=fn(self.neighbor_mask), xyz=fn(self.xyz),
+            conf_mask=fn(self.conf_mask), energy_ref=fn(self.energy_ref),
+            gradient_ref=fn(self.gradient_ref), terms=terms,
+            num_mols=self.num_mols)
+
+    def to(self, device, non_blocking: bool = False) -> 'GraphBatch':
+        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> 'GraphBatch':
+        return self._map(lambda t: t.pin_memory())
+
+    def shapes(self) -> tuple:
+        """Every tensor's shape, in a fixed order."""
+        shapes = []
+
+        def record(t):
+            shapes.append(tuple(t.shape))
+            return t
+        self._map(record)
+        return tuple(shapes)
+
 
 def _round_up(x: int, mult: int, minimum: int) -> int:
     return max(minimum, ((x + mult - 1) // mult) * mult)
@@ -196,16 +235,32 @@ class PadSpec:
         return cls(n_nodes=n_nodes, n_tuples=n_tuples, n_confs=n_confs)
 
 
+def _subsample_confs(g: MolGraph, n_confs: int,
+                     rng: Optional[np.random.Generator]):
+    """Pick conformer columns: subsample without replacement if too many,
+    keep all (padding happens later) if fewer."""
+    c = g.n_confs
+    if c <= n_confs:
+        return g.xyz, g.energy_ref, g.gradient_ref, c
+    if rng is None:
+        sel = np.arange(n_confs)
+    else:
+        sel = np.sort(rng.choice(c, size=n_confs, replace=False))
+    return (g.xyz[:, sel], g.energy_ref[sel], g.gradient_ref[:, sel], n_confs)
+
+
 def collate(graphs: Sequence[MolGraph], pad: Optional[PadSpec] = None,
             n_confs: Optional[int] = None,
-            device: Optional[Union[str, torch.device]] = None) -> GraphBatch:
+            device: Optional[Union[str, torch.device]] = None,
+            rng: Optional[np.random.Generator] = None) -> GraphBatch:
     """Concatenate molecules into one padded GraphBatch on `device` (CUDA
     unless the caller asks for another).
 
     Index offsets are applied to tuple indices and neighbor lists exactly like
     the reference's idx-offset batching (reference: src/grappa/utils/
-    dgl_utils.py:11-60), but into preallocated padded buffers. Conformers
-    beyond `pad.n_confs` are cut to the first ones.
+    dgl_utils.py:11-60), but into preallocated padded buffers. A molecule
+    with more conformers than `pad.n_confs` keeps the first ones, or a
+    sorted draw without replacement from `rng` (the JAX package's draw).
     """
     if not graphs:
         raise ValueError("collate needs at least one graph")
@@ -266,14 +321,14 @@ def collate(graphs: Sequence[MolGraph], pad: Optional[PadSpec] = None,
         neighbors[sl] = g.neighbors + node_offset
         neighbor_mask[sl] = g.neighbor_mask
 
-        c = min(g.n_confs, c_pad)
-        xyz[sl, :c] = g.xyz[:, :c]
+        g_xyz, g_en, g_grad, c = _subsample_confs(g, c_pad, rng)
+        xyz[sl, :c] = g_xyz
         # pad conformers by replicating the last valid one (masked out)
         if c < c_pad:
-            xyz[sl, c:] = g.xyz[:, c - 1:c]
+            xyz[sl, c:] = g_xyz[:, -1:]
         conf_mask[i, :c] = True
-        energy_ref[i, :c] = g.energy_ref[:c]
-        gradient_ref[sl, :c] = g.gradient_ref[:, :c]
+        energy_ref[i, :c] = g_en
+        gradient_ref[sl, :c] = g_grad
 
         for t in TERMS:
             buf = term_bufs[t]

@@ -94,6 +94,11 @@ def ring_membership_sizes(
 def ring_encoding(bonds: Sequence[Tuple[int, int]], n_atoms: int) -> np.ndarray:
     """One-hot ring encoding of shape (n_atoms, 7):
     column 0 = in any ring, columns 1..6 = in ring of size 3..8."""
+    if len(bonds):
+        from grappa_tpu_torch import native
+        result = native.ring_encoding(bonds, n_atoms)
+        if result is not None:
+            return result
     sizes = ring_membership_sizes(bonds, n_atoms)
     enc = np.zeros((n_atoms, 7), dtype=np.float32)
     for i, s in enumerate(sizes):

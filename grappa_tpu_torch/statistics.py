@@ -7,7 +7,7 @@ these, so convergence behavior tracks the reference when statistics match.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable, List
 
 import numpy as np
 
@@ -37,6 +37,38 @@ def get_default_statistics() -> Dict[str, Dict[str, np.ndarray]]:
             'n4_improper_k': np.array([0.0, 4.0571, 0.0], np.float32),
         },
     }
+
+
+def param_statistics_from_graphs(graphs: Iterable
+                                 ) -> Dict[str, Dict[str, np.ndarray]]:
+    """Mean/std of the classical reference parameters over MolGraphs,
+    ignoring NaNs; falls back to defaults per-key when nothing is valid."""
+    values: Dict[str, List[np.ndarray]] = {k: [] for k in STAT_KEYS}
+    for g in graphs:
+        for k in STAT_KEYS:
+            arr = np.asarray(g.k_ref[k])
+            if arr.size:
+                values[k].append(arr.reshape(arr.shape[0], -1))
+
+    defaults = get_default_statistics()
+    stats = {'mean': {}, 'std': {}}
+    for k in STAT_KEYS:
+        if values[k]:
+            stacked = np.concatenate(values[k], axis=0)
+            stacked = stacked[~np.isnan(stacked).any(axis=1)]
+        else:
+            stacked = np.zeros((0, 1), np.float32)
+        if stacked.shape[0] < 2:
+            stats['mean'][k] = defaults['mean'][k]
+            stats['std'][k] = defaults['std'][k]
+        else:
+            mean = stacked.mean(axis=0)
+            std = stacked.std(axis=0, ddof=1)
+            if np.isnan(mean).any() or np.isnan(std).any():
+                mean, std = defaults['mean'][k], defaults['std'][k]
+            stats['mean'][k] = mean.astype(np.float32)
+            stats['std'][k] = std.astype(np.float32)
+    return stats
 
 
 def sanitize_statistics(stats: Dict) -> Dict[str, Dict[str, np.ndarray]]:

@@ -71,10 +71,13 @@ def enumerate_angles_propers(
 
 
 def enumerate_angles_propers_fast(bonds: Sequence[Tuple[int, int]]):
-    """Like enumerate_angles_propers but returns int arrays. The JAX
-    package may take its native C++ path here; the canonical order is the
-    same (loading that library is queued for the port)."""
+    """Like enumerate_angles_propers but returns int arrays and uses the
+    native C++ library when available (identical canonical order)."""
     import numpy as np
+    from grappa_tpu_torch import native
+    result = native.enumerate_tuples(bonds)
+    if result is not None:
+        return result
     angles, propers = enumerate_angles_propers(bonds)
     return (np.asarray(angles, dtype=np.int64).reshape(-1, 3),
             np.asarray(propers, dtype=np.int64).reshape(-1, 4))

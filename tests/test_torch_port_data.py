@@ -95,13 +95,14 @@ def test_collate_puts_the_batch_on_the_card_by_default(monkeypatch):
 
 def test_import_without_jax():
     """grappa_tpu_torch and every module in it import with jax, flax and
-    grappa_tpu blocked."""
+    grappa_tpu blocked, and with yaml blocked: the training run writes and
+    reads its config without pyyaml."""
     modules = sorted(
         '.'.join(p.relative_to(ROOT).with_suffix('').parts)
         .replace('.__init__', '')
         for p in (ROOT / 'grappa_tpu_torch').rglob('*.py'))
     code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'flax', 'grappa_tpu'):\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'grappa_tpu', 'yaml'):\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {modules!r}:\n"
@@ -127,6 +128,12 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     files = sorted((ROOT / 'grappa_tpu_torch').rglob('*.py'))
     files.append(ROOT / 'chip_smoke.py')
     assert len(files) > 20
+    # the training run's modules are among them
+    port = ROOT / 'grappa_tpu_torch'
+    for name in ('native.py', 'zoo.py', 'data/dataset.py', 'data/loader.py',
+                 'train/config.py', 'train/logging.py', 'train/trainer.py',
+                 'train/export.py', 'train/eval_model.py', 'train/run.py'):
+        assert port / name in files, name
     banned = {'jax', 'jaxlib', 'flax', 'optax', 'grappa_tpu'}
     for path in files:
         assert not _imported_roots(path) & banned, path
