@@ -6,6 +6,7 @@
     python3 chip_smoke.py --torsion        # phase 1 and the K5 path's times
     python3 chip_smoke.py --trainrun       # phases 1 and 8 alone
     python3 chip_smoke.py --train-step     # phases 1 and 5 alone
+    python3 chip_smoke.py --eval           # phases 1 and 9 alone
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit, the torch / CUDA versions;
@@ -97,12 +98,36 @@ Phases, each printing its own lines:
      batches of 3), 2 epochs, on the card and on the CPU: the first step's
      loss at rtol 1e-4, the later losses and the validation metrics at
      TRAINRUN_RTOL.
+  9. evaluation, checkpoint import and the command line at the default
+     width, in a temporary GRAPPA_TPU_CACHE: (a) a release's layout: the
+     default model with seeded non-zero weights as models/grappa-1.2.pth
+     (the reference's format, every alias and buffer), three datasets
+     under published tags (EVAL_TAGS, 128 make_dataset molecules x 32
+     conformers each, 8-43 atoms, a stand-in classical force field in the
+     entries; the last one zipped with a nested top directory) and an
+     espaloma_split directory (0.8 / 0.1 / 0.1); (b) `cli eval --set all
+     --classical`, twice (the second warm): K1 / K2 / K3 launched batches x
+     7 / 12 / 4 times in each call, finite results written back into the
+     model file, the first tag's metrics and CIs against eval_model on the
+     CPU at EVAL_RTOL; the `eval` line (eval_model's wall, loader, step
+     and bootstrap ms, molecules/s and conformers/s, the batch count and
+     adaptive batch size, the command's wall, peak memory, the card's name
+     and power limit); (c) `cli ingest-release`: rc 1 on the FAIL verdict
+     these weights must get, the .json / .md / .tex report, an audit with
+     0 missing and 0 unexpected keys; the `ingest` line; (d) a buffer-less
+     .npz and a state dict with `fc_src` and without the gnn.blocks aliases
+     through Grappa.from_model_dict on the card, predicting what they
+     predict on the CPU (MODEL_RTOL / MODEL_ATOL), and `cli export` of
+     phase 8's best.ckpt (with --eval, of a 2-epoch run made here) equal
+     to its model.npz bit for bit.
 
-The `trainrun {...}` line comes before the last three lines, which are a
+The `trainrun {...}`, `eval {...}` and `ingest {...}` lines come before
+the last three lines, which are a
 JSON object describing the kernels, the card's name and power limit, and
 {"ok": true, "device": {...}}. In the kernels'
 line, `launches` sums the main paths (the two predict paths and the ten
-training steps and phase 8's training run for K1-K3; phase 6's four
+training steps, phase 8's training run and phase 9's eval and ingest
+paths for K1-K3; phase 6's four
 paths for K5 and K5b;
 `launches_per_path` gives each), and `ms`, `plain_ms`, `bound_ms`,
 `gflop` and `mbytes` sum one call at each shape of each path; K1-K3 and
@@ -116,6 +141,7 @@ integer instructions, 64 a clock) and issue (every instruction, 128 a
 clock), over the card's SM clocks (`g_sm_clocks`), against their
 stores. Any failure exits non-zero before those lines. `--kernels-only` stops after phase 4 and prints the kernels' sums as a
 `kernel_times` line instead; `--trainrun` runs phase 8 alone and
+`--eval` phase 9 alone and
 `--train-step` phase 5 alone (with names a parent checkout shares, so that
 one copy of this script times the step of both); `--torsion` prints only
 K5's host time by
@@ -209,6 +235,13 @@ TRAINRUN_RTOL = 2e-3
 # two validation passes of the same weights on the card: dE/dx's scatter
 # sums run in another order each time, a few float32 ulps of each metric
 VAL_RTOL = 1e-5
+# phase 9: three datasets under published tags (the last one zipped) of
+# make_dataset molecules at phase 8's conformers and atoms; evaluation on
+# the card vs the CPU, every metric and CI (phase 6(d)'s tolerance: the
+# per-molecule sums run in another order, the bootstrap draws are equal)
+EVAL_TAGS = ('spice-dipeptide', 'gen2', 'rna-diverse')
+EVAL_MOLS = 128
+EVAL_RTOL = 1e-4
 REF_FIELDS = {'n2_k': ('n2', 'k_ref'), 'n2_eq': ('n2', 'eq_ref'),
               'n3_k': ('n3', 'k_ref'), 'n3_eq': ('n3', 'eq_ref'),
               'n4_k': ('n4', 'k_ref'),
@@ -1922,6 +1955,317 @@ def trainrun_phase(torch, work, data_dir, made, test_batches):
     return {name: n for name, n in got.items()}, line
 
 
+def eval_fixture(torch, cache, cfg):
+    """Phase 9(a): a release's layout under `cache`: the default model with
+    seeded non-zero weights as models/grappa-1.2.pth (the reference's
+    format, every alias and buffer), three datasets under published tags
+    (EVAL_TAGS; the last one zipped with a nested top directory, as the
+    release ships it) with a stand-in classical force field in the
+    entries, and the espaloma_split directory. Returns the model file,
+    the CPU model and {tag: mol_ids}."""
+    import shutil
+    import zipfile
+    from pathlib import Path
+    from grappa_tpu_torch.data.dataset import (Dataset, calc_split_ids,
+                                               save_split)
+    from grappa_tpu_torch.data.synthetic import make_dataset
+    from grappa_tpu_torch.models.grappa_model import make_model
+    from grappa_tpu_torch.train.export import build_model_dict, save_model_dict
+    cache = Path(cache)
+    model = perturbed_model(torch, make_model, cfg, seed=9)
+    model_path = cache / 'models' / 'grappa-1.2.pth'
+    save_model_dict(build_model_dict(model, {'model_config': cfg}),
+                    model_path)
+    ids = {}
+    for i, tag in enumerate(EVAL_TAGS):
+        mds = make_dataset(n_mols=EVAL_MOLS, n_confs=TRAINRUN_CONFS,
+                           seed=10 + i, ds_name=tag,
+                           atom_range=TRAINRUN_ATOMS)
+        rng = np.random.default_rng(i)
+        for m in mds:
+            # a force field that misses the reference by seeded noise
+            m.ff_energy['reference_ff'] = (m.energy_ref + rng.normal(
+                0, 2.0, m.energy_ref.shape)).astype(np.float32)
+            m.ff_gradient['reference_ff'] = (m.gradient_ref + rng.normal(
+                0, 3.0, m.gradient_ref.shape)).astype(np.float32)
+        ds = Dataset.from_moldata(mds, tag)
+        ids[tag] = ds.mol_ids
+        if i < len(EVAL_TAGS) - 1:
+            ds.save(cache / 'datasets' / tag)
+            continue
+        staging = cache / 'staging' / tag
+        ds.save(staging)
+        with zipfile.ZipFile(cache / 'datasets' / f'{tag}.zip', 'w') as zf:
+            for f in staging.rglob('*'):
+                zf.write(f, f'{tag}/{f.relative_to(staging)}')
+        shutil.rmtree(cache / 'staging')
+    split_dir = cache / 'datasets' / 'espaloma_split'
+    split_dir.mkdir(parents=True)
+    save_split(calc_split_ids(ids, (0.8, 0.1, 0.1), seed=0),
+               split_dir / 'espaloma_split.json')
+    return model_path, model, ids
+
+
+def eval_data(torch, work, cfg):
+    """Phase 9's fixture under <work>/cache (GRAPPA_TPU_CACHE set there),
+    made before phase 2 in a whole run. Returns the model file, the CPU
+    model and {tag: mol_ids}."""
+    import shutil
+    from pathlib import Path
+    cache = Path(work) / 'cache'
+    shutil.rmtree(cache, ignore_errors=True)
+    os.environ['GRAPPA_TPU_CACHE'] = str(cache)
+    t0 = time.time()
+    fixture = eval_fixture(torch, cache, cfg)
+    model_path, _, ids = fixture
+    from grappa_tpu_torch.train.export import load_model_dict
+    print(f'phase 9\'s fixture made in {time.time() - t0:.1f} s: '
+          f'{model_path.name} '
+          f'({len(load_model_dict(model_path)["state_dict"])} keys), '
+          f'{" / ".join(f"{t}: {len(v)}" for t, v in ids.items())} '
+          f'molecules x {TRAINRUN_CONFS} conformers ({EVAL_TAGS[-1]} '
+          f'zipped), espaloma_split 0.8 / 0.1 / 0.1', flush=True)
+    return fixture
+
+
+def eval_batches(torch):
+    """The batches phase 9's paths give the kernels: the eval loader's over
+    the three tags and the ingest's test split's, built as eval_model
+    builds them (adaptive batch size, conformers 'max', in order), on the
+    card. The tags resolve through the zoo (the zip is extracted here)."""
+    from grappa_tpu_torch.data.dataset import load_split
+    from grappa_tpu_torch.data.loader import GraphLoader
+    from grappa_tpu_torch.train.eval_model import adaptive_batch_size
+    from grappa_tpu_torch.train.run import load_datasets, resolve_splitpath
+    ds = load_datasets(list(EVAL_TAGS))
+    ds.remove_uncommon_features()
+    split = load_split(resolve_splitpath('espaloma_split'))
+    test = ds.split(split['train'], split['val'], split['test'])[2]
+    batches = {}
+    for label, part in (('eval', ds), ('ingest', test)):
+        loader = GraphLoader(part, batch_size=adaptive_batch_size(part),
+                             conf_strategy='max', shuffle=False,
+                             device='cuda')
+        for i, (b, _) in enumerate(loader):
+            batches[f'{label} batch {i}'] = b
+            print(f'{label} batch {i}, padded: N=%d, molecules %d, '
+                  f'conformers %d, T bonds / angles / propers / impropers = '
+                  f'%s' % (b.xyz.shape[0], b.num_mols, b.xyz.shape[1],
+                           ' / '.join(str(b.terms[t].idxs.shape[0])
+                                      for t in ('n2', 'n3', 'n4',
+                                                'n4_improper'))),
+                  flush=True)
+    return batches
+
+
+def eval_phase(torch, work, cfg, smi, fixture, run_dir=None):
+    """Phase 9 on the fixture of `eval_data`. Returns the eval path's K1-K3
+    launches and the `eval` and `ingest` lines' fields."""
+    import contextlib
+    import copy
+    import io
+    from pathlib import Path
+    from grappa_tpu_torch import Grappa, cli
+    from grappa_tpu_torch.data.dataset import Dataset
+    from grappa_tpu_torch.data.synthetic import make_dataset, random_molecule
+    from grappa_tpu_torch.ops.fused_block import fused_transformer_block
+    from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
+    from grappa_tpu_torch.ops.fused_symmetriser import fused_symmetriser
+    from grappa_tpu_torch.train import eval_model as eval_mod
+    from grappa_tpu_torch.train.config import default_config
+    from grappa_tpu_torch.train.export import (build_model_dict,
+                                               load_model_dict,
+                                               model_from_dict,
+                                               save_model_dict)
+    from grappa_tpu_torch.train.run import do_trainrun
+    from grappa_tpu_torch.train.torch_compat import expected_reference_keys
+
+    phase('9. evaluation, checkpoint import and the command line, default '
+          'config')
+    model_path, model, ids = fixture
+    cache = model_path.parent.parent
+    n_mols = sum(len(v) for v in ids.values())
+
+    # (b) cli eval, twice; eval_model's own split of the time is read
+    # through its `timings`
+    counters = (fused_gnn_block, fused_transformer_block, fused_symmetriser)
+    calls, real_eval = [], eval_mod.eval_model
+
+    def timed_eval(*args, **kwargs):
+        t = {}
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = real_eval(*args, timings=t, **kwargs)
+        t['wall_s'] = time.perf_counter() - start
+        calls.append(t)
+        return out
+
+    out_json = Path(work) / 'eval.json'
+    argv = ['eval', '-t', 'grappa-1.2', '-d', *EVAL_TAGS, '--set', 'all',
+            '--classical', '-o', str(out_json)]
+    eval_mod.eval_model = timed_eval
+    runs = []
+    try:
+        for _ in range(2):
+            for c in counters:
+                c.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(argv)
+            torch.cuda.synchronize()
+            runs.append((rc, time.perf_counter() - start,
+                         {c.__name__: c.launches for c in counters},
+                         torch.cuda.max_memory_allocated() / 2 ** 30))
+    finally:
+        eval_mod.eval_model = real_eval
+    results = json.loads(out_json.read_text())
+    (rc, _, got_eval, peak), t = runs[1], calls[1]
+    batches = t['batches']
+    want = {'fused_gnn_block': 7 * batches,
+            'fused_transformer_block': 12 * batches,
+            'fused_symmetriser': 4 * batches}
+    check(rc == 0 and all(r[2] == want for r in runs)
+          and calls[0]['batches'] == batches,
+          f'(b) cli eval --set all --classical: rc {rc}; launches per call '
+          f'{[r[2] for r in runs]} (want {batches} batches x 7 / 12 / 4)')
+    finite = all(np.isfinite(v).all() for m in results.values()
+                 for d in m.values() for v in d.values())
+    check(set(results) == {'grappa_tpu', 'reference_ff'} and finite
+          and all(set(results[m]) == set(EVAL_TAGS) for m in results)
+          and all(results['grappa_tpu'][tag]['n_mols'] == EVAL_MOLS
+                  for tag in EVAL_TAGS),
+          f'(b) results: finite metrics and CIs for {sorted(results)} on '
+          f'{len(EVAL_TAGS)} datasets of {EVAL_MOLS} molecules')
+    stored = load_model_dict(model_path).get('results', {}).get('all')
+    check(stored == results,
+          '(b) the results were written back into the model file')
+
+    # card vs CPU on the first tag's molecules: the bootstrap draws of the
+    # first dataset are the same numpy stream in both
+    first = EVAL_TAGS[0]
+    ds = Dataset.load(cache / 'datasets' / first)
+    cpu_model, _ = model_from_dict(load_model_dict(model_path))
+    t0 = time.perf_counter()
+    cpu = real_eval(cpu_model, ds, classical=True, device='cpu')
+    cpu_s = time.perf_counter() - t0
+    pairs = [(results[m][first][k], cpu[m][first][k])
+             for m in cpu for k in cpu[m][first]]
+    worst = max(float(np.max(np.abs(np.subtract(a, b))
+                             / np.maximum(np.abs(b), 1e-30)))
+                for a, b in pairs)
+    check(worst <= EVAL_RTOL and set(cpu) == set(results),
+          f'(b) {first}: card vs CPU eval_model ({EVAL_MOLS} molecules, CPU '
+          f'{cpu_s:.1f} s), every metric and CI: worst relative difference '
+          f'{worst:.2e} (tol {EVAL_RTOL})')
+    eval_line = {
+        'datasets': list(EVAL_TAGS), 'molecules': n_mols,
+        'conformers': n_mols * TRAINRUN_CONFS, 'batches': batches,
+        'batch_size': t['batch_size'],
+        'cli_wall_ms': [round(r[1] * 1e3, 3) for r in runs],
+        'eval_model_ms': [round(c['wall_s'] * 1e3, 3) for c in calls],
+        'molecules_per_s': n_mols / t['wall_s'],
+        'conformers_per_s': n_mols * TRAINRUN_CONFS / t['wall_s'],
+        'loader_ms': round(t['loader_s'] * 1e3, 3),
+        'step_ms': round(t['step_s'] * 1e3, 3),
+        'pool_ms': round(t['pool_s'] * 1e3, 3),
+        'launches': got_eval, 'peak_gib': round(peak, 3),
+        'written_back': stored == results, 'card_vs_cpu_worst_rel': worst,
+        'card': smi}
+
+    # (c) ingest-release: the audit, the test split's evaluation and the
+    # parity verdict (these seeded weights must fail it)
+    out = Path(work) / 'ingest' / 'report'
+    out.parent.mkdir(parents=True, exist_ok=True)
+    for c in counters:
+        c.launches = 0
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(['ingest-release', '-d', *EVAL_TAGS, '-o', str(out)])
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - start
+    ingest_launches = {c.__name__: c.launches for c in counters}
+    report = json.loads(out.with_suffix('.json').read_text())
+    audit, verdict = report['checkpoint_audit'], report['parity']
+    n_test = sum(d['n_mols'] for d in report['results'].values())
+    check(rc == 1 and verdict['pass'] is False
+          and all(out.with_suffix(s).exists() for s in ('.md', '.tex'))
+          and not audit['missing_vs_expected']
+          and not audit['unexpected_in_file']
+          and not audit['import_warnings']
+          and audit['keys_in_file'] == audit['keys_expected']
+          and ingest_launches['fused_gnn_block'] % 7 == 0
+          and ingest_launches['fused_gnn_block'] > 0,
+          f'(c) cli ingest-release: rc {rc} on a FAIL verdict (seeded '
+          f'weights, {verdict["metrics_gated"]} metrics gated); '
+          f'{n_test} test molecules; report .json / .md / .tex written; '
+          f'audit {audit["keys_in_file"]} keys, '
+          f'{len(audit["missing_vs_expected"])} missing, '
+          f'{len(audit["unexpected_in_file"])} unexpected, '
+          f'{len(audit["import_warnings"])} warnings; launches '
+          f'{ingest_launches}')
+    ingest_line = {'test_molecules': n_test, 'rc': rc,
+                   'parity_pass': verdict['pass'],
+                   'wall_ms': round(ingest_s * 1e3, 3),
+                   'keys': audit['keys_in_file'],
+                   'launches': ingest_launches, 'card': smi}
+
+    # (d) the tolerant import on the card: a buffer-less .npz, and a state
+    # dict with DGL's fc_src name and without the gnn.blocks aliases, each
+    # on the card and on the CPU
+    full = build_model_dict(model, {'model_config': cfg})
+    scalers = ('.to_k.', '.to_eq.', '.k_mean', '.k_std', '.n_periodicity')
+    bufferless = dict(full, state_dict={
+        k: v for k, v in full['state_dict'].items()
+        if not any(s in k for s in scalers)})
+    npz = Path(work) / 'bufferless.npz'
+    save_model_dict(bufferless, npz)
+    renamed = dict(full, state_dict={
+        k.replace('graph_module.fc.', 'graph_module.fc_src.'): v
+        for k, v in full['state_dict'].items()
+        if not k.startswith('gnn.blocks.')})
+    mols = [random_molecule(seed=s) for s in range(16)]
+    for label, md in (('buffer-less .npz', load_model_dict(npz)),
+                      ('fc_src, no gnn.blocks aliases', renamed)):
+        card = Grappa.from_model_dict(md)
+        host = Grappa.from_model_dict(md, device='cpu')
+        check(card.device.type == 'cuda', f'(d) {label}: loads on the card')
+        compare_outputs(f'(d) {label}, 16 molecules, card vs CPU,',
+                        stack(card.predict_many(mols, check_eq_values=False)),
+                        stack(host.predict_many(mols, check_eq_values=False)))
+    check(set(full['state_dict']) == expected_reference_keys(cfg),
+          '(d) the exported state dict holds every reference key')
+
+    # cli export of a run's best.ckpt equals its model.npz, bit for bit
+    if run_dir is None:
+        data_dir = os.path.join(work, 'data', 'export')
+        Dataset.from_moldata(make_dataset(n_mols=8, n_confs=4, seed=1,
+                                          atom_range=TRAINRUN_ATOMS)
+                             ).save(data_dir)
+        config = trainrun_config(default_config, data_dir)
+        config['data_config']['train_batch_size'] = 3
+        # best.ckpt is kept from the first QM epoch on (start_qm_epochs 1)
+        config['trainer_config']['max_epochs'] = 2
+        with contextlib.redirect_stdout(io.StringIO()):
+            run_dir = do_trainrun(copy.deepcopy(config), project_dir=work,
+                                  run_name='export')['run_dir']
+    exported = Path(work) / 'exported.npz'
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(['export', str(run_dir), '-o', str(exported)])
+    got = load_model_dict(exported)
+    want = load_model_dict(Path(run_dir) / 'model.npz')
+    same = (rc == 0 and got['state_dict'].keys() == want['state_dict'].keys()
+            and all(a.dtype == want['state_dict'][k].dtype
+                    and a.tobytes() == want['state_dict'][k].tobytes()
+                    for k, a in got['state_dict'].items())
+            and got['split_names'] == want['split_names'])
+    check(same, f'(d) cli export of {Path(run_dir).name}/best.ckpt equals '
+                f'its model.npz bit for bit ({len(got["state_dict"])} arrays)')
+    return {'eval': got_eval, 'ingest': ingest_launches}, eval_line, \
+        ingest_line
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, 'grappa_tpu_torch')):
         print('chip_smoke.py: run it from a checkout of the repository '
@@ -1931,6 +2275,7 @@ def main() -> int:
     torsion_only = sys.argv[1:] == ['--torsion']
     trainrun_only = sys.argv[1:] == ['--trainrun']
     train_step_only = sys.argv[1:] == ['--train-step']
+    eval_only = sys.argv[1:] == ['--eval']
     sys.path.insert(0, ROOT)
     import torch
     if not torch.cuda.is_available():
@@ -1961,6 +2306,19 @@ def main() -> int:
         torsion_path_phase(torch)
         return 1 if FAILURES else 0
     work = os.path.join(ROOT, 'runs', 'chip_smoke')
+    if eval_only:
+        import atexit
+        import shutil
+        from grappa_tpu_torch.models.grappa_model import (
+            get_default_model_config)
+        shutil.rmtree(work, ignore_errors=True)
+        atexit.register(shutil.rmtree, work, True)
+        cfg = get_default_model_config()
+        _, eval_line, ingest_line = eval_phase(
+            torch, work, cfg, smi, eval_data(torch, work, cfg))
+        print('eval ' + json.dumps(eval_line), flush=True)
+        print('ingest ' + json.dumps(ingest_line), flush=True)
+        return 1 if FAILURES else 0
     if trainrun_only:
         data_dir, made, _, test_batches = trainrun_data(torch, work)
         _, line = trainrun_phase(torch, work, data_dir, made, test_batches)
@@ -1993,6 +2351,9 @@ def main() -> int:
     # the training run's (phase 8) train, validation and test batches
     data_dir, made, run_batches, test_batches = trainrun_data(torch, work)
     workloads.update({f'trainrun {k}': v for k, v in run_batches.items()})
+    # phase 9's eval and ingest batches
+    eval_fix = eval_data(torch, work, cfg)
+    workloads.update(eval_batches(torch))
 
     phase('2. kernels against their plain versions (the serving '
           'workloads\' and the training run\'s shapes)')
@@ -2070,6 +2431,12 @@ def main() -> int:
     for name, (nf, nb) in run_launches.items():
         launches[name]['trainrun'] = nf
         launches[f'{name}.backward']['trainrun'] = nb
+    eval_launches, eval_line, ingest_line = eval_phase(
+        torch, work, cfg, smi, eval_fix,
+        run_dir=os.path.join(work, 'trainrun'))
+    for path, counts in eval_launches.items():
+        for name, n in counts.items():
+            launches[name][path] = n
 
     if FAILURES:
         print(f'chip_smoke.py: {len(FAILURES)} check(s) failed',
@@ -2115,6 +2482,8 @@ def main() -> int:
             kernels[-1]['bound_tc_ms'] = bound(3 * e['flops'], e['nbytes'],
                                                PEAK_TF32_FLOPS)[0]
     print('trainrun ' + json.dumps(trainrun_line))
+    print('eval ' + json.dumps(eval_line))
+    print('ingest ' + json.dumps(ingest_line))
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -17,9 +17,10 @@ from grappa_tpu_torch.data.graph_batch import MolGraph, collate
 from grappa_tpu_torch.data.loader import bucketed_pad_spec
 from grappa_tpu_torch.data.molecule import Molecule
 from grappa_tpu_torch.data.parameters import Parameters
-from grappa_tpu_torch.models.grappa_model import (GrappaModel, field_of_view,
-                                                  make_model)
+from grappa_tpu_torch.models.grappa_model import GrappaModel, field_of_view
+from grappa_tpu_torch.train.export import load_model_dict, model_from_dict
 from grappa_tpu_torch.utils import resolve_device
+from grappa_tpu_torch.zoo import model_path_from_tag
 
 
 class Grappa:
@@ -35,14 +36,18 @@ class Grappa:
         self.config = config or {}
 
     @classmethod
+    def from_tag(cls, tag: str = 'latest', device=None) -> 'Grappa':
+        """Load a published model by tag (e.g. 'grappa-1.2') or file path
+        (`.pth` / `.npz`) from the cache (`zoo.model_path_from_tag`)."""
+        return cls.from_model_dict(load_model_dict(model_path_from_tag(tag)),
+                                   device)
+
+    @classmethod
     def from_model_dict(cls, model_dict: Dict, device=None) -> 'Grappa':
-        """From a `{state_dict, config, ...}` model dict whose state_dict
-        carries the scaler buffers (as the JAX package exports it with its
-        model's statistics): the strict load sets every weight and buffer."""
-        config = model_dict['config']
-        model = make_model(config.get('model_config', config))
-        model.load_state_dict({k: torch.as_tensor(v)
-                               for k, v in model_dict['state_dict'].items()})
+        """From a `{state_dict, config, ...}` model dict, ours or the
+        reference's, through `export.model_from_dict` (the audited import;
+        a file without scaler buffers takes the config's statistics)."""
+        model, config = model_from_dict(model_dict)
         return cls(model, config, device)
 
     @property

@@ -5,7 +5,8 @@ export_model.py:48-123 and utils/loading_utils.py:7-86). A model file holds
 {state_dict, config, split_names[, results, ds_size]}. The port's module
 tree carries the reference's names and scaler buffers, so its
 `state_dict()` is the file's state_dict as it stands, and a `.npz` or
-`.pth` written by either package loads in the other.
+`.pth` written by either package loads in the other; a reference-format
+file loads through `torch_compat.import_state_dict`'s audit.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from grappa_tpu_torch.models.grappa_model import GrappaModel, make_model
+from grappa_tpu_torch.train.torch_compat import import_state_dict
 
 
 def build_model_dict(model: GrappaModel, config: Dict,
@@ -67,10 +69,22 @@ def load_model_dict(path: Union[str, Path]) -> Dict:
 
 
 def model_from_dict(model_dict: Dict):
-    """model_dict -> (model on the CPU, config). The strict load sets every
-    weight and the scaler buffers from the file."""
+    """model_dict -> (model on the CPU, config). The file goes through
+    `import_state_dict`'s audit; the scalers come from its buffers where it
+    stores them, else from the config's default statistics (a buffer-less
+    file), and the strict load sets every weight from the file."""
     config = model_dict['config']
-    model = make_model(config.get('model_config', config))
-    model.load_state_dict({k: torch.as_tensor(np.asarray(v))
-                           for k, v in model_dict['state_dict'].items()})
+    model_config = config.get('model_config', config)
+    state_dict, stats = import_state_dict(model_dict['state_dict'],
+                                          model_config, require_buffers=False)
+    model = (make_model(model_config, stats, eps_applied=True)
+             if stats is not None else make_model(model_config))
+    load_imported(model, state_dict)
     return model, config
+
+
+def load_imported(model: GrappaModel, state_dict: Dict):
+    """Strict load of an `import_state_dict` result: every weight from the
+    file, and the buffers the file does not store the model's own."""
+    own = {k: v for k, v in model.named_buffers() if k not in state_dict}
+    model.load_state_dict({**own, **state_dict}, strict=True)

@@ -31,8 +31,9 @@ from grappa_tpu_torch.statistics import param_statistics_from_graphs
 from grappa_tpu_torch.train.config import read_yaml, validate_config, write_yaml
 from grappa_tpu_torch.train.eval_model import BootstrapEvaluator
 from grappa_tpu_torch.train.export import (
-    build_model_dict, load_model_dict, save_model_dict)
+    build_model_dict, load_imported, load_model_dict, save_model_dict)
 from grappa_tpu_torch.train.logging import MetricLogger
+from grappa_tpu_torch.train.torch_compat import import_state_dict
 from grappa_tpu_torch.train.trainer import (
     Trainer, _verify_checkpoint, make_eval_step)
 from grappa_tpu_torch.utils import resolve_device
@@ -218,16 +219,17 @@ def do_trainrun(config: Dict, project_dir: str = 'runs',
 
     if pretrain_path is not None:
         d = load_model_dict(pretrain_path)
-        sd = d['state_dict'] if 'state_dict' in d else d
+        # weights AND the scaler buffers come from the file, through the
+        # import's audit (buffers required, as in the JAX package)
+        sd, _ = import_state_dict(d['state_dict'] if 'state_dict' in d
+                                  else d, config['model_config'])
         own = model.state_dict()
         for k, v in sd.items():
-            if k in own and tuple(np.shape(v)) != tuple(own[k].shape):
+            if tuple(v.shape) != tuple(own[k].shape):
                 raise ValueError(f"pretrain shape mismatch for {k}: "
-                                 f"{tuple(np.shape(v))} vs "
+                                 f"{tuple(v.shape)} vs "
                                  f"{tuple(own[k].shape)}")
-        # weights AND the scaler buffers come from the file
-        model.load_state_dict({k: torch.as_tensor(np.asarray(v))
-                               for k, v in sd.items()})
+        load_imported(model, sd)
         config['lit_model_config']['start_qm_epochs'] = 0
     model = model.to(device)
 

@@ -43,6 +43,16 @@ def _writer_permutations(writer: str, cfg: Dict):
     return perms
 
 
+def _positional_encoding(writer: str, cfg: Dict):
+    """The constant encoding the reference stores for arity >= 3
+    (perm_equiv_transformer.py:188)."""
+    if writer == 'improper' and cfg.get('wrong_symmetry'):
+        return [[0.0], [0.0], [1.0], [0.0]]
+    if writer == 'angle':
+        return [[0.0], [1.0], [0.0]]
+    return [[0.0], [1.0], [1.0], [0.0]]
+
+
 def parameters_from_flax(tree: Dict, model_config: Dict
                          ) -> Dict[str, torch.Tensor]:
     """A flax-parameter-shaped tree (the weights, or optax's Adam mu / nu)
@@ -137,14 +147,9 @@ def state_dict_from_flax(params: Dict, model_config: Dict,
             linear(f'{tbase}.ff.linear2', blk['ff']['linear2']['kernel'],
                    blk['ff']['linear2']['bias'])
         if buffers and cfg['positional_encoding'] and writer != 'bond':
-            if writer == 'improper' and cfg['wrong_symmetry']:
-                enc = [[0.0], [0.0], [1.0], [0.0]]
-            elif writer == 'angle':
-                enc = [[0.0], [1.0], [0.0]]
-            else:
-                enc = [[0.0], [1.0], [1.0], [0.0]]
             sd[f'{base}.{model_name}.grappa_transformer.positional_encoding'] \
-                = _t(np.asarray(enc, np.float32))
+                = _t(np.asarray(_positional_encoding(writer, cfg),
+                                np.float32))
         for i in range(cfg[f'{writer}_symmetriser_depth']):
             blk = wp['symmetriser'][f'mlp_{i}']
             sbase = f'{base}.{model_name}.symmetriser.mlp.{i}'

@@ -128,11 +128,14 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     files = sorted((ROOT / 'grappa_tpu_torch').rglob('*.py'))
     files.append(ROOT / 'chip_smoke.py')
     assert len(files) > 20
-    # the training run's modules are among them
+    # the training run's, the evaluation's and the command line's modules
+    # are among them
     port = ROOT / 'grappa_tpu_torch'
     for name in ('native.py', 'zoo.py', 'data/dataset.py', 'data/loader.py',
                  'train/config.py', 'train/logging.py', 'train/trainer.py',
-                 'train/export.py', 'train/eval_model.py', 'train/run.py'):
+                 'train/export.py', 'train/eval_model.py', 'train/run.py',
+                 'cli.py', 'published.py', 'train/report.py',
+                 'train/torch_compat.py'):
         assert port / name in files, name
     banned = {'jax', 'jaxlib', 'flax', 'optax', 'grappa_tpu'}
     for path in files:

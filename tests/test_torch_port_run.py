@@ -316,7 +316,7 @@ def test_entry_points_run_on_the_card_unless_asked(ds_dir, tmp_path,
             call()
     from grappa_tpu_torch import zoo
     monkeypatch.setenv('GRAPPA_TPU_CACHE', str(tmp_path / 'cache'))
-    with pytest.raises(RuntimeError, match='no-such-tag'):
+    with pytest.raises(KeyError, match='no-such-tag'):
         zoo.dataset_path_from_tag('no-such-tag')
     (tmp_path / 'cache' / 'datasets' / 'local').mkdir(parents=True)
     assert zoo.dataset_path_from_tag('local') == \
