@@ -7,6 +7,7 @@
     python3 chip_smoke.py --trainrun       # phases 1 and 8 alone
     python3 chip_smoke.py --train-step     # phases 1 and 5 alone
     python3 chip_smoke.py --eval           # phases 1 and 9 alone
+    python3 chip_smoke.py --bf16           # phases 1 and 10 alone
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit, the torch / CUDA versions;
@@ -120,6 +121,26 @@ Phases, each printing its own lines:
      predict on the CPU (MODEL_RTOL / MODEL_ATOL), and `cli export` of
      phase 8's best.ckpt (with --eval, of a 2-epoch run made here) equal
      to its model.npz bit for bit.
+ 10. the bf16 mode (compute_dtype='bfloat16'; the kernels' mm_dtype): (a)
+     K1-K3 in bf16 mode against their plain bf16 versions at phase 2's
+     shapes (the serving workloads, phase 8's and phase 9's batches): mean
+     |kernel - plain bf16| <= BF16_RULE x mean |plain bf16 - plain f32|
+     (the bf16 effect), max <= BF16_MAX x its max; the bf16 kernel's, the
+     plain version's and the float32 kernel's ms at each shape, and the
+     bf16 bound (FLOP at 989 TFLOP/s or bytes at 3.35 TB/s); (b)
+     predict_many at the default width in bf16 on phase 3's two paths and
+     weights: bf16 launches 7 / 12 / 4 a forward and no float32 launch
+     (counts zeroed before each path), finite outputs, each output against
+     the same model on the CPU (fused: the plain bf16 versions) within
+     1.25 x the card's own spread under a one-ulp change of the weights
+     (bf16 roundings cascade over the full width: compare_bf16_outputs),
+     every stage alone (each GNN block, each writer's RepProjector,
+     transformer blocks and Symmetriser) card vs CPU on the CPU's input
+     at BF16_RULE, the warm latency beside the float32 model's; (c) make_train_step refuses the bf16 model on the
+     card and a bf16 forward's backward raises (ROADMAP's "bf16 kernels");
+     (d) the built library's SASS: every tc_gemm_kernel of the bf16 policy
+     has HMMA.16816.F32.BF16 and no TF32 HMMA, every float32 one the
+     reverse.
 
 The `trainrun {...}`, `eval {...}` and `ingest {...}` lines come before
 the last three lines, which are a
@@ -139,8 +160,12 @@ SM clocks its instructions take an element on the busiest of the FMA
 pipe (integer multiply-adds, 64 a clock), the ALU pipe (the other
 integer instructions, 64 a clock) and issue (every instruction, 128 a
 clock), over the card's SM clocks (`g_sm_clocks`), against their
-stores. Any failure exits non-zero before those lines. `--kernels-only` stops after phase 4 and prints the kernels' sums as a
-`kernel_times` line instead; `--trainrun` runs phase 8 alone and
+stores. The bf16 entries (`<kernel>.bf16`) sum phase 10(a)'s shapes,
+with `f32_ms` (the float32 kernel at the same shapes) and a bf16 bound;
+their launches are phase 10(b)'s. Any failure exits non-zero before those
+lines. `--kernels-only` stops after phase 4 and 10(a) / (d) and prints the
+kernels' sums as a `kernel_times` line instead; `--bf16` runs phase 10
+alone (building phase 2's workloads) and prints `bf16_kernel_times`; `--trainrun` runs phase 8 alone and
 `--eval` phase 9 alone and
 `--train-step` phase 5 alone (with names a parent checkout shares, so that
 one copy of this script times the step of both); `--torsion` prints only
@@ -168,6 +193,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # below them
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # the issue rates of an SM of compute capability 9.0 (132 of them, at the
 # card's maximum SM clock as nvidia-smi reads it, `clocks.max.sm`), in
@@ -242,6 +268,20 @@ VAL_RTOL = 1e-5
 EVAL_TAGS = ('spice-dipeptide', 'gen2', 'rna-diverse')
 EVAL_MOLS = 128
 EVAL_RTOL = 1e-4
+# phase 10: the bf16 mode against the plain bf16 versions (kernels) and
+# the CPU's plain bf16 path (predict_many): mean |bf16 - its reference| <=
+# BF16_RULE x mean |reference - the same in float32| (the bf16 effect),
+# the rule tests/test_torch_port_bf16.py holds the port to against the JAX
+# package. The two sides round the same operands to bf16 and differ only
+# where a float32 value summed in another order lands on the other side of
+# a bf16 rounding; a flip moves its row's LayerNorm and the next roundings
+# in that row, so one element's error can approach the effect's own size.
+# Kernels also max <= BF16_MAX x the effect's max: a wrong tile or
+# fragment errs by the output's own size.
+BF16_RULE, BF16_MAX = 0.1, 2.0
+# the bf16 mode's SASS: every tensor-core GEMM instantiated with the bf16
+# policy runs this instruction and no TF32 one (tc_gemm.cuh)
+BF16_HMMA, TF32_HMMA = 'HMMA.16816.F32.BF16', 'HMMA.1688.F32.TF32'
 REF_FIELDS = {'n2_k': ('n2', 'k_ref'), 'n2_eq': ('n2', 'eq_ref'),
               'n3_k': ('n3', 'k_ref'), 'n3_eq': ('n3', 'eq_ref'),
               'n4_k': ('n4', 'k_ref'),
@@ -538,22 +578,30 @@ def issue_clocks(opcodes):
                n['all'] / ISSUE_PER_CLOCK_SM), n
 
 
-def sass_opcodes(so, kernel):
-    """The opcodes of `kernel`'s SASS in the built library (cuobjdump
-    -sass), padding NOPs and the branch to itself after the last EXIT
-    (never issued) left out; None when its output lacks the kernel."""
+def sass_functions(so):
+    """{mangled name: opcodes} of every function's SASS in the built
+    library (cuobjdump -sass), padding NOPs and the branch to itself after
+    the last EXIT (never issued) left out."""
     from grappa_tpu_torch.ops import _cuda
     tool = os.path.join(os.path.dirname(_cuda._nvcc()), 'cuobjdump')
     sass = subprocess.run([tool, '-sass', str(so)], capture_output=True,
                           text=True, timeout=300).stdout
-    m = re.search(r'Function : (\S*' + kernel + r'\S*)\n(.*?)'
-                  r'(?=\n\s*Function :|\Z)', sass, re.S)
-    if not m:
-        return None
-    ops = re.findall(r'/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?'
-                     r'([A-Z][A-Z0-9_.]*)', m.group(2))
-    ops = [op for op in ops if op != 'NOP']
-    return ops[:len(ops) - ops[::-1].index('EXIT')] if 'EXIT' in ops else ops
+    out = {}
+    for m in re.finditer(r'Function : (\S+)\n(.*?)(?=\n\s*Function :|\Z)',
+                         sass, re.S):
+        ops = re.findall(r'/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?'
+                         r'([A-Z][A-Z0-9_.]*)', m.group(2))
+        ops = [op for op in ops if op != 'NOP']
+        out[m.group(1)] = (ops[:len(ops) - ops[::-1].index('EXIT')]
+                           if 'EXIT' in ops else ops)
+    return out
+
+
+def sass_opcodes(so, kernel):
+    """The opcodes of the first function whose name holds `kernel`
+    (sass_functions); None when the library lacks it."""
+    return next((ops for name, ops in sass_functions(so).items()
+                 if kernel in name), None)
 
 
 def rand_params(torch, gen, shapes):
@@ -614,11 +662,11 @@ def compare_out(torch, entries, name, label, kernel, plain, flops, nbytes,
         accumulate(entries, name, max_abs, ms, plain_ms, flops, nbytes)
 
 
-def kernel_phase(torch, workloads):
-    """Phase 2: every kernel against its plain version at the shapes each
-    workload's forward gives it (its padded N, neighbour list and tuple
-    counts). Returns the per-kernel JSON entries (launch counts filled in
-    by phase 3)."""
+def kernel_cases(torch, workloads):
+    """Every forward kernel's case at the shapes each workload's forward
+    gives it (its padded N, neighbour list and tuple counts), on seeded
+    inputs: (name, label, kernel(mm_dtype), plain(mm_dtype), flops,
+    nbytes, on_path), made one at a time (the same inputs on every call)."""
     from grappa_tpu_torch.data.graph_batch import TERM_ARITY, TERMS
     from grappa_tpu_torch.ops import fused_block as fb
     from grappa_tpu_torch.ops import fused_gnn as fg
@@ -626,10 +674,6 @@ def kernel_phase(torch, workloads):
     from grappa_tpu_torch.models.heads import (PERMUTATIONS,
                                                WRONG_SYMMETRY_IMPROPER)
     gen = torch.Generator().manual_seed(1234)
-    entries = {}
-
-    compare = lambda *a, **k: compare_out(torch, entries, *a, **k)
-
     f, heads, hid, hid2, width = 512, 16, 2048, 512, 256
     sym_out = {'n2': 2, 'n3': 2, 'n4': 12, 'n4_improper': 6}
 
@@ -642,14 +686,13 @@ def kernel_phase(torch, workloads):
             ((i,), 'g'), ((i,), 'b'), ((h, i), 'w'), ((h,), 'b'),
             ((o, h), 'w'), ((o,), 'b')]) for i, h, o in dims]
         macs = sum(i * h + h * o for i, h, o in dims)
-        compare('fused_symmetriser', f'{label} S={s} T={t} '
+        return ('fused_symmetriser', f'{label} S={s} T={t} '
                 f'perms={len(perms)} out={out}',
-                lambda: fs.fused_symmetriser(x, layers, perms),
-                lambda: fs.reference_symmetriser(x, layers, perms),
-                flops=2 * len(perms) * t * macs,
-                nbytes=4 * (s * t * f + sum(p.numel() for layer in layers
-                                            for p in layer) + t * out),
-                on_path=on_path)
+                lambda dt: fs.fused_symmetriser(x, layers, perms, dt),
+                lambda dt: fs.reference_symmetriser(x, layers, perms, dt),
+                2 * len(perms) * t * macs,
+                4 * (s * t * f + sum(p.numel() for layer in layers
+                                     for p in layer) + t * out), on_path)
 
     for label, batch in workloads.items():
         # K1 at the workload's padded node count, with its neighbour list:
@@ -664,13 +707,14 @@ def kernel_phase(torch, workloads):
             ((f, f), 'w'), ((f,), 'b'), ((f,), 'g'), ((f,), 'b'),
             ((hid, f), 'w'), ((hid,), 'b'), ((f, hid), 'w'), ((f,), 'b')])
         real_slots = float(mask.sum())
-        compare('fused_gnn_block', f'{label} N={n} F={f} H={heads} D={d}',
-                lambda: fg.fused_gnn_block(feat, nbr, hn, mask, p1, heads),
-                lambda: fg.reference_gnn_block(feat, nbr, hn, mask, p1,
-                                               heads),
-                flops=2 * n * (f * f + 2 * f * hid) + 4 * real_slots * f,
-                nbytes=4 * ((2 + d) * n * f + d * n
-                            + sum(p.numel() for p in p1) + n * f))
+        yield ('fused_gnn_block', f'{label} N={n} F={f} H={heads} D={d}',
+               lambda dt: fg.fused_gnn_block(feat, nbr, hn, mask, p1, heads,
+                                             mm_dtype=dt),
+               lambda dt: fg.reference_gnn_block(feat, nbr, hn, mask, p1,
+                                                 heads, mm_dtype=dt),
+               2 * n * (f * f + 2 * f * hid) + 4 * real_slots * f,
+               4 * ((2 + d) * n * f + d * n + sum(p.numel() for p in p1)
+                    + n * f), True)
 
         # K2 and K3 at the four heads' (S, T)
         for term in TERMS:
@@ -682,18 +726,31 @@ def kernel_phase(torch, workloads):
                 ((f,), 'b'), ((hid2, f), 'w'), ((hid2,), 'b'),
                 ((f, hid2), 'w'), ((f,), 'b')])
             r = s * t
-            compare('fused_transformer_block', f'{label} S={s} T={t} F={f} '
-                    f'H=8',
-                    lambda: fb.fused_transformer_block(x, p2, 8),
-                    lambda: fb.reference_block(x, p2, 8),
-                    flops=(2 * r * (4 * f * f + 2 * f * hid2)
-                           + 4 * t * s * s * f),
-                    nbytes=4 * (2 * r * f + sum(p.numel() for p in p2)))
-            sym_case(PERMUTATIONS[term], t, sym_out[term], label)
+            yield ('fused_transformer_block', f'{label} S={s} T={t} F={f} '
+                   f'H=8',
+                   lambda dt, x=x, p2=p2: fb.fused_transformer_block(
+                       x, p2, 8, mm_dtype=dt),
+                   lambda dt, x=x, p2=p2: fb.reference_block(
+                       x, p2, 8, mm_dtype=dt),
+                   2 * r * (4 * f * f + 2 * f * hid2) + 4 * t * s * s * f,
+                   4 * (2 * r * f + sum(p.numel() for p in p2)), True)
+            yield sym_case(PERMUTATIONS[term], t, sym_out[term], label)
 
     # the 6-permutation improper case (wrong_symmetry), off the default path
-    sym_case(WRONG_SYMMETRY_IMPROPER, 552, 6, 'wrong_symmetry',
-             on_path=False)
+    yield sym_case(WRONG_SYMMETRY_IMPROPER, 552, 6, 'wrong_symmetry',
+                   on_path=False)
+
+
+def kernel_phase(torch, workloads):
+    """Phase 2: every kernel against its plain version at the shapes each
+    workload's forward gives it. Returns the per-kernel JSON entries
+    (launch counts filled in by phase 3)."""
+    entries = {}
+    for name, label, kernel, plain, flops, nbytes, on_path in kernel_cases(
+            torch, workloads):
+        compare_out(torch, entries, name, label, lambda: kernel(None),
+                    lambda: plain(None), flops=flops, nbytes=nbytes,
+                    on_path=on_path)
     return entries
 
 
@@ -1528,6 +1585,20 @@ def stack(params_list):
                                for p in params_list]) for k in fields}
 
 
+def serving_state(torch, make_model, cfg):
+    """The serving phases' weights: the model's seeded init, every
+    parameter moved by seeded noise (the zero-initialised branches --
+    head_reducer, out_proj, ... -- and the biases become non-zero too), as
+    a CPU state_dict."""
+    model = make_model(cfg, generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            scale = 0.02 if p.dim() >= 2 else 0.05
+            p.add_(scale * torch.randn(p.shape, generator=gen))
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
 def predict_phase(torch, cfg, smalls, protein, paths):
     """Phase 3: predict_many on both paths with the launch counts of each
     forward, its times, and the outputs against the same model on the CPU.
@@ -1540,15 +1611,9 @@ def predict_phase(torch, cfg, smalls, protein, paths):
     from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
     from grappa_tpu_torch.ops.fused_symmetriser import fused_symmetriser
     phase('3. predict_many, default config, seeded non-zero weights')
-    model = make_model(cfg, generator=torch.Generator().manual_seed(0))
-    gen = torch.Generator().manual_seed(1)
-    with torch.no_grad():
-        for p in model.parameters():
-            # zero-initialised branches (head_reducer, out_proj, ...) and
-            # biases become non-zero too
-            scale = 0.02 if p.dim() >= 2 else 0.05
-            p.add_(scale * torch.randn(p.shape, generator=gen))
-    cpu_state = {k: v.clone() for k, v in model.state_dict().items()}
+    cpu_state = serving_state(torch, make_model, cfg)
+    model = make_model(cfg)
+    model.load_state_dict(cpu_state)
     ff = Grappa(model, {'model_config': cfg})          # CUDA by default
     print(f'{len(smalls)} small molecules ({sum(len(m.atoms) for m in smalls)}'
           f' atoms), protein-like molecule ({len(protein.atoms)} atoms); '
@@ -1617,6 +1682,319 @@ def predict_phase(torch, cfg, smalls, protein, paths):
     compare_outputs('protein', card_prot, stack([ff_cpu.predict(
         protein, check_eq_values=False)]))
     return launches
+
+
+def compare_bf16(torch, entries, name, label, kernel, plain, flops, nbytes,
+                 on_path=True):
+    """Phase 10(a): a forward kernel in bf16 mode against its plain version
+    in bf16 mode on the same inputs, the error measured against the bf16
+    effect (plain bf16 against plain float32); adds its error, times (the
+    bf16 kernel, its plain version, the float32 kernel at the same shape)
+    and bf16 bound to `entries[name + '.bf16']` when on_path."""
+    bf16 = torch.bfloat16
+    y16, p16, p32 = kernel(bf16), plain(bf16), plain(None)
+    torch.cuda.synchronize()
+    err, eff = (y16 - p16).abs(), (p16 - p32).abs()
+    mean_ratio = float(err.mean()) / max(float(eff.mean()), 1e-30)
+    max_ratio = float(err.max()) / max(float(eff.max()), 1e-30)
+    ok = (bool(torch.isfinite(y16).all()) and mean_ratio <= BF16_RULE
+          and max_ratio <= BF16_MAX)
+    ms = timed(torch, lambda: kernel(bf16))
+    plain_ms = timed(torch, lambda: plain(bf16))
+    f32_ms = timed(torch, lambda: kernel(None))
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    check(ok, f'{name} bf16 {label}: mean err / bf16 effect {mean_ratio:.3e}'
+              f' (tol {BF16_RULE}), max {max_ratio:.3e} (tol {BF16_MAX}), '
+              f'max_abs_err {float(err.max()):.3e}; kernel {ms:.4f} ms, '
+              f'plain {plain_ms:.4f} ms, float32 kernel {f32_ms:.4f} ms, '
+              f'bf16 bound {b_ms:.4f} ms ({b_by})')
+    if on_path:
+        accumulate(entries, name + '.bf16', float(err.max()), ms, plain_ms,
+                   flops, nbytes, PEAK_BF16_FLOPS)
+        e = entries[name + '.bf16']
+        e['f32_ms'] = e.get('f32_ms', 0.0) + f32_ms
+
+
+def bf16_sass(torch):
+    """Phase 10(d): every tensor-core GEMM kernel of the built library runs
+    its policy's instruction: the bf16 policy's instantiations (the bf16
+    mode's products) BF16_HMMA and no TF32 mma, the float32 ones TF32_HMMA
+    and no bf16 mma."""
+    from grappa_tpu_torch.ops import _cuda
+    kinds = {'TcBf16': [], 'TcTf32x3': []}
+    for name, ops in sass_functions(_cuda.build()).items():
+        for policy in kinds:
+            if 'tc_gemm_kernel' in name and policy in name:
+                kinds[policy].append(sorted({op for op in ops
+                                             if op.startswith('HMMA')}))
+    for policy, want, other in (('TcBf16', BF16_HMMA, TF32_HMMA),
+                                ('TcTf32x3', TF32_HMMA, BF16_HMMA)):
+        found = kinds[policy]
+        check(bool(found) and all(want in h and other not in h
+                                  for h in found),
+              f'SASS: {len(found)} tc_gemm_kernel instantiations of '
+              f'{policy}, each with {want} and without {other} (their HMMA '
+              f'opcodes: {sorted({op for h in found for op in h})})')
+
+
+def bf16_kernel_phase(torch, workloads, entries):
+    """Phase 10(a) and (d): K1-K3 in bf16 mode against their plain bf16
+    versions at every workload's shapes (compare_bf16), and the library's
+    SASS (bf16_sass)."""
+    phase('10(a). K1-K3 in bf16 mode (compute_dtype=\'bfloat16\') against '
+          'their plain bf16 versions')
+    for name, label, kernel, plain, flops, nbytes, on_path in kernel_cases(
+            torch, workloads):
+        compare_bf16(torch, entries, name, label, kernel, plain, flops,
+                     nbytes, on_path)
+    phase('10(d). the bf16 mode\'s SASS')
+    bf16_sass(torch)
+
+
+def refusal(fn):
+    """The message of the NotImplementedError fn() raises, else ''."""
+    try:
+        fn()
+    except NotImplementedError as e:
+        return str(e)
+    return ''
+
+
+def bf16_predict_phase(torch, cfg, smalls, protein, paths, batch):
+    """Phase 10(b) and (c): predict_many at the default width with
+    compute_dtype='bfloat16' on both serving paths: the bf16 launches 7 /
+    12 / 4 a forward (no float32 launch), finite outputs against the same
+    model on the CPU (fused, the plain bf16 versions), warm latency beside
+    the float32 model's on the same weights; then the training step
+    refuses the bf16 model on the card and a bf16 forward's backward on
+    `batch` raises. Returns the bf16 launches per path."""
+    from grappa_tpu_torch import Grappa
+    from grappa_tpu_torch.data.graph_batch import MolGraph, collate
+    from grappa_tpu_torch.data.loader import bucketed_pad_spec
+    from grappa_tpu_torch.models.grappa_model import make_model
+    from grappa_tpu_torch.ops.fused_block import fused_transformer_block
+    from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
+    from grappa_tpu_torch.ops.fused_symmetriser import fused_symmetriser
+    from grappa_tpu_torch.train.trainer import make_optimizer, make_train_step
+    phase('10(b). predict_many in bf16, default config, seeded non-zero '
+          'weights')
+    print(f'cuBLAS bf16 reduced-precision reductions (the bf16 Dense '
+          f'products outside the kernels: fc, rep_projector): '
+          f'{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}'
+          , flush=True)
+    cfg16 = dict(cfg, compute_dtype='bfloat16')
+    fused = dict(fused_gnn=True, fused_heads=True)
+    state = serving_state(torch, make_model, cfg)
+    # the same weights, each moved by one float32 ulp (a seeded direction)
+    gen = torch.Generator().manual_seed(2)
+    ulp_state = {k: torch.nextafter(v, torch.where(
+        torch.rand(v.shape, generator=gen) < 0.5, -np.inf, np.inf))
+        if v.is_floating_point() else v for k, v in state.items()}
+    models = {}
+    for label, c, device, sd in (
+            ('bf16', cfg16, 'cuda', state), ('f32', cfg, 'cuda', state),
+            ('bf16 ulp', cfg16, 'cuda', ulp_state),
+            ('cpu bf16', dict(cfg16, **fused), 'cpu', state),
+            ('cpu f32', dict(cfg, **fused), 'cpu', state)):
+        m = make_model(c)
+        m.load_state_dict(sd, strict=True)
+        models[label] = Grappa(m, {'model_config': c}, device=device)
+    ff16, ff32 = models['bf16'], models['f32']
+    for ff in (ff16, ff32):
+        ff.predict_many(smalls, check_eq_values=False)     # warm-up
+        ff.predict(protein, check_eq_values=False)
+    torch.cuda.synchronize()
+
+    # each path is read on its own: the counts are set to 0 just before its
+    # predict and read just after
+    counters = (fused_gnn_block, fused_transformer_block, fused_symmetriser)
+    launches = {f'{c.__name__}.bf16': {} for c in counters}
+    for label, mols in paths.items():
+        for c in counters:
+            c.launches = c.bf16_launches = 0
+        card = stack(ff16.predict_many(mols, check_eq_values=False))
+        torch.cuda.synchronize()
+        got = {c.__name__: c.bf16_launches for c in counters}
+        f32 = {c.__name__: c.launches for c in counters}
+        for name, n in got.items():
+            launches[f'{name}.bf16'][label] = n
+        check(got == {'fused_gnn_block': 7, 'fused_transformer_block': 12,
+                      'fused_symmetriser': 4} and not any(f32.values()),
+              f'{label} bf16: bf16 launch counts of one forward {got} '
+              f'(7 / 12 / 4), float32 launches {f32} (none)')
+        check(all(np.isfinite(v).all() for v in card.values()),
+              f'{label} bf16: all outputs finite')
+        compare_bf16_outputs(label, card, *(stack(models[k].predict_many(
+            mols, check_eq_values=False)) for k in (
+                'f32', 'bf16 ulp', 'cpu bf16', 'cpu f32')))
+    graphs = [MolGraph.from_molecule(m) for m in smalls]
+    bf16_stages(torch, ff16.model, models['cpu bf16'].model,
+                models['cpu f32'].model,
+                collate(graphs, bucketed_pad_spec(graphs, 1), 1,
+                        device='cpu'))
+    for name, mols in (('small x32', smalls), ('protein 1224 atoms',
+                                                [protein])):
+        graphs = [MolGraph.from_molecule(m) for m in mols]
+        b = collate(graphs, bucketed_pad_spec(graphs, 1), 1)
+        for label, ff in (('bf16', ff16), ('float32', ff32)):
+            med, runs = host_ms(torch, lambda: ff.predict_many(
+                mols, check_eq_values=False), reps=7)
+            with torch.inference_mode():
+                fwd = timed(torch, lambda: ff.model(b), iters=10)
+            print(f'warm predict {name}, {label} kernels: median {med:.2f} '
+                  f'ms (runs {runs}); forward {fwd:.2f} ms on the card '
+                  f'(CUDA events, mean of 10)', flush=True)
+
+    phase('10(c). training in bf16 is refused on the card')
+    msg = refusal(lambda: make_train_step(ff16.model, make_optimizer()))
+    check('bf16 kernels' in msg,
+          f'make_train_step refuses the bf16 model on the card: {msg!r}')
+    with torch.enable_grad():
+        pred = ff16.model(batch)
+    msg = refusal(lambda: pred['n2_k'].sum().backward())
+    ff16.model.zero_grad(set_to_none=True)
+    check('bf16 kernels' in msg,
+          f'a bf16 forward\'s backward raises on the card: {msg!r}')
+    return launches
+
+
+def stage_ratio(card, cpu16, cpu32):
+    """(mean |card - cpu16| / mean |cpu16 - cpu32|, the same of the
+    maxima), the card's output brought to the host."""
+    card = card.detach().float().cpu()
+    err, eff = (card - cpu16).abs(), (cpu16 - cpu32).abs()
+    return (float(err.mean()) / max(float(eff.mean()), 1e-30),
+            float(err.max()) / max(float(eff.max()), 1e-30))
+
+
+def bf16_stages(torch, card, cpu16, cpu32, batch):
+    """Phase 10(b): every bf16 stage of the model on the card against the
+    CPU (fused, the plain bf16 versions) on the same input, the CPU's own
+    input to that stage: each GNN attention block (the LayerNorm, fc in
+    bf16 through cuBLAS, K1), each writer's RepProjector (a bf16 Dense and
+    elu), its transformer blocks (K2) and its Symmetriser (K3). Mean error
+    <= BF16_RULE x the stage's bf16 effect (the CPU's float32 model on
+    the same input)."""
+    from grappa_tpu_torch.ops.fused_block import fused_transformer_block
+    seen = {}
+
+    def keep(name):
+        def hook(mod, args, out):
+            seen[name] = (args, out)
+        return hook
+
+    gnn16, gnn32 = cpu16.gnn, cpu32.gnn
+    hooks = [m.register_forward_hook(keep(f'gnn block {i}'))
+             for i, m in enumerate(gnn16.att_blocks)]
+    w16, w32, wc = (m.parameter_writer for m in (cpu16, cpu32, card))
+    writers = ('bond_writer', 'angle_writer', 'proper_writer',
+               'improper_writer')
+    for name in writers:
+        head = getattr(w16, name)
+        hooks += [head.rep_projector.register_forward_hook(
+                      keep(f'{name} rep_projector')),
+                  head_model(head).grappa_transformer.register_forward_hook(
+                      keep(f'{name} transformer')),
+                  head_model(head).symmetriser.register_forward_hook(
+                      keep(f'{name} symmetriser'))]
+    with torch.inference_mode():
+        cpu16(batch)
+    for h in hooks:
+        h.remove()
+    ratios = {}
+    to_card = lambda args: [a.cuda() if torch.is_tensor(a) else a
+                            for a in args]
+    with torch.inference_mode():
+        for i, (blk16, blk32, blkc) in enumerate(zip(
+                gnn16.att_blocks, gnn32.att_blocks, card.gnn.att_blocks)):
+            args, out = seen[f'gnn block {i}']
+            ratios[f'gnn block {i}'] = stage_ratio(blkc(*to_card(args)), out,
+                                                   blk32(*args))
+        for name in writers:
+            h16, h32, hc = (getattr(w, name) for w in (w16, w32, wc))
+            args, out = seen[f'{name} rep_projector']
+            ratios[f'{name} rep_projector'] = stage_ratio(
+                hc.rep_projector(*to_card(args)), out,
+                h32.rep_projector(*args))
+            # the transformer blocks one by one, each on the CPU's input
+            t16, t32, tc = (head_model(h).grappa_transformer
+                            for h in (h16, h32, hc))
+            x = seen[f'{name} transformer'][0][0]
+            if t16.positional_encoding is not None:
+                pos = t16.positional_encoding[:, None, :].expand(
+                    -1, x.shape[1], -1)
+                x = torch.cat([x, pos], dim=-1)
+            for j, (b16, b32, bc) in enumerate(zip(
+                    t16.transformer, t32.transformer, tc.transformer)):
+                y16 = fused_transformer_block(x, b16.fused_params(),
+                                              b16.num_heads,
+                                              mm_dtype=torch.bfloat16)
+                ratios[f'{name} transformer block {j}'] = stage_ratio(
+                    fused_transformer_block(x.cuda(), bc.fused_params(),
+                                            bc.num_heads,
+                                            mm_dtype=torch.bfloat16),
+                    y16, fused_transformer_block(x, b32.fused_params(),
+                                                 b32.num_heads))
+                x = y16
+            args, out = seen[f'{name} symmetriser']
+            ratios[f'{name} symmetriser'] = stage_ratio(
+                head_model(hc).symmetriser(*to_card(args)), out,
+                head_model(h32).symmetriser(*args))
+    for name, (mean_ratio, max_ratio) in ratios.items():
+        check(mean_ratio <= BF16_RULE,
+              f'bf16 stage {name}, card vs CPU on the CPU\'s input: mean '
+              f'err / bf16 effect {mean_ratio:.3e} (tol {BF16_RULE}), max '
+              f'{max_ratio:.3e}')
+
+
+def head_model(head):
+    """A writer's TupleHead (the reference's bond_model / angle_model /
+    torsion_model)."""
+    return getattr(head, getattr(head, 'model_name', 'torsion_model'))
+
+
+def compare_bf16_outputs(label, card16, card32, card_ulp, cpu16, cpu32):
+    """The card's bf16 predict_many against the CPU's (fused, the plain bf16
+    versions), per output over the whole model. bf16 cascades: a float32
+    sum in another order flips a bf16 rounding now and then, the flipped
+    operand moves its product by a whole bf16 ulp, and the next roundings
+    spread it; over 7 GNN blocks and a writer's 3 + 3 layers two
+    evaluations that differ only in float32 order part by a good share of
+    the bf16 effect. The floor is measured: the card's own bf16 model with
+    every weight moved by one float32 ulp. Checked: mean |card - CPU| <=
+    max(BF16_RULE, 1.25 x that floor) x the CPU's bf16 effect (the card
+    is no further from the CPU than from itself), and the card's bf16
+    effect (card bf16 - card float32) within 0.8-1.25 of the CPU's (the
+    same roundings in the same places). bf16_stages holds each stage to
+    BF16_RULE. Torsion ks that the hard cutoff sends to 0 on one side only
+    are left out."""
+    for key in card16:
+        outs = (card16[key], card32[key], card_ulp[key], cpu16[key],
+                cpu32[key])
+        a = outs[0]
+        ok = all(o.shape == a.shape for o in outs) and bool(
+            np.isfinite(a).all())
+        keep = np.ones(a.shape, bool)
+        if key.endswith('_ks'):
+            for o in outs[1:]:
+                keep &= (np.abs(o) > TORSION_CUTOFF) == (
+                    np.abs(a) > TORSION_CUTOFF)
+            ok &= keep.mean() > 0.95 if keep.size else True
+        c16, c32, cu, p16, p32 = (o[keep] for o in outs)
+        eff = max(float(np.abs(p16 - p32).mean()), 1e-30)
+        ratio = float(np.abs(c16 - p16).mean()) / eff
+        floor = float(np.abs(cu - c16).mean()) / eff
+        effect = float(np.abs(c16 - c32).mean()) / eff
+        tol = max(BF16_RULE, 1.25 * floor)
+        ok &= ratio <= tol and 0.8 <= effect <= 1.25
+        check(ok, f'{label} bf16 {key} {a.shape}: card vs CPU mean err / '
+                  f'bf16 effect {ratio:.3e} (tol {tol:.3e}: 1.25 x the card '
+                  f'against itself with weights 1 float32 ulp apart, '
+                  f'{floor:.3e}), card bf16 effect / CPU bf16 effect '
+                  f'{effect:.3f} (tol 0.8-1.25), CPU bf16 effect mean '
+                  f'{eff:.3e}'
+                  + (f', {int((~keep).sum())} cutoff flips left out'
+                     if key.endswith('_ks') else ''))
 
 
 def trainrun_config(default_config, data_dir):
@@ -2276,6 +2654,7 @@ def main() -> int:
     trainrun_only = sys.argv[1:] == ['--trainrun']
     train_step_only = sys.argv[1:] == ['--train-step']
     eval_only = sys.argv[1:] == ['--eval']
+    bf16_only = sys.argv[1:] == ['--bf16']
     sys.path.insert(0, ROOT)
     import torch
     if not torch.cuda.is_available():
@@ -2294,6 +2673,9 @@ def main() -> int:
           f'{torch.cuda.device_count()}')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the bf16 model's Dense products outside the kernels sum in float32,
+    # as on the CPU
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(f'allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32} '
           f'cudnn {torch.backends.cudnn.allow_tf32}')
     from grappa_tpu_torch.ops import _cuda
@@ -2354,6 +2736,13 @@ def main() -> int:
     # phase 9's eval and ingest batches
     eval_fix = eval_data(torch, work, cfg)
     workloads.update(eval_batches(torch))
+    if bf16_only:
+        entries = {}
+        bf16_kernel_phase(torch, workloads, entries)
+        bf16_predict_phase(torch, cfg, smalls, protein, paths,
+                           workloads['small'])
+        print('bf16_kernel_times ' + json.dumps(entries), flush=True)
+        return 1 if FAILURES else 0
 
     phase('2. kernels against their plain versions (the serving '
           'workloads\' and the training run\'s shapes)')
@@ -2379,6 +2768,7 @@ def main() -> int:
                           entries)
     block_profile(torch, train_batch)
     if kernels_only:
+        bf16_kernel_phase(torch, workloads, entries)
         print('kernel_times ' + json.dumps(entries), flush=True)
         return 1 if FAILURES else 0
 
@@ -2437,6 +2827,9 @@ def main() -> int:
     for path, counts in eval_launches.items():
         for name, n in counts.items():
             launches[name][path] = n
+    bf16_kernel_phase(torch, workloads, entries)
+    launches.update(bf16_predict_phase(torch, cfg, smalls, protein, paths,
+                                       workloads['small']))
 
     if FAILURES:
         print(f'chip_smoke.py: {len(FAILURES)} check(s) failed',
@@ -2459,7 +2852,14 @@ def main() -> int:
         'torsion_energy_fused': ('torsion.cu', 'torsion_kernel.py:109'),
         # K5's backward: in the JAX package the vjp of _energy_jnp run as
         # one XLA program (_bwd), not a Pallas kernel
-        'torsion_energy_grad': ('torsion.cu', 'torsion_kernel.py:156')}
+        'torsion_energy_grad': ('torsion.cu', 'torsion_kernel.py:156'),
+        # the bf16 mode of K1-K3 (mm_dtype=jnp.bfloat16: the same Pallas
+        # call sites compiled for bf16 products)
+        'fused_gnn_block.bf16': ('fused_gnn.cu', 'fused_gnn.py:271'),
+        'fused_transformer_block.bf16': ('fused_block.cu',
+                                         'fused_block.py:379'),
+        'fused_symmetriser.bf16': ('fused_symmetriser.cu',
+                                   'fused_symmetriser.py:174')}
     kernels = []
     for name, (source, replaces) in sources.items():
         e = entries[name]
@@ -2467,17 +2867,19 @@ def main() -> int:
         per_path = launches.get(name, {})
         kernels.append(dict(
             name=name, route='cuda', source=csrc + source,
-            replaces=tpu + replaces, status='ported',
+            replaces=tpu + replaces,
+            status='bf16 mode ported' if name.endswith('.bf16') else 'ported',
             launches=sum(per_path.values()), launches_per_path=per_path,
             max_abs_err=e['max_abs_err'], ms=e['ms'],
             plain_ms=e['plain_ms'], bound_ms=b_ms, bound_by=b_by,
             library_ms=None, mbytes=e['nbytes'] / 1e6))
-        if e['peak'] == PEAK_FP32_FLOPS:
+        if e['peak'] in (PEAK_FP32_FLOPS, PEAK_BF16_FLOPS):
             kernels[-1]['gflop'] = e['flops'] / 1e9
         else:
             kernels[-1]['g_sm_clocks'] = e['flops'] / 1e9
-        if 'device_ms' in e:
-            kernels[-1]['device_ms'] = e['device_ms']
+        for key in ('device_ms', 'f32_ms'):
+            if key in e:
+                kernels[-1][key] = e[key]
         if name in TENSOR_CORE_KERNELS:
             kernels[-1]['bound_tc_ms'] = bound(3 * e['flops'], e['nbytes'],
                                                PEAK_TF32_FLOPS)[0]

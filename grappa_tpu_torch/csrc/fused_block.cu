@@ -19,8 +19,13 @@
 // the tensor cores, 1.27 / 2.54 ms as 3xTF32 (three TF32 products per
 // float32 product) at the 495 TFLOP/s tensor-core peak.
 //
+// In bf16 mode (the JAX kernel's mm_dtype=bfloat16) the forward's 3.1 MFLOP
+// a row run at the 989 TFLOP/s bf16 peak: 3.2 ns a row against 1.2 ns for
+// its ~4 KB of float32 input and output, still bound by operations.
+//
 // Design: every product runs on the tensor cores through tc_gemm.cuh (3xTF32
-// mma.sync fed by a cp.async ring; its note gives the design), with bias,
+// mma.sync fed by a cp.async ring, or its bf16 policy in bf16 mode; its note
+// gives the design), with bias,
 // dropout, the elu' factor, a residual or a split-K partial store in its
 // epilogue. Forward -- LN1, the QKV GEMM, the attention pass (one warp per
 // tuple and head; all S slots of the tuple are read by that warp, so the S x S
@@ -267,7 +272,9 @@ long long grappa_fused_block_scratch(int s, int t, int f, int hid) {
 // x, y: (S, T, F); weights in torch layout: wq (3F, F), wo (F, F),
 // w1 (hid, F), w2 (F, hid). S must be 2, 3 or 4. Dropout: masks keyed by
 // (seed, 0) and (seed, 1) when drop_on, keep iff Philox bits >= threshold,
-// kept values x drop_scale.
+// kept values x drop_scale. mm_bf16: the four products in tc_gemm.cuh's bf16
+// policy (operands rounded to bf16, float32 sums), the JAX kernel's
+// mm_dtype=bfloat16; LayerNorms and attention stay float32, as there.
 int grappa_fused_block_fwd(const float* x, const float* g1, const float* b1,
                            const float* wq, const float* bq, const float* wo,
                            const float* bo, const float* g2, const float* b2,
@@ -275,7 +282,8 @@ int grappa_fused_block_fwd(const float* x, const float* g1, const float* b1,
                            const float* c2, uint32_t seed, uint32_t threshold,
                            float drop_scale, int drop_on, float* scratch,
                            float* y, int s, int t, int f, int hid,
-                           int n_heads, float scale, void* stream) {
+                           int n_heads, float scale, int mm_bf16,
+                           void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int r = s * t;
   const FwdLayout l = fwd_layout(r, f, hid);
@@ -284,18 +292,22 @@ int grappa_fused_block_fwd(const float* x, const float* g1, const float* b1,
         *x1n = scratch + l.x1n, *a = scratch + l.a;
   const Drop m1 = make_drop(seed, 0, threshold, drop_scale, drop_on, f);
   const Drop m2 = make_drop(seed, 1, threshold, drop_scale, drop_on, f);
-  RETURN_IF_ERR(layernorm(x, f, xn, f, g1, b1, r, f, st));
-  RETURN_IF_ERR(tc_gemm(Mat{xn, f}, wq, f, bq, nullptr, 0, qkv, 3 * f, r,
-                        3 * f, f, false, st));
-  RETURN_IF_ERR(attention(qkv, attn0, s, t, f, n_heads, scale, st));
-  RETURN_IF_ERR(tc_gemm(Mat{attn0, f}, wo, f, bo, xn, f, x1, f, r, f, f,
-                        false, st, m1));
-  RETURN_IF_ERR(layernorm(x1, f, x1n, f, g2, b2, r, f, st));
-  RETURN_IF_ERR(tc_gemm(Mat{x1n, f}, w1, f, c1, nullptr, 0, a, hid, r, hid,
-                        f, true, st));
-  // y = (a @ w2^T + c2) * mask2 + x1n
-  return tc_gemm(Mat{a, hid}, w2, hid, c2, x1n, f, y, f, r, f, hid, false,
-                 st, m2);
+  auto run = [&](auto policy) {
+    using P = decltype(policy);
+    RETURN_IF_ERR(layernorm(x, f, xn, f, g1, b1, r, f, st));
+    RETURN_IF_ERR(tc_gemm<P>(Mat{xn, f}, wq, f, bq, nullptr, 0, qkv, 3 * f, r,
+                             3 * f, f, false, st));
+    RETURN_IF_ERR(attention(qkv, attn0, s, t, f, n_heads, scale, st));
+    RETURN_IF_ERR(tc_gemm<P>(Mat{attn0, f}, wo, f, bo, xn, f, x1, f, r, f, f,
+                             false, st, m1));
+    RETURN_IF_ERR(layernorm(x1, f, x1n, f, g2, b2, r, f, st));
+    RETURN_IF_ERR(tc_gemm<P>(Mat{x1n, f}, w1, f, c1, nullptr, 0, a, hid, r,
+                             hid, f, true, st));
+    // y = (a @ w2^T + c2) * mask2 + x1n
+    return tc_gemm<P>(Mat{a, hid}, w2, hid, c2, x1n, f, y, f, r, f, hid,
+                      false, st, m2);
+  };
+  return mm_bf16 ? run(TcBf16{}) : run(TcTf32x3{});
 }
 
 long long grappa_fused_block_bwd_scratch(int s, int t, int f, int hid) {

@@ -21,9 +21,14 @@
 // per float32 product) at the 495 TFLOP/s tensor-core peak, 0.097 and 0.19
 // ms (0.24 and 0.48 ms at the 67 TFLOP/s fp32 peak outside them).
 //
+// In bf16 mode (the JAX kernel's mm_dtype=bfloat16) the three forward
+// products' 4.7 MFLOP a row take 4.8 ns at the 989 TFLOP/s bf16 peak, and
+// the (3 + D) F float32 values a row read and written (feat, nbr, hn, y)
+// 6.7 ns at D = 8: bound by bytes.
+//
 // Design: chains of launches on the caller's stream, every product on the
 // tensor cores through tc_gemm.cuh (3xTF32 mma.sync fed by a cp.async
-// ring; its note gives the design). Forward -- the attention pass (one warp
+// ring, or its bf16 policy in bf16 mode; its note gives the design). Forward -- the attention pass (one warp
 // per node and head, the D slot scores reduced across the warp's lanes),
 // the head_reducer GEMM with dropout and the + hn residual in its epilogue,
 // LayerNorm, the two FF GEMMs (elu; then elu, dropout and the + x1n
@@ -232,7 +237,10 @@ long long grappa_fused_gnn_scratch(int n, int f, int hid) {
 // feat, hn, y: (N, F); nbr: (D, N, F); mask: (D, N); weights in torch
 // Linear layout (out, in): wr (F, F), w1 (hid, F), w2 (F, hid). Dropout:
 // masks keyed by (seed, 0) and (seed, 1) when drop_on, keep iff Philox bits
-// >= threshold, kept values x drop_scale.
+// >= threshold, kept values x drop_scale. mm_bf16: the three products in
+// tc_gemm.cuh's bf16 policy (operands rounded to bf16, float32 sums), the
+// JAX kernel's mm_dtype=bfloat16; the scores and the message sum stay
+// float32, as there.
 int grappa_fused_gnn_fwd(const float* feat, const float* nbr, const float* hn,
                          const float* mask, const float* wr, const float* br,
                          const float* g2, const float* b2, const float* w1,
@@ -240,22 +248,26 @@ int grappa_fused_gnn_fwd(const float* feat, const float* nbr, const float* hn,
                          uint32_t seed, uint32_t threshold, float drop_scale,
                          int drop_on, float* scratch, float* y, int n, int f,
                          int hid, int d, int n_heads, float scale,
-                         void* stream) {
+                         int mm_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const FwdLayout l = fwd_layout(n, f, hid);
   float *attn0 = scratch + l.attn0, *x1 = scratch + l.x1,
         *x1n = scratch + l.x1n, *e1 = scratch + l.e1, *e2 = scratch + l.e2;
   const Drop m1 = make_drop(seed, 0, threshold, drop_scale, drop_on, f);
   const Drop m2 = make_drop(seed, 1, threshold, drop_scale, drop_on, f);
-  RETURN_IF_ERR(attention(feat, nbr, mask, attn0, n, f, d, n_heads, scale,
-                          st));
-  RETURN_IF_ERR(tc_gemm(Mat{attn0, f}, wr, f, br, hn, f, x1, f, n, f, f,
-                        false, st, m1));
-  RETURN_IF_ERR(layernorm(x1, f, x1n, f, g2, b2, n, f, st));
-  RETURN_IF_ERR(tc_gemm(Mat{x1n, f}, w1, f, c1, nullptr, 0, e1, hid, n, hid,
-                        f, true, st));
-  return tc_gemm(Mat{e1, hid}, Mat{w2, hid}, TailOut{c2, m2, x1n, e2, y, f},
-                 n, f, hid, st);
+  auto run = [&](auto policy) {
+    using P = decltype(policy);
+    RETURN_IF_ERR(attention(feat, nbr, mask, attn0, n, f, d, n_heads, scale,
+                            st));
+    RETURN_IF_ERR(tc_gemm<P>(Mat{attn0, f}, wr, f, br, hn, f, x1, f, n, f, f,
+                             false, st, m1));
+    RETURN_IF_ERR(layernorm(x1, f, x1n, f, g2, b2, n, f, st));
+    RETURN_IF_ERR(tc_gemm<P>(Mat{x1n, f}, w1, f, c1, nullptr, 0, e1, hid, n,
+                             hid, f, true, st));
+    return tc_gemm<P>(Mat{e1, hid}, Mat{w2, hid},
+                      TailOut{c2, m2, x1n, e2, y, f}, n, f, hid, st);
+  };
+  return mm_bf16 ? run(TcBf16{}) : run(TcTf32x3{});
 }
 
 long long grappa_fused_gnn_bwd_scratch(int n, int f, int hid) {

@@ -14,7 +14,15 @@ state_dict loads strictly:
 
 With `fused` on (True, or 'auto' for CUDA inputs) an attention block runs
 everything after the neighbor gather through `ops.fused_gnn.fused_gnn_block`
-(the CUDA kernels on the card, its plain version on the CPU). In training
+(the CUDA kernels on the card, its plain version on the CPU).
+
+`dtype=torch.bfloat16` (the config's gnn_compute_dtype or compute_dtype)
+applies to the attention blocks, as in the JAX package: `fc`,
+`head_reducer` and the self-interaction compute as flax's
+nn.Dense(dtype=bfloat16) (`layers.dense`), the scores and softmax in
+float32; in the fused block `fc`'s output goes to float32 and the kernel
+runs its bf16 mode. The conv blocks, `pre_dense` and `post_dense` stay
+float32. In training
 mode every dropout draws from the `generator` the forward takes: a fused
 block one seed per call for its two in-kernel masks, as the JAX package
 draws one key per fused block.
@@ -30,7 +38,7 @@ from torch import nn
 
 from grappa_tpu_torch import constants
 from grappa_tpu_torch.models.layers import (
-    ChargeEncoding, Dropout, make_norm, masked_softmax,
+    ChargeEncoding, Dropout, dense, make_norm, masked_softmax,
     repeat_interleave_skip, use_fused, zero_init)
 from grappa_tpu_torch.ops import philox
 from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
@@ -41,22 +49,31 @@ Generator = Optional[torch.Generator]
 class NeighborAttention(nn.Module):
     """Dot-product graph attention over a padded neighbor list."""
 
-    def __init__(self, in_feats: int, out_feats: int, num_heads: int):
+    def __init__(self, in_feats: int, out_feats: int, num_heads: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.fc = nn.Linear(in_feats, out_feats, bias=False)
         self.num_heads = num_heads
+        self.dtype = dtype
+
+    def project(self, h):
+        """The fc projection, in the module's dtype."""
+        return dense(h, self.fc.weight, None, self.dtype)
 
     def forward(self, h, neighbors, neighbor_mask):
         # h: (N, F); neighbors: (N, D) int64; neighbor_mask: (N, D) bool
-        feat = self.fc(h)
+        feat = self.project(h)
         n, f = feat.shape
         dh = f // self.num_heads
         feat = feat.reshape(n, self.num_heads, dh)
         nbr_feat = feat[neighbors]                              # (N, D, H, dh)
-        scores = torch.einsum('nhd,nkhd->nkh', feat, nbr_feat) / math.sqrt(dh)
+        # the scores and softmax in float32, the weights cast to feat's type
+        scores = torch.einsum('nhd,nkhd->nkh', feat.float(),
+                              nbr_feat.float()) / math.sqrt(dh)
         alpha = masked_softmax(scores, neighbor_mask[:, :, None], dim=1)
-        out = torch.einsum('nkh,nkhd->nhd', alpha, nbr_feat)
-        return out.reshape(n, f)
+        out = torch.einsum('nkh,nkhd->nhd', alpha.to(nbr_feat.dtype),
+                           nbr_feat)
+        return out.reshape(n, f).to(h.dtype)
 
 
 class SAGEConv(nn.Module):
@@ -77,10 +94,11 @@ class SAGEConv(nn.Module):
 class ResidualAttentionBlock(nn.Module):
     def __init__(self, feats: int, num_heads: int, dropout: float = 0.0,
                  layer_norm: bool = True, self_interaction: bool = True,
-                 zero_init_residual: bool = True, fused=False):
+                 zero_init_residual: bool = True, fused=False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.layer_norm = make_norm(feats, layer_norm)
-        self.graph_module = NeighborAttention(feats, feats, num_heads)
+        self.graph_module = NeighborAttention(feats, feats, num_heads, dtype)
         self.head_reducer = nn.Linear(feats, feats)
         if self_interaction:
             self.interaction_norm = make_norm(feats, layer_norm)
@@ -93,6 +111,7 @@ class ResidualAttentionBlock(nn.Module):
                 zero_init(self.self_interaction[2])
         self.dropout = Dropout(dropout)
         self.num_heads = num_heads
+        self.dtype = dtype
         self.has_self_interaction = self_interaction
         # the kernel covers the block with both layer norms and the FF
         self.fused = fused if layer_norm and self_interaction else False
@@ -104,10 +123,15 @@ class ResidualAttentionBlock(nn.Module):
         h = self.layer_norm(h)
         h_skip = h
         a = self.graph_module(h, neighbors, neighbor_mask)
-        h = self.dropout(self.head_reducer(a), generator) + h_skip
+        hr, dt = self.head_reducer, self.dtype
+        a = dense(a, hr.weight, hr.bias, dt).to(h.dtype)
+        h = self.dropout(a, generator) + h_skip
         if self.has_self_interaction:
             h = self.interaction_norm(h)
-            h = self.dropout(self.self_interaction(h), generator) + h
+            d1, _, d2, _ = self.self_interaction
+            x = F.elu(dense(F.elu(dense(h, d1.weight, d1.bias, dt)),
+                            d2.weight, d2.bias, dt))
+            h = self.dropout(x.to(h.dtype), generator) + h
         return h
 
     def fused_params(self):
@@ -121,13 +145,13 @@ class ResidualAttentionBlock(nn.Module):
         """The pre-LN, the fc projection and the gather stay here (as in the
         JAX package); everything after the gather is one fused op."""
         hn = self.layer_norm(h)
-        feat = self.graph_module.fc(hn)
+        feat = self.graph_module.project(hn).to(hn.dtype)
         nbr = feat[neighbors.t()].contiguous()                    # (D, N, F)
         mask = neighbor_mask.t().to(feat.dtype).contiguous()      # (D, N)
         seed = philox.seed_for(self.dropout.p, self.training, generator)
         return fused_gnn_block(feat, nbr, hn, mask, self.fused_params(),
                                self.num_heads, self.dropout.p, self.training,
-                               seed)
+                               seed, self.dtype)
 
 
 class ResidualConvBlock(nn.Module):
@@ -177,7 +201,7 @@ class GrappaGNN(nn.Module):
                  attention_dropout: float = 0.0,
                  initial_dropout: float = 0.0, final_dropout: float = 0.0,
                  layer_norm: bool = True, self_interaction: bool = True,
-                 fused=False):
+                 fused=False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.in_feat_names = tuple(in_feat_names)
         self.charge_encoder = ChargeEncoding() if charge_encoding else None
@@ -190,7 +214,8 @@ class GrappaGNN(nn.Module):
                               self_interaction) for _ in range(n_conv)])
         self.att_blocks = nn.ModuleList([
             ResidualAttentionBlock(node_feats, n_heads, attention_dropout,
-                                   layer_norm, self_interaction, fused=fused)
+                                   layer_norm, self_interaction, fused=fused,
+                                   dtype=dtype)
             for _ in range(n_att)])
         self.post_dense = nn.Sequential(nn.Linear(node_feats, out_feats),
                                         Dropout(final_dropout))

@@ -77,9 +77,10 @@ def get_default_model_config() -> Dict:
         "learnable_statistics": False,
         "torsion_cutoff": 1e-4,
         "harmonic_gate": False,
-        # matmul compute dtype ('float32' | 'bfloat16'); the port runs
-        # float32 only so far (ROADMAP.md: bf16 kernels)
+        # matmul compute dtype ('float32' | 'bfloat16'); parameters, layer
+        # norms, softmax and all physics stay float32
         "compute_dtype": "float32",
+        # per-stage overrides: None falls back to compute_dtype
         "gnn_compute_dtype": None,
         "heads_compute_dtype": None,
         # hand-written CUDA kernels for the head blocks / GNN blocks:
@@ -112,12 +113,17 @@ def get_small_model_config() -> Dict:
     return cfg
 
 
-def _check_dtype(cfg: Dict) -> None:
+def stage_dtype(cfg: Dict, stage_key: str) -> Optional[torch.dtype]:
+    """The compute dtype of a stage ('gnn_compute_dtype' or
+    'heads_compute_dtype'): the stage's own key, else compute_dtype, as the
+    JAX package resolves it; torch.bfloat16 or None (float32). A dtype
+    string other than 'float32' and 'bfloat16' raises."""
     for key in ('compute_dtype', 'gnn_compute_dtype', 'heads_compute_dtype'):
-        if cfg.get(key) not in (None, 'float32'):
-            raise NotImplementedError(
-                f"{key}={cfg[key]!r}: the port runs float32 only; bfloat16 "
-                f"kernels are queued in ROADMAP.md (bf16 kernels)")
+        if cfg.get(key) not in (None, 'float32', 'bfloat16'):
+            raise ValueError(f"{key}={cfg[key]!r}: the compute dtype is "
+                             f"'float32' or 'bfloat16'")
+    value = cfg.get(stage_key) or cfg.get('compute_dtype')
+    return torch.bfloat16 if value == 'bfloat16' else None
 
 
 class GrappaModel(nn.Module):
@@ -126,13 +132,16 @@ class GrappaModel(nn.Module):
     `stats` are the epsilon-applied statistics ({'mean', 'std'} of numpy
     arrays). Parameters are created on the CPU from `generator`; move the
     model with `.to(device)`. With fused_gnn / fused_heads 'auto' the fused
-    kernels run whenever the inputs lie on a CUDA device."""
+    kernels run whenever the inputs lie on a CUDA device. With a bfloat16
+    compute dtype (`stage_dtype`) the GNN's attention blocks and the four
+    writers compute as the JAX package's bf16 model; on the card that is
+    forward only (the bf16 backward kernels are not ported yet)."""
 
     def __init__(self, config: Dict, stats: Dict,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg = dict(config)
-        _check_dtype(cfg)
+        heads_dtype = stage_dtype(cfg, 'heads_compute_dtype')
         fused_gnn = cfg.get('fused_gnn', 'auto')
         fused_heads = cfg.get('fused_heads', 'auto')
         ln = cfg['layer_norm']
@@ -150,7 +159,7 @@ class GrappaModel(nn.Module):
             initial_dropout=cfg['gnn_dropout_initial'],
             final_dropout=cfg['gnn_dropout_final'],
             layer_norm=ln, self_interaction=cfg['self_interaction'],
-            fused=fused_gnn)
+            fused=fused_gnn, dtype=stage_dtype(cfg, 'gnn_compute_dtype'))
 
         def width(name):
             return dict(
@@ -160,7 +169,7 @@ class GrappaModel(nn.Module):
                 symmetriser_depth=cfg[f'{name}_symmetriser_depth'],
                 symmetriser_width=cfg[f'{name}_symmetriser_width'],
                 dropout=cfg['parameter_dropout'], layer_norm=ln,
-                fused=fused_heads)
+                fused=fused_heads, dtype=heads_dtype)
 
         def torsion_stats(key, n_per):
             # pad with neutral statistics if the model asks for more terms

@@ -14,11 +14,16 @@ perm_equiv_transformer.py:13-319, interaction_parameters.py:140-562):
 
 With `fused` on (True, or 'auto' for CUDA inputs) the transformer blocks
 run through `ops.fused_block.fused_transformer_block` and the symmetriser
-through
-`ops.fused_symmetriser.fused_symmetriser` (CUDA kernels on the card, their
-plain versions on the CPU). In training mode every dropout draws from the
-`generator` the forward takes: each fused transformer block one seed per
-call, as the JAX package draws one key per fused block.
+through `ops.fused_symmetriser.fused_symmetriser` (CUDA kernels on the
+card, their plain versions on the CPU); off, through the eager modules. In
+training mode every dropout draws from the `generator` the forward takes:
+each fused transformer block one seed per call, as the JAX package draws
+one key per fused block.
+
+`dtype=torch.bfloat16` (the config's heads_compute_dtype or compute_dtype)
+is the JAX package's bf16 heads: the RepProjector's Dense, elu and cast to
+float32, and flax's bf16 semantics in the eager blocks and Symmetriser
+(`layers.dense`); the fused ops run their bf16 mode (`mm_dtype`).
 """
 from __future__ import annotations
 
@@ -26,15 +31,15 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from grappa_tpu_torch.models import scalers
 from grappa_tpu_torch.models.layers import (FeedForward, TransformerBlock,
-                                            use_fused)
+                                            dense, use_fused)
 from grappa_tpu_torch.ops import philox
 from grappa_tpu_torch.ops.fused_block import fused_transformer_block
-from grappa_tpu_torch.ops.fused_symmetriser import (fused_symmetriser,
-                                                    reference_symmetriser)
+from grappa_tpu_torch.ops.fused_symmetriser import fused_symmetriser
 
 # symmetry permutation sets per interaction type
 PERMUTATIONS = {
@@ -57,13 +62,17 @@ WRONG_SYMMETRY_POS_ENC = ((0.0,), (0.0,), (1.0,), (0.0,))
 
 
 class RepProjector(nn.Module):
-    def __init__(self, in_feats: int, out_feats: int):
+    def __init__(self, in_feats: int, out_feats: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.mlp = nn.Sequential(nn.Linear(in_feats, out_feats), nn.ELU())
+        self.dtype = dtype
 
     def forward(self, h, idxs):
         # h: (N, F_rep); idxs: (T, arity) -> (arity, T, F)
-        return self.mlp(h)[idxs.t()].contiguous()
+        lin = self.mlp[0]
+        x = F.elu(dense(h, lin.weight, lin.bias, self.dtype)).to(h.dtype)
+        return x[idxs.t()].contiguous()
 
 
 class GrappaTransformer(nn.Module):
@@ -72,7 +81,7 @@ class GrappaTransformer(nn.Module):
     def __init__(self, feats: int, n_heads: int, hidden_feats: int,
                  n_layers: int, positional_encoding=None,
                  layer_norm: bool = True, dropout: float = 0.0,
-                 fused=False):
+                 fused=False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if positional_encoding is not None:
             self.register_buffer('positional_encoding', torch.tensor(
@@ -81,8 +90,9 @@ class GrappaTransformer(nn.Module):
             self.positional_encoding = None
         self.transformer = nn.ModuleList([
             TransformerBlock(feats, n_heads, hidden_feats, layer_norm,
-                             dropout) for _ in range(n_layers)])
+                             dropout, dtype=dtype) for _ in range(n_layers)])
         self.fused = fused if layer_norm else False
+        self.dtype = dtype
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         fused = use_fused(self.fused, x)
@@ -96,7 +106,8 @@ class GrappaTransformer(nn.Module):
                 x = fused_transformer_block(
                     x, blk.fused_params(), blk.num_heads, rate,
                     self.training,
-                    philox.seed_for(rate, self.training, generator))
+                    philox.seed_for(rate, self.training, generator),
+                    self.dtype)
             else:
                 x = blk(x, generator)
         return x
@@ -108,7 +119,7 @@ class Symmetriser(nn.Module):
     def __init__(self, in_feats: int, out_feats: int,
                  permutations: Sequence[Tuple[int, ...]], hidden_feats: int,
                  n_layers: int = 1, layer_norm: bool = True,
-                 fused=False):
+                 fused=False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.perms = tuple(tuple(p) for p in permutations)
         # the reference registers the permutation set and its prefactors as
@@ -122,20 +133,29 @@ class Symmetriser(nn.Module):
         self.mlp = nn.ModuleList([
             FeedForward(width if i == 0 else hidden_feats, hidden_feats,
                         hidden_feats if i != last else out_feats,
-                        skip=(0 < i < last), layer_norm=layer_norm)
+                        skip=(0 < i < last), layer_norm=layer_norm,
+                        dtype=dtype)
             for i in range(n_layers)])
         self.fused = fused if layer_norm else False
+        self.dtype = dtype
 
     def forward(self, x):
-        # x: (S, T, F) -> (T, out_feats); without layer norm the norm
-        # parameters are None and the plain version skips the norm
-        layers = [(getattr(m.norm1, 'weight', None),
-                   getattr(m.norm1, 'bias', None), m.linear1.weight,
-                   m.linear1.bias, m.linear2.weight, m.linear2.bias)
-                  for m in self.mlp]
+        # x: (S, T, F) -> (T, out_feats)
         if use_fused(self.fused, x):
-            return fused_symmetriser(x, layers, self.perms)
-        return reference_symmetriser(x, layers, self.perms)
+            layers = [(m.norm1.weight, m.norm1.bias, m.linear1.weight,
+                       m.linear1.bias, m.linear2.weight, m.linear2.bias)
+                      for m in self.mlp]
+            return fused_symmetriser(x, layers, self.perms, self.dtype)
+        # the FeedForward stack on every permuted flattening, summed in
+        # permutation order (in bf16, flax's FeedForward semantics)
+        s, t, f = x.shape
+        out = None
+        for perm in self.perms:
+            h = x[list(perm)].permute(1, 0, 2).reshape(t, s * f)
+            for m in self.mlp:
+                h = m(h)
+            out = h if out is None else out + h
+        return out
 
 
 class TupleHead(nn.Module):
@@ -148,16 +168,17 @@ class TupleHead(nn.Module):
                  symmetriser_feats: int, out_feats: int,
                  permutations: Sequence[Tuple[int, ...]],
                  positional_encoding=None, dropout: float = 0.0,
-                 layer_norm: bool = True, fused=False):
+                 layer_norm: bool = True, fused=False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         feats = proj_feats + (0 if positional_encoding is None
                               else len(positional_encoding[0]))
         self.grappa_transformer = GrappaTransformer(
             feats, n_heads, hidden_feats, n_layers, positional_encoding,
-            layer_norm, dropout, fused)
+            layer_norm, dropout, fused, dtype)
         self.symmetriser = Symmetriser(
             feats, out_feats, permutations, symmetriser_feats,
-            symmetriser_layers, layer_norm, fused)
+            symmetriser_layers, layer_norm, fused, dtype)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         return self.symmetriser(self.grappa_transformer(x, generator))
@@ -175,18 +196,18 @@ class HarmonicParameterHead(nn.Module):
                  k_mean: float, k_std: float, eq_mean: float, eq_std: float,
                  positional_encoding: bool = True, gate: bool = False,
                  dropout: float = 0.0, layer_norm: bool = True,
-                 fused=False):
+                 fused=False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.term, self.gate = term, gate
         pos_enc = (POSITIONAL_ENCODINGS[term] if positional_encoding
                    else None)
         proj = transformer_width - (0 if pos_enc is None
                                     else len(pos_enc[0]))
-        self.rep_projector = RepProjector(rep_feats, proj)
+        self.rep_projector = RepProjector(rep_feats, proj, dtype)
         head = TupleHead(proj, transformer_depth, n_heads, transformer_width,
                          symmetriser_depth, symmetriser_width, 2 + int(gate),
                          PERMUTATIONS[term], pos_enc, dropout, layer_norm,
-                         fused)
+                         fused, dtype)
         # reference module names: bond_model / angle_model
         self.model_name = 'bond_model' if term == 'n2' else 'angle_model'
         setattr(self, self.model_name, head)
@@ -214,7 +235,7 @@ class TorsionParameterHead(nn.Module):
                  positional_encoding: bool = True,
                  wrong_symmetry: bool = False, cutoff: float = 1e-4,
                  dropout: float = 0.0, layer_norm: bool = True,
-                 fused=False):
+                 fused=False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if wrong_symmetry and term == 'n4_improper':
             perms = WRONG_SYMMETRY_IMPROPER
@@ -226,11 +247,11 @@ class TorsionParameterHead(nn.Module):
         proj = transformer_width - (0 if pos_enc is None
                                     else len(pos_enc[0]))
         n_out = 2 * n_periodicity if gated else n_periodicity
-        self.rep_projector = RepProjector(rep_feats, proj)
+        self.rep_projector = RepProjector(rep_feats, proj, dtype)
         self.torsion_model = TupleHead(
             proj, transformer_depth, n_heads, transformer_width,
             symmetriser_depth, symmetriser_width, n_out, perms, pos_enc,
-            dropout, layer_norm, fused)
+            dropout, layer_norm, fused, dtype)
         self.register_buffer('n_periodicity',
                              torch.tensor(n_periodicity, dtype=torch.int64))
         self.register_buffer('k_mean', torch.tensor(

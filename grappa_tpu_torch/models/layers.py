@@ -9,6 +9,13 @@ modules so that a reference-named state_dict loads strictly:
   * TransformerBlock == reference DottedAttWithMLP (pre-LN MHA + FF)
   * ChargeEncoding == the sinusoidal partial-charge encoding
 
+`dtype=torch.bfloat16` (the config's compute_dtype) gives a module the JAX
+package's flax semantics of `nn.Dense(dtype=bfloat16)` (`dense`): input,
+weight and bias rounded to bf16, the product summed in float32 and rounded
+to bf16, the bias added in bf16, the activation on bf16, and a cast back to
+float32 where the flax module casts. Parameters, LayerNorms and the
+attention softmax stay float32. None is float32 throughout.
+
 LayerNorm uses eps=1e-5 as in the JAX package. Parameters are initialised
 like flax's (`init_parameters`): LeCun-normal kernels, zero biases, and zero
 branch outputs where the JAX package zero-initialises them. Dropout draws
@@ -51,6 +58,25 @@ def repeat_interleave_skip(x_skip: torch.Tensor, out_feats: int
     if out_feats == in_feats:
         return x_skip
     return x_skip.repeat_interleave(out_feats // in_feats, dim=-1)
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor] = None,
+          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x weight^T + bias as the JAX package's nn.Dense(dtype=dtype): with
+    dtype None in float32; with torch.bfloat16 on the operands rounded to
+    bf16, the product summed in float32 and rounded to bf16, then the bias
+    (rounded to bf16) added in bf16. The result stays in dtype."""
+    if dtype is None:
+        return F.linear(x, weight, bias)
+    y = F.linear(x.to(dtype), weight.to(dtype))
+    return y if bias is None else y + bias.to(dtype)
+
+
+def uses_bf16(module: nn.Module) -> bool:
+    """True when a module below `module` computes in bfloat16."""
+    return any(getattr(m, 'dtype', None) == torch.bfloat16
+               for m in module.modules())
 
 
 def use_fused(flag, x: torch.Tensor) -> bool:
@@ -116,8 +142,10 @@ class FeedForward(nn.Module):
 
     def __init__(self, in_feats: int, hidden_feats: int, out_feats: int,
                  skip: bool = False, layer_norm: bool = True,
-                 dropout: float = 0.0, zero_init_out: bool = False):
+                 dropout: float = 0.0, zero_init_out: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.norm1 = make_norm(in_feats, layer_norm)
         self.linear1 = nn.Linear(in_feats, hidden_feats)
         self.linear2 = nn.Linear(hidden_feats, out_feats)
@@ -130,7 +158,10 @@ class FeedForward(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.norm1(x)
-        h = self.dropout(self.linear2(F.elu(self.linear1(x))), generator)
+        l1, l2, dt = self.linear1, self.linear2, self.dtype
+        h = dense(F.elu(dense(x, l1.weight, l1.bias, dt)), l2.weight,
+                  l2.bias, dt)
+        h = self.dropout(h.to(x.dtype), generator)
         if self.skip:
             h = h + repeat_interleave_skip(x, self.out_feats)
         return h
@@ -141,8 +172,10 @@ class SelfAttention(nn.Module):
     torch.nn.MultiheadAttention's packed parameter names."""
 
     def __init__(self, feats: int, num_heads: int,
-                 zero_init_out: bool = False):
+                 zero_init_out: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         if feats % num_heads:
             raise ValueError(f"feature width {feats} must be divisible by "
                              f"num_heads={num_heads}")
@@ -155,14 +188,17 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s, t, f = x.shape
-        dh = f // self.num_heads
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        dh, dt = f // self.num_heads, self.dtype
+        qkv = dense(x, self.in_proj_weight, self.in_proj_bias, dt)
         q, k, v = (a.reshape(s, t, self.num_heads, dh)
                    for a in qkv.split(f, dim=-1))
-        logits = torch.einsum('sthd,uthd->thsu', q, k) / math.sqrt(dh)
-        weights = torch.softmax(logits, dim=-1)
+        # the scores and softmax in float32, the weights cast to v's type
+        logits = (torch.einsum('sthd,uthd->thsu', q.float(), k.float())
+                  / math.sqrt(dh))
+        weights = torch.softmax(logits, dim=-1).to(v.dtype)
         out = torch.einsum('thsu,uthd->sthd', weights, v).reshape(s, t, f)
-        return self.out_proj(out)
+        return dense(out, self.out_proj.weight, self.out_proj.bias,
+                     dt).to(x.dtype)
 
 
 class TransformerBlock(nn.Module):
@@ -172,14 +208,16 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, feats: int, num_heads: int, hidden_feats: int,
                  layer_norm: bool = True, dropout: float = 0.0,
-                 zero_init_residual: bool = True):
+                 zero_init_residual: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.norm1 = make_norm(feats, layer_norm)
         self.attn = SelfAttention(feats, num_heads,
-                                  zero_init_out=zero_init_residual)
+                                  zero_init_out=zero_init_residual,
+                                  dtype=dtype)
         self.ff = FeedForward(feats, hidden_feats, feats, skip=True,
                               layer_norm=layer_norm, dropout=dropout,
-                              zero_init_out=zero_init_residual)
+                              zero_init_out=zero_init_residual, dtype=dtype)
         self.dropout = Dropout(dropout)
         self.num_heads = num_heads
 

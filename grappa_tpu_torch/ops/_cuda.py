@@ -21,6 +21,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
@@ -38,19 +39,19 @@ _DROP = [_U, _U, _F, _I]      # seed, keep threshold, keep scale, on
 _SIGNATURES = {
     'grappa_fused_gnn_scratch': (_LL, [_I, _I, _I]),
     'grappa_fused_gnn_fwd': (_I, [_P] * 12 + _DROP + [_P] * 2 + [_I] * 5
-                             + [_F, _P]),
+                             + [_F, _I, _P]),
     'grappa_fused_gnn_bwd_scratch': (_LL, [_I, _I, _I]),
     'grappa_fused_gnn_bwd': (_I, [_P] * 8 + _DROP + [_P] * 13 + [_I] * 5
                              + [_F, _P]),
     'grappa_fused_block_scratch': (_LL, [_I, _I, _I, _I]),
     'grappa_fused_block_fwd': (_I, [_P] * 13 + _DROP + [_P] * 2 + [_I] * 5
-                               + [_F, _P]),
+                               + [_F, _I, _P]),
     'grappa_fused_block_bwd_scratch': (_LL, [_I, _I, _I, _I]),
     'grappa_fused_block_bwd': (_I, [_P] * 14 + _DROP + [_P] * 15
                                + [_I] * 5 + [_F, _P]),
     'grappa_fused_symmetriser_scratch': (_LL, [_I, _I, _I, _P]),
     'grappa_fused_symmetriser_fwd': (
-        _I, [_P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P]),
+        _I, [_P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P]),
     'grappa_fused_symmetriser_bwd_scratch': (_LL, [_I, _I, _I, _P]),
     'grappa_fused_symmetriser_bwd': (
         _I, [_P, _I, _I, _I, _P, _I, _P, _P, _I] + [_P] * 6),
@@ -182,6 +183,37 @@ def grad_output(dy: torch.Tensor, like: torch.Tensor, name: str
         raise TypeError(f"{name}: the gradient must be float32 on "
                         f"{like.device}, got {dy.dtype} on {dy.device}")
     return dy.contiguous()
+
+
+# The bf16 backward kernels are still to port: a bf16 forward on the card
+# has no backward, and no float32 backward stands in for one.
+BF16_BACKWARD = ("the bfloat16 backward kernels (K1b-K3b) are not ported "
+                 "yet (ROADMAP.md, 'bf16 kernels'): bf16 runs forward only "
+                 "on the card")
+
+
+def mm_bf16(mm_dtype) -> bool:
+    """The kernels' product mode for `mm_dtype`: True for torch.bfloat16
+    (each product's operands rounded to bf16, the products summed in
+    float32, as the JAX kernels' mm_dtype=jnp.bfloat16), False for None or
+    torch.float32; raises on anything else."""
+    if mm_dtype in (None, torch.float32):
+        return False
+    if mm_dtype == torch.bfloat16:
+        return True
+    raise ValueError(f"mm_dtype must be None, torch.float32 or "
+                     f"torch.bfloat16, got {mm_dtype!r}")
+
+
+def mm_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+              bf16: bool) -> torch.Tensor:
+    """A plain version's product x w^T + b; with bf16, x and w are rounded
+    to bf16 (nearest even) and the product is summed in float32, the bias
+    added in float32 (the JAX kernels' _dot with mm_dtype=bfloat16)."""
+    if bf16:
+        x = x.to(torch.bfloat16).to(x.dtype)
+        w = w.to(torch.bfloat16).to(w.dtype)
+    return F.linear(x, w, b)
 
 
 def head_scale(dh: int) -> float:

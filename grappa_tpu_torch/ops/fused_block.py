@@ -15,7 +15,15 @@ and the twelve parameter gradients (the source notes give the card's bound
 and the design). On CPU
 tensors it runs `reference_block`, the plain PyTorch version, and autograd
 differentiates it. `fused_transformer_block.launches` and
-`fused_transformer_block.bwd_launches` count kernel launches.
+`fused_transformer_block.bwd_launches` count kernel launches,
+`fused_transformer_block.bf16_launches` the forward's in bf16 mode.
+
+`mm_dtype=torch.bfloat16` is the JAX op's bf16 mode: the four dense
+products (QKV, out_proj, FF in, FF out) round both operands to bf16 and sum
+in float32; LayerNorms and the attention stay float32. On the card it is
+the forward kernel's bf16 mode; its backward is not ported yet and raises
+(ROADMAP.md, "bf16 kernels"). On the CPU the plain version rounds the same
+operands and autograd differentiates it.
 
 Dropout (training mode, rate > 0) takes a 32-bit `seed`: mask 1 (after
 out_proj) and mask 2 (after linear2) are Philox bits keyed by (seed, 0) and
@@ -46,23 +54,27 @@ ARITIES = (2, 3, 4)   # the kernel is instantiated for these tuple sizes
 
 def reference_block(x, params: Sequence[torch.Tensor], n_heads: int = 8,
                     masks: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                    = None) -> torch.Tensor:
+                    = None, mm_dtype=None) -> torch.Tensor:
     """Plain PyTorch version on x (S, T, F) -> (S, T, F). `masks`: the two
-    dropout masks (S, T, F), already scaled by 1/keep, or None."""
+    dropout masks (S, T, F), already scaled by 1/keep, or None. `mm_dtype`:
+    None or torch.bfloat16 (the dense products' operands rounded to
+    bf16)."""
     g1, b1, wq, bq, wo, bo, g2, b2, w1, c1, w2, c2 = params
+    bf16 = _cuda.mm_bf16(mm_dtype)
     s, t, f = x.shape
     dh = f // n_heads
     xn = F.layer_norm(x, (f,), g1, b1, LN_EPS)
-    q, k, v = (a.reshape(s, t, n_heads, dh)
-               for a in F.linear(xn, wq, bq).split(f, dim=-1))
+    q, k, v = (a.reshape(s, t, n_heads, dh) for a in
+               _cuda.mm_linear(xn, wq, bq, bf16).split(f, dim=-1))
     logits = torch.einsum('sthd,uthd->thsu', q, k) * _cuda.head_scale(dh)
     w = torch.softmax(logits, dim=-1)
     attn0 = torch.einsum('thsu,uthd->sthd', w, v).reshape(s, t, f)
-    attn1 = F.linear(attn0, wo, bo)
+    attn1 = _cuda.mm_linear(attn0, wo, bo, bf16)
     if masks is not None:
         attn1 = attn1 * masks[0]
     x1n = F.layer_norm(attn1 + xn, (f,), g2, b2, LN_EPS)
-    h = F.linear(F.elu(F.linear(x1n, w1, c1)), w2, c2)
+    h = _cuda.mm_linear(F.elu(_cuda.mm_linear(x1n, w1, c1, bf16)), w2, c2,
+                        bf16)
     if masks is not None:
         h = h * masks[1]
     return h + x1n
@@ -88,7 +100,7 @@ def _check(x, params, n_heads):
 
 class _BlockKernel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, n_heads, drop, *params):
+    def forward(ctx, x, n_heads, drop, bf16, *params):
         (s, t, f), hid = x.shape, params[8].shape[0]
         lib = _cuda.lib()
         scratch = torch.empty(lib.grappa_fused_block_scratch(s, t, f, hid),
@@ -97,18 +109,24 @@ class _BlockKernel(torch.autograd.Function):
         rc = lib.grappa_fused_block_fwd(
             x.data_ptr(), *[p.data_ptr() for p in params], *drop,
             scratch.data_ptr(), y.data_ptr(), s, t, f, hid, n_heads,
-            _cuda.head_scale(f // n_heads), _cuda.stream_of(x))
+            _cuda.head_scale(f // n_heads), int(bf16), _cuda.stream_of(x))
         _cuda.check(rc, 'grappa_fused_block_fwd')
-        fused_transformer_block.launches += 1
+        if bf16:
+            fused_transformer_block.bf16_launches += 1
+        else:
+            fused_transformer_block.launches += 1
         # the scratch holds the forward's intermediates: the backward reads
         # them instead of recomputing the forward
         ctx.save_for_backward(x, scratch, *params)
-        ctx.n_heads, ctx.drop = n_heads, drop
+        ctx.n_heads, ctx.drop, ctx.bf16 = n_heads, drop, bf16
         return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
+        if ctx.bf16:
+            raise NotImplementedError(
+                f"fused_transformer_block: {_cuda.BF16_BACKWARD}")
         x, saved, *params = ctx.saved_tensors
         dy = _cuda.grad_output(dy, x, 'fused_transformer_block')
         (s, t, f), hid = x.shape, params[8].shape[0]
@@ -126,17 +144,20 @@ class _BlockKernel(torch.autograd.Function):
         _cuda.check(rc, 'grappa_fused_block_bwd')
         fused_transformer_block.bwd_launches += 1
         dx, *dparams = grads
-        return (dx, None, None, *dparams)
+        return (dx, None, None, None, *dparams)
 
 
 def fused_transformer_block(x, params: Sequence[torch.Tensor],
                             n_heads: int = 8, dropout_rate: float = 0.0,
                             training: bool = False,
-                            seed: Optional[int] = None) -> torch.Tensor:
+                            seed: Optional[int] = None,
+                            mm_dtype=None) -> torch.Tensor:
     """One TransformerBlock on x (S, T, F) (see module doc). Dropout runs
-    in training mode at rate > 0 and then needs `seed`."""
+    in training mode at rate > 0 and then needs `seed`. mm_dtype: None
+    (float32) or torch.bfloat16 (the bf16 mode)."""
     params = tuple(params)
     _check(x, params, n_heads)
+    bf16 = _cuda.mm_bf16(mm_dtype)
     philox.check_rate(dropout_rate)
     drop = training and dropout_rate > 0
     if drop and seed is None:
@@ -145,13 +166,13 @@ def fused_transformer_block(x, params: Sequence[torch.Tensor],
     if not _cuda.on_cuda((x, *params), 'fused_transformer_block'):
         masks = (philox.dump_masks(seed, x.shape, dropout_rate, x.device)
                  if drop else None)
-        return reference_block(x, params, n_heads, masks)
+        return reference_block(x, params, n_heads, masks, mm_dtype)
     if x.shape[0] not in ARITIES:
         raise ValueError(f"the kernel takes tuples of {ARITIES} slots, got "
                          f"S={x.shape[0]}")
     return _BlockKernel.apply(
         x, n_heads, philox.kernel_args(seed if drop else None, dropout_rate),
-        *params)
+        bf16, *params)
 
 
 def dropout_masks(seed: int, shape: Sequence[int], rate: float,
@@ -168,5 +189,6 @@ def dropout_masks(seed: int, shape: Sequence[int], rate: float,
 
 
 fused_transformer_block.launches = 0
+fused_transformer_block.bf16_launches = 0
 fused_transformer_block.bwd_launches = 0
 dropout_masks.launches = 0

@@ -22,7 +22,16 @@ the card's bound and the design). On CPU tensors it runs
 `reference_gnn_block`, the plain PyTorch version, and autograd
 differentiates it.
 `fused_gnn_block.launches` and `fused_gnn_block.bwd_launches` count
-kernel launches.
+kernel launches, `fused_gnn_block.bf16_launches` the forward's in bf16
+mode.
+
+`mm_dtype=torch.bfloat16` is the JAX op's bf16 mode (`mm_dtype=
+jnp.bfloat16`): the three dense products (head_reducer, FF in, FF out) round
+both operands to bf16 and sum in float32; the scores, softmax and message
+sum stay float32. On the card it is the forward kernel's bf16 mode (bf16
+tensor-core products, `csrc/tc_gemm.cuh`); its backward is not ported yet
+and raises (ROADMAP.md, "bf16 kernels"). On the CPU the plain version
+rounds the same operands and autograd differentiates it.
 
 Dropout (training mode, rate > 0) takes a 32-bit `seed`: mask 1 (after
 head_reducer) and mask 2 (after the FF's elu) are Philox bits keyed by
@@ -54,11 +63,13 @@ MAX_SLOTS = 8     # the kernel keeps the D slot scores in registers
 def reference_gnn_block(feat, nbr, hn, mask, params: Sequence[torch.Tensor],
                         n_heads: int = 16,
                         masks: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                        = None) -> torch.Tensor:
+                        = None, mm_dtype=None) -> torch.Tensor:
     """Plain PyTorch version: feat (N, F), nbr (D, N, F), hn (N, F),
     mask (D, N) float -> (N, F). `masks`: the two dropout masks (N, F),
-    already scaled by 1/keep, or None for no dropout."""
+    already scaled by 1/keep, or None for no dropout. `mm_dtype`: None or
+    torch.bfloat16 (the dense products' operands rounded to bf16)."""
     wr, br, g2, b2, w1, c1, w2, c2 = params
+    bf16 = _cuda.mm_bf16(mm_dtype)
     d, n, f = nbr.shape
     dh = f // n_heads
     feath = feat.reshape(n, n_heads, dh)
@@ -70,12 +81,12 @@ def reference_gnn_block(feat, nbr, hn, mask, params: Sequence[torch.Tensor],
     exps = torch.exp(scores - scores.amax(dim=0)) * m
     alpha = exps / exps.sum(dim=0).clamp_min(1e-9)
     attn0 = torch.einsum('knh,knhd->nhd', alpha, nbrh).reshape(n, f)
-    a1 = F.linear(attn0, wr, br)
+    a1 = _cuda.mm_linear(attn0, wr, br, bf16)
     if masks is not None:
         a1 = a1 * masks[0]
     x1n = F.layer_norm(a1 + hn, (f,), g2, b2, LN_EPS)
-    e1 = F.elu(F.linear(x1n, w1, c1))
-    e2 = F.elu(F.linear(e1, w2, c2))
+    e1 = F.elu(_cuda.mm_linear(x1n, w1, c1, bf16))
+    e2 = F.elu(_cuda.mm_linear(e1, w2, c2, bf16))
     if masks is not None:
         e2 = e2 * masks[1]
     return e2 + x1n
@@ -107,7 +118,7 @@ def _check(feat, nbr, hn, mask, params, n_heads):
 
 class _GnnBlockKernel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, feat, nbr, hn, mask, n_heads, drop, *params):
+    def forward(ctx, feat, nbr, hn, mask, n_heads, drop, bf16, *params):
         (d, n, f), hid = nbr.shape, params[4].shape[0]
         lib = _cuda.lib()
         scratch = torch.empty(lib.grappa_fused_gnn_scratch(n, f, hid),
@@ -116,18 +127,25 @@ class _GnnBlockKernel(torch.autograd.Function):
         ptrs = [t.data_ptr() for t in (feat, nbr, hn, mask, *params)]
         rc = lib.grappa_fused_gnn_fwd(
             *ptrs, *drop, scratch.data_ptr(), y.data_ptr(), n, f, hid, d,
-            n_heads, _cuda.head_scale(f // n_heads), _cuda.stream_of(feat))
+            n_heads, _cuda.head_scale(f // n_heads), int(bf16),
+            _cuda.stream_of(feat))
         _cuda.check(rc, 'grappa_fused_gnn_fwd')
-        fused_gnn_block.launches += 1
+        if bf16:
+            fused_gnn_block.bf16_launches += 1
+        else:
+            fused_gnn_block.launches += 1
         # the scratch holds the forward's intermediates: the backward reads
         # them instead of recomputing the forward
         ctx.save_for_backward(feat, nbr, mask, scratch, *params)
-        ctx.n_heads, ctx.drop = n_heads, drop
+        ctx.n_heads, ctx.drop, ctx.bf16 = n_heads, drop, bf16
         return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
+        if ctx.bf16:
+            raise NotImplementedError(
+                f"fused_gnn_block: {_cuda.BF16_BACKWARD}")
         feat, nbr, mask, saved, *params = ctx.saved_tensors
         wr, _, g2, _, w1, _, w2, _ = params    # the biases are not read
         dy = _cuda.grad_output(dy, feat, 'fused_gnn_block')
@@ -145,17 +163,20 @@ class _GnnBlockKernel(torch.autograd.Function):
         _cuda.check(rc, 'grappa_fused_gnn_bwd')
         fused_gnn_block.bwd_launches += 1
         dfeat, dnbr, dhn, *dparams = grads
-        return (dfeat, dnbr, dhn, None, None, None, *dparams)
+        return (dfeat, dnbr, dhn, None, None, None, None, *dparams)
 
 
 def fused_gnn_block(feat, nbr, hn, mask, params: Sequence[torch.Tensor],
                     n_heads: int = 16, dropout_rate: float = 0.0,
                     training: bool = False,
-                    seed: Optional[int] = None) -> torch.Tensor:
+                    seed: Optional[int] = None,
+                    mm_dtype=None) -> torch.Tensor:
     """Post-gather half of a GNN ResidualAttentionBlock (see module doc).
-    Dropout runs in training mode at rate > 0 and then needs `seed`."""
+    Dropout runs in training mode at rate > 0 and then needs `seed`.
+    mm_dtype: None (float32) or torch.bfloat16 (the bf16 mode)."""
     params = tuple(params)
     _check(feat, nbr, hn, mask, params, n_heads)
+    bf16 = _cuda.mm_bf16(mm_dtype)
     philox.check_rate(dropout_rate)
     drop = training and dropout_rate > 0
     if drop and seed is None:
@@ -165,14 +186,15 @@ def fused_gnn_block(feat, nbr, hn, mask, params: Sequence[torch.Tensor],
         masks = (philox.dump_masks(seed, feat.shape, dropout_rate,
                                    feat.device) if drop else None)
         return reference_gnn_block(feat, nbr, hn, mask, params, n_heads,
-                                   masks)
+                                   masks, mm_dtype)
     d = nbr.shape[0]
     if not 1 <= d <= MAX_SLOTS:
         raise ValueError(f"the kernel takes 1..{MAX_SLOTS} neighbour slots, "
                          f"got {d}")
     return _GnnBlockKernel.apply(
         feat, nbr, hn, mask, n_heads,
-        philox.kernel_args(seed if drop else None, dropout_rate), *params)
+        philox.kernel_args(seed if drop else None, dropout_rate), bf16,
+        *params)
 
 
 def dropout_masks(seed: int, shape: Sequence[int], rate: float,
@@ -189,5 +211,6 @@ def dropout_masks(seed: int, shape: Sequence[int], rate: float,
 
 
 fused_gnn_block.launches = 0
+fused_gnn_block.bf16_launches = 0
 fused_gnn_block.bwd_launches = 0
 dropout_masks.launches = 0

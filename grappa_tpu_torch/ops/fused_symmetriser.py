@@ -20,7 +20,14 @@ permutations (the source notes give the card's bound and the design). On
 CPU tensors it runs `reference_symmetriser`, and autograd differentiates
 it.
 `fused_symmetriser.launches` and `fused_symmetriser.bwd_launches` count
-kernel launches.
+kernel launches, `fused_symmetriser.bf16_launches` the forward's in bf16
+mode.
+
+`mm_dtype=torch.bfloat16` is the JAX op's bf16 mode: every layer's two
+products round both operands to bf16 and sum in float32; LayerNorms, elu,
+the skips and the sum over permutations stay float32. On the card it is
+the forward kernel's bf16 mode; its backward is not ported yet and raises
+(ROADMAP.md, "bf16 kernels").
 
 `layers` holds one tuple per FeedForward layer, in torch layout:
     (norm1.weight, norm1.bias, linear1.weight, linear1.bias,
@@ -46,10 +53,13 @@ MAX_LAYERS = 16        # the kernels' layer table
 
 
 def reference_symmetriser(x, layers: Sequence[Sequence[torch.Tensor]],
-                          permutations: Sequence[Tuple[int, ...]]
-                          ) -> torch.Tensor:
+                          permutations: Sequence[Tuple[int, ...]],
+                          mm_dtype=None) -> torch.Tensor:
     """Plain PyTorch version on x (S, T, F) -> (T, out). A layer whose norm
-    parameters are None has no LayerNorm (the model's layer_norm=False)."""
+    parameters are None has no LayerNorm (the model's layer_norm=False).
+    `mm_dtype`: None or torch.bfloat16 (the products' operands rounded to
+    bf16)."""
+    bf16 = _cuda.mm_bf16(mm_dtype)
     s, t, f = x.shape
     n_layers = len(layers)
     out = None
@@ -58,7 +68,8 @@ def reference_symmetriser(x, layers: Sequence[Sequence[torch.Tensor]],
         for i, (g, b, w1, c1, w2, c2) in enumerate(layers):
             hn = (h if g is None
                   else F.layer_norm(h, (h.shape[-1],), g, b, LN_EPS))
-            o = F.linear(F.elu(F.linear(hn, w1, c1)), w2, c2)
+            o = _cuda.mm_linear(F.elu(_cuda.mm_linear(hn, w1, c1, bf16)),
+                                w2, c2, bf16)
             h = o + hn if 0 < i < n_layers - 1 else o
         out = h if out is None else out + h
     return out
@@ -104,7 +115,7 @@ def _pointers(tensors):
 
 class _SymmetriserKernel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, permutations, n_layers, *flat):
+    def forward(ctx, x, permutations, n_layers, bf16, *flat):
         s, t, f = x.shape
         layers = [flat[6 * i:6 * i + 6] for i in range(n_layers)]
         dims = _layer_dims(layers)
@@ -119,19 +130,26 @@ class _SymmetriserKernel(torch.autograd.Function):
                         device=x.device)
         rc = lib.grappa_fused_symmetriser_fwd(
             x.data_ptr(), s, t, f, perms, len(permutations), _pointers(flat),
-            dims, n_layers, scratch.data_ptr(), y.data_ptr(),
+            dims, n_layers, scratch.data_ptr(), y.data_ptr(), int(bf16),
             _cuda.stream_of(x))
         _cuda.check(rc, 'grappa_fused_symmetriser_fwd')
-        fused_symmetriser.launches += 1
+        if bf16:
+            fused_symmetriser.bf16_launches += 1
+        else:
+            fused_symmetriser.launches += 1
         # the scratch holds the forward's intermediates, which the backward
         # reads
         ctx.save_for_backward(x, scratch, *flat)
-        ctx.permutations, ctx.n_layers = permutations, n_layers
+        ctx.permutations, ctx.n_layers, ctx.bf16 = (permutations, n_layers,
+                                                    bf16)
         return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
+        if ctx.bf16:
+            raise NotImplementedError(
+                f"fused_symmetriser: {_cuda.BF16_BACKWARD}")
         x, saved, *flat = ctx.saved_tensors
         dy = _cuda.grad_output(dy, x, 'fused_symmetriser')
         s, t, f = x.shape
@@ -153,27 +171,31 @@ class _SymmetriserKernel(torch.autograd.Function):
             _cuda.stream_of(x))
         _cuda.check(rc, 'grappa_fused_symmetriser_bwd')
         fused_symmetriser.bwd_launches += 1
-        return (dx, None, None, *grads)
+        return (dx, None, None, None, *grads)
 
 
 def fused_symmetriser(x, layers: Sequence[Sequence[torch.Tensor]],
-                      permutations: Sequence[Tuple[int, ...]]
-                      ) -> torch.Tensor:
-    """Symmetriser on x (S, T, F) -> (T, out_feats) (see module doc)."""
+                      permutations: Sequence[Tuple[int, ...]],
+                      mm_dtype=None) -> torch.Tensor:
+    """Symmetriser on x (S, T, F) -> (T, out_feats) (see module doc).
+    mm_dtype: None (float32) or torch.bfloat16 (the bf16 mode)."""
     layers = [tuple(layer) for layer in layers]
     permutations = tuple(tuple(int(j) for j in p) for p in permutations)
     _check(x, layers, permutations)
+    bf16 = _cuda.mm_bf16(mm_dtype)
     flat = [p for layer in layers for p in layer]
     if not _cuda.on_cuda((x, *flat), 'fused_symmetriser'):
-        return reference_symmetriser(x, layers, permutations)
+        return reference_symmetriser(x, layers, permutations, mm_dtype)
     if (x.shape[0] > MAX_ARITY or len(permutations) > MAX_PERMUTATIONS
             or len(layers) > MAX_LAYERS):
         raise ValueError(
             f"the kernel takes up to {MAX_ARITY} slots, {MAX_PERMUTATIONS} "
             f"permutations and {MAX_LAYERS} layers, got S={x.shape[0]}, "
             f"{len(permutations)} and {len(layers)}")
-    return _SymmetriserKernel.apply(x, permutations, len(layers), *flat)
+    return _SymmetriserKernel.apply(x, permutations, len(layers), bf16,
+                                    *flat)
 
 
 fused_symmetriser.launches = 0
+fused_symmetriser.bf16_launches = 0
 fused_symmetriser.bwd_launches = 0

@@ -24,6 +24,9 @@ zeroed k rows; its gradients (first order, and the force loss's double
 backward w.r.t. k) on the card against the same graph on the CPU. K5b:
 dpos and dk against the plain vjp at any T, C and P (gradient rule
 above), bit-equal on a second call; its own backward, card against CPU.
+K1-K3 in bf16 mode (mm_dtype=torch.bfloat16): against their plain bf16
+versions, mean error <= 0.1 x the bf16 effect (plain bf16 against plain
+float32) and max <= 2 x its max; their backward raises.
 """
 import numpy as np
 import pytest
@@ -206,6 +209,98 @@ def test_small_model_fused_matches_eager_on_card(cuda):
         for k in ('bond_k', 'bond_eq', 'angle_k', 'angle_eq'):
             np.testing.assert_allclose(getattr(pb, k), getattr(pa, k),
                                        rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------- bf16 mode
+# mm_dtype=torch.bfloat16 (bf16 mma.sync products) against the plain version
+# in bf16 mode on the same inputs: mean |kernel - plain_bf16| <= 0.1 x mean
+# |plain_bf16 - plain_f32| (the bf16 effect). The two round the same
+# operands and differ only where a float32 intermediate summed in another
+# order lands on the other side of a bf16 rounding; such a flip moves its
+# row's LayerNorm and so the next product's roundings in that row, and at
+# 1376 x 512 outputs one element's error reached 0.36 of the effect's max
+# (H100 run). Max <= 2 x the effect's max only catches a wrong tile or
+# fragment, whose error is of the output's own size.
+BF16_RULE, BF16_MAX = 0.1, 2.0
+
+
+def _assert_bf16(y16, y16_plain, y32_plain):
+    err, eff = (y16 - y16_plain).abs(), (y16_plain - y32_plain).abs()
+    assert torch.isfinite(y16).all()
+    assert float(err.mean()) <= BF16_RULE * float(eff.mean()), (
+        float(err.mean()), float(eff.mean()))
+    assert float(err.max()) <= BF16_MAX * float(eff.max()), (
+        float(err.max()), float(eff.max()))
+
+
+def _bf16_launch(op, call):
+    """call() once, checking it counted one bf16 launch and no float32."""
+    f32, b16 = op.launches, op.bf16_launches
+    y = call()
+    torch.cuda.synchronize()
+    assert (op.launches, op.bf16_launches) == (f32, b16 + 1)
+    return y
+
+
+@pytest.mark.parametrize('n,f,heads,d', [
+    (50, 64, 4, 6), (1376, 512, 16, 8), (3377, 512, 16, 8), (45, 18, 2, 5)])
+def test_gnn_kernel_bf16_matches_plain(cuda, n, f, heads, d):
+    args, p = _gnn_case(cuda, n, f, d)
+    op = tfg.fused_gnn_block
+    y = _bf16_launch(op, lambda: op(*args, p, heads,
+                                    mm_dtype=torch.bfloat16))
+    _assert_bf16(y, tfg.reference_gnn_block(*args, p, heads,
+                                            mm_dtype=torch.bfloat16),
+                 tfg.reference_gnn_block(*args, p, heads))
+
+
+@pytest.mark.parametrize('s,t,f,heads,hid', [
+    (2, 1376, 512, 8, 512), (3, 1720, 512, 8, 512), (4, 8256, 512, 8, 512),
+    (3, 37, 36, 4, 22), (2, 45, 18, 2, 10)])
+def test_block_kernel_bf16_matches_plain(cuda, s, t, f, heads, hid):
+    x, p = _block_case(cuda, s, t, f, hid)
+    op = tfb.fused_transformer_block
+    y = _bf16_launch(op, lambda: op(x, p, heads, mm_dtype=torch.bfloat16))
+    _assert_bf16(y, tfb.reference_block(x, p, heads,
+                                        mm_dtype=torch.bfloat16),
+                 tfb.reference_block(x, p, heads))
+
+
+@pytest.mark.parametrize('perms,t,f,width,out,n_layers', [
+    (PERMUTATIONS['n4'], 2152, 512, 256, 12, 3),
+    (WRONG_SYMMETRY_IMPROPER, 552, 512, 256, 6, 3),
+    (PERMUTATIONS['n2'], 3377, 18, 30, 2, 3)])
+def test_symmetriser_kernel_bf16_matches_plain(cuda, perms, t, f, width,
+                                               out, n_layers):
+    x, layers = _sym_case(cuda, len(perms[0]), t, f, width, out, n_layers)
+    op = tfs.fused_symmetriser
+    y = _bf16_launch(op, lambda: op(x, layers, perms,
+                                    mm_dtype=torch.bfloat16))
+    _assert_bf16(y, tfs.reference_symmetriser(x, layers, perms,
+                                              mm_dtype=torch.bfloat16),
+                 tfs.reference_symmetriser(x, layers, perms))
+
+
+def test_bf16_backward_raises_on_card(cuda):
+    """The bf16 backward kernels are not ported: each bf16 forward's
+    backward raises, naming ROADMAP's item, and runs no float32 backward
+    kernel in its place."""
+    args, pg = _gnn_case(cuda, 50, 64, 6)
+    x, pb = _block_case(cuda, 3, 40, 64, 64)
+    xs, layers = _sym_case(cuda, 2, 30, 32, 48, 2, 2)
+    calls = (
+        (tfg.fused_gnn_block, lambda a: tfg.fused_gnn_block(
+            a, *args[1:], pg, 4, mm_dtype=torch.bfloat16), args[0]),
+        (tfb.fused_transformer_block, lambda a: tfb.fused_transformer_block(
+            a, pb, 4, mm_dtype=torch.bfloat16), x),
+        (tfs.fused_symmetriser, lambda a: tfs.fused_symmetriser(
+            a, layers, PERMUTATIONS['n2'], mm_dtype=torch.bfloat16), xs))
+    for op, fn, inp in calls:
+        before = op.bwd_launches
+        y = fn(inp.detach().clone().requires_grad_(True))
+        with pytest.raises(NotImplementedError, match='bf16 kernels'):
+            y.sum().backward()
+        assert op.bwd_launches == before
 
 
 # ---------------------------------------------------------------- backward

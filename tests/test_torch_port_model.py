@@ -161,9 +161,27 @@ def test_default_model_matches_flax_on_2_molecules():
 
 
 def test_bfloat16_is_refused_not_run_in_float32():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tgm.make_model(dict(tgm.get_small_model_config(),
-                            compute_dtype='bfloat16'))
+    """A dtype string other than 'float32' / 'bfloat16' is refused, and
+    bfloat16 is not silently run in float32: on the same weights the bf16
+    model's outputs differ from the float32 model's (the parity of the bf16
+    mode with the JAX package is tests/test_torch_port_bf16.py's)."""
+    cfg = tgm.get_small_model_config()
+    for key in ('compute_dtype', 'gnn_compute_dtype', 'heads_compute_dtype'):
+        with pytest.raises(ValueError, match='bfloat16'):
+            tgm.make_model(dict(cfg, **{key: 'float16'}))
+    _, tb = _batches([0])
+    f32 = tgm.make_model(cfg, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for p in f32.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator()
+                                      .manual_seed(p.numel())))
+    bf16 = tgm.make_model(dict(cfg, compute_dtype='bfloat16'))
+    bf16.load_state_dict(f32.state_dict(), strict=True)
+    with torch.no_grad():
+        a, b = f32.eval()(tb), bf16.eval()(tb)
+    for key in a:
+        assert b[key].dtype == torch.float32, key
+        assert not torch.equal(a[key], b[key]), key
 
 
 def test_config_and_statistics_rules_match_jax():
