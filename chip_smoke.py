@@ -136,13 +136,37 @@ Phases, each printing its own lines:
      (bf16 roundings cascade over the full width: compare_bf16_outputs),
      every stage alone (each GNN block, each writer's RepProjector,
      transformer blocks and Symmetriser) card vs CPU on the CPU's input
-     at BF16_RULE, the warm latency beside the float32 model's; (c) make_train_step refuses the bf16 model on the
-     card and a bf16 forward's backward raises (ROADMAP's "bf16 kernels");
-     (d) the built library's SASS: every tc_gemm_kernel of the bf16 policy
-     has HMMA.16816.F32.BF16 and no TF32 HMMA, every float32 one the
-     reverse.
+     at BF16_RULE, the warm latency beside the float32 model's; (c)
+     training in bf16: (a) K1b-K3b in bf16 mode against autograd through
+     their plain bf16 versions at phase 4's shapes, dropout on: mean
+     |kernel - plain bf16| <= max(BF16_RULE x the bf16 effect,
+     BF16_ORDER x the plain bf16 version's own distance on the CPU), max
+     <= BF16_MAX x the effect's max, per gradient; the bf16 kernel's, the
+     plain version's and the float32 kernel's backward ms and the bf16
+     bound; (c) make_train_step with compute_dtype='bfloat16' and the
+     config's dropout on the 128 x 32 batch and bench.py's 512 x 32 peak
+     config (build_big_batch's molecules), in turns with the float32 step
+     on the same weights: 7 / 12 / 4 bf16 forward and backward launches a
+     step and no float32 one, finite losses, step ms (median of 10),
+     peak memory and idle share; gnn_compute_dtype / heads_compute_dtype
+     alone launch only their own stage in bf16; (d) one dropout-free bf16
+     step, card vs CPU (8 x 4): the loss, the gradients and Adam's update
+     in max(BF16_RULE, 1.25 x the card's own spread under a one-ulp
+     weight change) of the bf16 effect for the loss, and for the
+     gradients and the update the median over tensors within 1.25 x the
+     spread's median, every tensor within 1.25 x the widest spread (per
+     tensor the two are draws of one cascade); (e) do_trainrun in bf16 on phase
+     8's dataset, 2 epochs, then resume_trainrun by one: bf16 launches
+     only, finite losses, compute_dtype kept in the stored config and the
+     resumed model, model.npz's float32 parameters loaded into a bf16
+     model on the card give the run's test metrics (EVAL_RTOL), writer-
+     free steps/s beside phase 8's float32 (`trainrun_bf16` line); (d)
+     the built library's SASS: every tc_gemm_kernel of the bf16 policy
+     (the backward's MN-major and split-K ones among them) has
+     HMMA.16816.F32.BF16 and no TF32 HMMA, every float32 one the reverse.
 
-The `trainrun {...}`, `eval {...}` and `ingest {...}` lines come before
+The `trainrun {...}`, `trainrun_bf16 {...}`, `eval {...}` and `ingest
+{...}` lines come before
 the last three lines, which are a
 JSON object describing the kernels, the card's name and power limit, and
 {"ok": true, "device": {...}}. In the kernels'
@@ -161,11 +185,14 @@ pipe (integer multiply-adds, 64 a clock), the ALU pipe (the other
 integer instructions, 64 a clock) and issue (every instruction, 128 a
 clock), over the card's SM clocks (`g_sm_clocks`), against their
 stores. The bf16 entries (`<kernel>.bf16`) sum phase 10(a)'s shapes,
-with `f32_ms` (the float32 kernel at the same shapes) and a bf16 bound;
-their launches are phase 10(b)'s. Any failure exits non-zero before those
-lines. `--kernels-only` stops after phase 4 and 10(a) / (d) and prints the
-kernels' sums as a `kernel_times` line instead; `--bf16` runs phase 10
-alone (building phase 2's workloads) and prints `bf16_kernel_times`; `--trainrun` runs phase 8 alone and
+the bf16 backward entries (`<kernel>.bf16_bwd`) phase 10(c)(a)'s, with
+`f32_ms` (the float32 kernel at the same shapes) and a bf16 bound;
+their launches are phase 10(b)'s and 10(c)'s (the steps and the bf16
+training run). Any failure exits non-zero before those lines.
+`--kernels-only` stops after phase 4 and 10(a) / (c)(a) / (d) and prints
+the kernels' sums as a `kernel_times` line instead; `--bf16` runs phase
+10 alone (building phase 2's workloads; `trainrun_bf16` and
+`bf16_kernel_times` lines); `--trainrun` runs phase 8 alone and
 `--eval` phase 9 alone and
 `--train-step` phase 5 alone (with names a parent checkout shares, so that
 one copy of this script times the step of both); `--torsion` prints only
@@ -279,6 +306,12 @@ EVAL_RTOL = 1e-4
 # Kernels also max <= BF16_MAX x the effect's max: a wrong tile or
 # fragment errs by the output's own size.
 BF16_RULE, BF16_MAX = 0.1, 2.0
+# phase 10(c)(a): a backward chains three or four roundings of operands
+# that depend on float32 sums, so at full width the plain bf16 version on
+# the CPU (the same arithmetic in another float32 order) sits 0.03-0.16 of
+# the bf16 effect from the same on the card; a backward kernel's mean
+# error may reach BF16_ORDER x that distance where it exceeds BF16_RULE
+BF16_ORDER = 1.5
 # the bf16 mode's SASS: every tensor-core GEMM instantiated with the bf16
 # policy runs this instruction and no TF32 one (tc_gemm.cuh)
 BF16_HMMA, TF32_HMMA = 'HMMA.16816.F32.BF16', 'HMMA.1688.F32.TF32'
@@ -754,18 +787,20 @@ def kernel_phase(torch, workloads):
     return entries
 
 
-def training_batches(torch):
-    """The JAX package's training bench batch (bench.py: 128 molecules,
-    n_atoms = rng.integers(8, 44) with rng = default_rng(123), seed 123 + i,
-    32 conformers, bucketed padding), as MolGraphs."""
+def training_batches(torch, start=0, stop=TRAIN_MOLS):
+    """Molecules start..stop-1 of the JAX package's training bench batches
+    (bench.py: n_atoms = rng.integers(8, 44) drawn one a molecule with rng
+    = default_rng(123), seed 123 + i, 32 conformers; the first 128 are the
+    headline batch, the first 512 build_big_batch's), as MolGraphs."""
     from grappa_tpu_torch.data.graph_batch import MolGraph
     from grappa_tpu_torch.data.synthetic import make_moldata
     rng = np.random.default_rng(TRAIN_SEED)
+    sizes = [int(rng.integers(8, 44)) for _ in range(stop)]
     t0 = time.time()
     graphs = [MolGraph.from_moldata(make_moldata(
-        seed=TRAIN_SEED + i, n_confs=TRAIN_CONFS,
-        n_atoms=int(rng.integers(8, 44)))) for i in range(TRAIN_MOLS)]
-    print(f'built {TRAIN_MOLS} molecules x {TRAIN_CONFS} conformers '
+        seed=TRAIN_SEED + i, n_confs=TRAIN_CONFS, n_atoms=sizes[i]))
+        for i in range(start, stop)]
+    print(f'built molecules {start}-{stop - 1} x {TRAIN_CONFS} conformers '
           f'({sum(g.n_atoms for g in graphs)} atoms) on the host in '
           f'{time.time() - t0:.1f} s', flush=True)
     return graphs
@@ -801,10 +836,14 @@ def compare_grad(torch, entries, name, label, kernel, plain, inputs, dy,
         accumulate(entries, name, max_abs, ms, plain_ms, flops, nbytes)
 
 
-def training_kernel_phase(torch, batches, entries):
-    """Phase 4: the kernels at the shapes one training step gives them on
-    each of `batches` (label -> batch), dropout on at the default rates;
-    the mask dumps, off every main path, at the 'train' batch alone."""
+def training_cases(torch, batches):
+    """K1b-K3b's cases at the shapes one training step gives them on each
+    of `batches` (label -> batch), dropout on at the default rates (K1
+    0.3, K2 0.5; K3 has none), on seeded inputs: dicts with the op's name,
+    a label, the inputs, dy, kernel(mm_dtype) and plain(mm_dtype) (each a
+    function of the inputs; plain runs on the inputs' device), the
+    forward's and the backward's FLOPs and bytes, and what the mask dumps
+    need (`masks`: (op module, shape, rate, seed) on the 'train' batch)."""
     from grappa_tpu_torch.data.graph_batch import TERM_ARITY, TERMS
     from grappa_tpu_torch.models.heads import PERMUTATIONS
     from grappa_tpu_torch.ops import fused_block as fb
@@ -814,6 +853,92 @@ def training_kernel_phase(torch, batches, entries):
     gen = torch.Generator().manual_seed(4321)
     f, heads, hid, hid2, width = 512, 16, 2048, 512, 256
     sym_out = {'n2': 2, 'n3': 2, 'n4': 12, 'n4_improper': 6}
+    on = lambda ts, a: tuple(t.to(a.device) for t in ts)
+
+    for label, batch in batches.items():
+        # K1 / K1b / K1m at the batch's padded nodes and neighbour list
+        nb = batch.neighbors
+        n, d = nb.shape
+        feat = torch.randn((n, f), generator=gen).cuda()
+        hn = torch.randn((n, f), generator=gen).cuda()
+        nbr = feat[nb.t()].contiguous()
+        mask = batch.neighbor_mask.t().float().contiguous()
+        p1 = rand_params(torch, gen, [
+            ((f, f), 'w'), ((f,), 'b'), ((f,), 'g'), ((f,), 'b'),
+            ((hid, f), 'w'), ((hid,), 'b'), ((f, hid), 'w'), ((f,), 'b')])
+        rate1, seed1 = 0.3, 17
+        masks1 = [philox.dropout_mask(seed1, j, (n, f), rate1, device='cuda')
+                  for j in (0, 1)]
+        fwd1 = 2 * n * (f * f + 2 * f * hid) + 4 * float(mask.sum()) * f
+        in1 = (2 + d) * n * f + d * n + sum(q.numel() for q in p1)
+        yield dict(
+            name='fused_gnn_block', label=f'{label} N={n} D={d} dropout '
+            f'{rate1}', inputs=[feat, nbr, hn, *p1],
+            dy=torch.randn((n, f), generator=gen).cuda(),
+            kernel=lambda dt: lambda a, b, c, *q: fg.fused_gnn_block(
+                a, b, c, mask, q, heads, rate1, True, seed1, mm_dtype=dt),
+            plain=lambda dt: lambda a, b, c, *q: fg.reference_gnn_block(
+                a, b, c, mask.to(a.device), q, heads, on(masks1, a), dt),
+            fwd=(fwd1, 4 * (in1 + n * f)),
+            bwd=(2 * fwd1, 4 * (2 * in1 - d * n + n * f)),
+            masks=(fg, (n, f), rate1, seed1) if label == 'train' else None)
+
+        # K2 / K2b / K2m and K3 / K3b at the four heads' (S, T)
+        rate2 = 0.5
+        for i, term in enumerate(TERMS):
+            s, t = TERM_ARITY[term], batch.terms[term].idxs.shape[0]
+            r = s * t
+            x = torch.randn((s, t, f), generator=gen).cuda()
+            p2 = rand_params(torch, gen, [
+                ((f,), 'g'), ((f,), 'b'), ((3 * f, f), 'w'), ((3 * f,), 'b'),
+                ((f, f), 'w'), ((f,), 'b'), ((f,), 'g'), ((f,), 'b'),
+                ((hid2, f), 'w'), ((hid2,), 'b'), ((f, hid2), 'w'), ((f,), 'b')])
+            seed2 = 100 + i
+            masks2 = [philox.dropout_mask(seed2, j, (s, t, f), rate2,
+                                          device='cuda') for j in (0, 1)]
+            fwd2 = 2 * r * (4 * f * f + 2 * f * hid2) + 4 * t * s * s * f
+            in2 = r * f + sum(q.numel() for q in p2)
+            yield dict(
+                name='fused_transformer_block', label=f'{label} S={s} T={t} '
+                f'dropout {rate2}', inputs=[x, *p2],
+                dy=torch.randn_like(x),
+                kernel=lambda dt, seed2=seed2: lambda a, *q: (
+                    fb.fused_transformer_block(a, q, 8, rate2, True, seed2,
+                                               mm_dtype=dt)),
+                plain=lambda dt, masks2=masks2: lambda a, *q: (
+                    fb.reference_block(a, q, 8, on(masks2, a), dt)),
+                fwd=(fwd2, 4 * (in2 + r * f)),
+                bwd=(2 * fwd2, 4 * (2 * in2 + r * f)),
+                masks=((fb, (s, t, f), rate2, seed2)
+                       if term == 'n4' and label == 'train' else None))
+
+            perms, out = PERMUTATIONS[term], sym_out[term]
+            dims = [(s * f, width, width), (width, width, width),
+                    (width, width, out)]
+            layers = [rand_params(torch, gen, [
+                ((a,), 'g'), ((a,), 'b'), ((h, a), 'w'), ((h,), 'b'),
+                ((o, h), 'w'), ((o,), 'b')]) for a, h, o in dims]
+            flat = [q for layer in layers for q in layer]
+            fwd3 = 2 * len(perms) * t * sum(a * h + h * o for a, h, o in dims)
+            in3 = r * f + sum(q.numel() for q in flat)
+            split = lambda q: [q[6 * j:6 * j + 6] for j in range(3)]
+            yield dict(
+                name='fused_symmetriser', label=f'{label} S={s} T={t} '
+                f'perms={len(perms)}', inputs=[x, *flat],
+                dy=torch.randn((t, out), device='cuda'),
+                kernel=lambda dt, perms=perms: lambda a, *q: (
+                    fs.fused_symmetriser(a, split(q), perms, dt)),
+                plain=lambda dt, perms=perms: lambda a, *q: (
+                    fs.reference_symmetriser(a, split(q), perms, dt)),
+                fwd=(fwd3, 4 * (in3 + t * out)),
+                bwd=(2 * fwd3, 4 * (2 * in3 + t * out)), masks=None)
+
+
+def training_kernel_phase(torch, batches, entries):
+    """Phase 4: the kernels at the shapes one training step gives them on
+    each of `batches` (training_cases), dropout on at the default rates;
+    the mask dumps, off every main path, at the 'train' batch alone."""
+    from grappa_tpu_torch.ops import philox
     compare = lambda *a, **k: compare_out(torch, entries, *a, **k)
 
     # the mask dump's integer work: each thread draws one element's two
@@ -864,93 +989,18 @@ def training_kernel_phase(torch, batches, entries):
         accumulate(entries, name, 0.0, ms, plain_ms, n * clk, nbytes,
                    peak=clock_rate, device_ms=dev_ms)
 
-    for label, batch in batches.items():
-        # K1 / K1b / K1m at the batch's padded nodes and neighbour list
-        nb = batch.neighbors
-        n, d = nb.shape
-        feat = torch.randn((n, f), generator=gen).cuda()
-        hn = torch.randn((n, f), generator=gen).cuda()
-        nbr = feat[nb.t()].contiguous()
-        mask = batch.neighbor_mask.t().float().contiguous()
-        p1 = rand_params(torch, gen, [
-            ((f, f), 'w'), ((f,), 'b'), ((f,), 'g'), ((f,), 'b'),
-            ((hid, f), 'w'), ((hid,), 'b'), ((f, hid), 'w'), ((f,), 'b')])
-        rate1, seed1 = 0.3, 17
-        masks1 = [philox.dropout_mask(seed1, j, (n, f), rate1, device='cuda')
-                  for j in (0, 1)]
-        fwd1 = 2 * n * (f * f + 2 * f * hid) + 4 * float(mask.sum()) * f
-        in1 = (2 + d) * n * f + d * n + sum(q.numel() for q in p1)
-        compare('fused_gnn_block', f'{label} N={n} D={d} dropout {rate1}',
-                lambda: fg.fused_gnn_block(feat, nbr, hn, mask, p1, heads, rate1,
-                                           True, seed1),
-                lambda: fg.reference_gnn_block(feat, nbr, hn, mask, p1, heads,
-                                               masks1),
-                flops=fwd1, nbytes=4 * (in1 + n * f))
-        dy1 = torch.randn((n, f), generator=gen).cuda()
-        compare_grad(torch, entries, 'fused_gnn_block.backward',
-                     f'{label} N={n} D={d} dropout {rate1}',
-                     lambda a, b, c, *q: fg.fused_gnn_block(
-                         a, b, c, mask, q, heads, rate1, True, seed1),
-                     lambda a, b, c, *q: fg.reference_gnn_block(
-                         a, b, c, mask, q, heads, masks1),
-                     [feat, nbr, hn, *p1], dy1, flops=2 * fwd1,
-                     nbytes=4 * (2 * in1 - d * n + n * f))
-        if label == 'train':
-            mask_check(fg, 'fused_gnn.dropout_masks', (n, f), rate1, seed1)
-
-        # K2 / K2b / K2m and K3 / K3b at the four heads' (S, T)
-        rate2 = 0.5
-        for i, term in enumerate(TERMS):
-            s, t = TERM_ARITY[term], batch.terms[term].idxs.shape[0]
-            r = s * t
-            x = torch.randn((s, t, f), generator=gen).cuda()
-            p2 = rand_params(torch, gen, [
-                ((f,), 'g'), ((f,), 'b'), ((3 * f, f), 'w'), ((3 * f,), 'b'),
-                ((f, f), 'w'), ((f,), 'b'), ((f,), 'g'), ((f,), 'b'),
-                ((hid2, f), 'w'), ((hid2,), 'b'), ((f, hid2), 'w'), ((f,), 'b')])
-            seed2 = 100 + i
-            masks2 = [philox.dropout_mask(seed2, j, (s, t, f), rate2,
-                                          device='cuda') for j in (0, 1)]
-            fwd2 = 2 * r * (4 * f * f + 2 * f * hid2) + 4 * t * s * s * f
-            in2 = r * f + sum(q.numel() for q in p2)
-            compare('fused_transformer_block', f'{label} S={s} T={t} dropout '
-                    f'{rate2}',
-                    lambda: fb.fused_transformer_block(x, p2, 8, rate2, True,
-                                                       seed2),
-                    lambda: fb.reference_block(x, p2, 8, masks2),
-                    flops=fwd2, nbytes=4 * (in2 + r * f))
-            compare_grad(torch, entries, 'fused_transformer_block.backward',
-                         f'{label} S={s} T={t} dropout {rate2}',
-                         lambda a, *q: fb.fused_transformer_block(
-                             a, q, 8, rate2, True, seed2),
-                         lambda a, *q: fb.reference_block(a, q, 8, masks2),
-                         [x, *p2], torch.randn_like(x), flops=2 * fwd2,
-                         nbytes=4 * (2 * in2 + r * f))
-            if term == 'n4' and label == 'train':
-                mask_check(fb, 'fused_block.dropout_masks', (s, t, f), rate2,
-                           seed2)
-
-            perms, out = PERMUTATIONS[term], sym_out[term]
-            dims = [(s * f, width, width), (width, width, width),
-                    (width, width, out)]
-            layers = [rand_params(torch, gen, [
-                ((a,), 'g'), ((a,), 'b'), ((h, a), 'w'), ((h,), 'b'),
-                ((o, h), 'w'), ((o,), 'b')]) for a, h, o in dims]
-            flat = [q for layer in layers for q in layer]
-            fwd3 = 2 * len(perms) * t * sum(a * h + h * o for a, h, o in dims)
-            in3 = r * f + sum(q.numel() for q in flat)
-            split = lambda q: [q[6 * j:6 * j + 6] for j in range(3)]
-            compare('fused_symmetriser', f'{label} S={s} T={t} perms={len(perms)}',
-                    lambda: fs.fused_symmetriser(x, layers, perms),
-                    lambda: fs.reference_symmetriser(x, layers, perms),
-                    flops=fwd3, nbytes=4 * (in3 + t * out))
-            compare_grad(torch, entries, 'fused_symmetriser.backward',
-                         f'{label} S={s} T={t} perms={len(perms)}',
-                         lambda a, *q: fs.fused_symmetriser(a, split(q), perms),
-                         lambda a, *q: fs.reference_symmetriser(a, split(q),
-                                                                perms),
-                         [x, *flat], torch.randn((t, out), device='cuda'),
-                         flops=2 * fwd3, nbytes=4 * (2 * in3 + t * out))
+    for c in training_cases(torch, batches):
+        x = c['inputs']
+        compare(c['name'], c['label'], lambda: c['kernel'](None)(*x),
+                lambda: c['plain'](None)(*x), flops=c['fwd'][0],
+                nbytes=c['fwd'][1])
+        compare_grad(torch, entries, c['name'] + '.backward', c['label'],
+                     c['kernel'](None), c['plain'](None), x, c['dy'],
+                     flops=c['bwd'][0], nbytes=c['bwd'][1])
+        if c['masks'] is not None:
+            op, shape, rate, seed = c['masks']
+            mask_check(op, op.__name__.rsplit('.', 1)[1] + '.dropout_masks',
+                       shape, rate, seed)
 
 
 def loss_weights(torch, m, device):
@@ -1718,23 +1768,31 @@ def compare_bf16(torch, entries, name, label, kernel, plain, flops, nbytes,
 def bf16_sass(torch):
     """Phase 10(d): every tensor-core GEMM kernel of the built library runs
     its policy's instruction: the bf16 policy's instantiations (the bf16
-    mode's products) BF16_HMMA and no TF32 mma, the float32 ones TF32_HMMA
-    and no bf16 mma."""
+    mode's products, forward and backward: the dX products' MN-major W and
+    the split-K dW products' two MN-major operands among them)
+    BF16_HMMA and no TF32 mma, the float32 ones TF32_HMMA and no bf16
+    mma."""
     from grappa_tpu_torch.ops import _cuda
     kinds = {'TcBf16': [], 'TcTf32x3': []}
     for name, ops in sass_functions(_cuda.build()).items():
         for policy in kinds:
             if 'tc_gemm_kernel' in name and policy in name:
-                kinds[policy].append(sorted({op for op in ops
-                                             if op.startswith('HMMA')}))
+                kinds[policy].append((name, sorted(
+                    {op for op in ops if op.startswith('HMMA')})))
     for policy, want, other in (('TcBf16', BF16_HMMA, TF32_HMMA),
                                 ('TcTf32x3', TF32_HMMA, BF16_HMMA)):
         found = kinds[policy]
-        check(bool(found) and all(want in h and other not in h
-                                  for h in found),
+        # the layouts are the kernel's bool template arguments (mangled
+        # Lb0E: an MN-major operand); the split-K partial store is the
+        # Partial epilogue
+        mn = sum('Lb0E' in name for name, _ in found)
+        split = sum('Partial' in name for name, _ in found)
+        check(bool(found) and mn > 0 and split > 0
+              and all(want in h and other not in h for _, h in found),
               f'SASS: {len(found)} tc_gemm_kernel instantiations of '
-              f'{policy}, each with {want} and without {other} (their HMMA '
-              f'opcodes: {sorted({op for h in found for op in h})})')
+              f'{policy} ({mn} with an MN-major operand, {split} split-K), '
+              f'each with {want} and without {other} (their HMMA opcodes: '
+              f'{sorted({op for _, h in found for op in h})})')
 
 
 def bf16_kernel_phase(torch, workloads, entries):
@@ -1751,23 +1809,13 @@ def bf16_kernel_phase(torch, workloads, entries):
     bf16_sass(torch)
 
 
-def refusal(fn):
-    """The message of the NotImplementedError fn() raises, else ''."""
-    try:
-        fn()
-    except NotImplementedError as e:
-        return str(e)
-    return ''
-
-
-def bf16_predict_phase(torch, cfg, smalls, protein, paths, batch):
-    """Phase 10(b) and (c): predict_many at the default width with
+def bf16_predict_phase(torch, cfg, smalls, protein, paths):
+    """Phase 10(b): predict_many at the default width with
     compute_dtype='bfloat16' on both serving paths: the bf16 launches 7 /
     12 / 4 a forward (no float32 launch), finite outputs against the same
     model on the CPU (fused, the plain bf16 versions), warm latency beside
-    the float32 model's on the same weights; then the training step
-    refuses the bf16 model on the card and a bf16 forward's backward on
-    `batch` raises. Returns the bf16 launches per path."""
+    the float32 model's on the same weights. Returns the bf16 launches per
+    path."""
     from grappa_tpu_torch import Grappa
     from grappa_tpu_torch.data.graph_batch import MolGraph, collate
     from grappa_tpu_torch.data.loader import bucketed_pad_spec
@@ -1775,7 +1823,6 @@ def bf16_predict_phase(torch, cfg, smalls, protein, paths, batch):
     from grappa_tpu_torch.ops.fused_block import fused_transformer_block
     from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
     from grappa_tpu_torch.ops.fused_symmetriser import fused_symmetriser
-    from grappa_tpu_torch.train.trainer import make_optimizer, make_train_step
     phase('10(b). predict_many in bf16, default config, seeded non-zero '
           'weights')
     print(f'cuBLAS bf16 reduced-precision reductions (the bf16 Dense '
@@ -1845,16 +1892,6 @@ def bf16_predict_phase(torch, cfg, smalls, protein, paths, batch):
                   f'ms (runs {runs}); forward {fwd:.2f} ms on the card '
                   f'(CUDA events, mean of 10)', flush=True)
 
-    phase('10(c). training in bf16 is refused on the card')
-    msg = refusal(lambda: make_train_step(ff16.model, make_optimizer()))
-    check('bf16 kernels' in msg,
-          f'make_train_step refuses the bf16 model on the card: {msg!r}')
-    with torch.enable_grad():
-        pred = ff16.model(batch)
-    msg = refusal(lambda: pred['n2_k'].sum().backward())
-    ff16.model.zero_grad(set_to_none=True)
-    check('bf16 kernels' in msg,
-          f'a bf16 forward\'s backward raises on the card: {msg!r}')
     return launches
 
 
@@ -1995,6 +2032,450 @@ def compare_bf16_outputs(label, card16, card32, card_ulp, cpu16, cpu32):
                   f'{eff:.3e}'
                   + (f', {int((~keep).sum())} cutoff flips left out'
                      if key.endswith('_ks') else ''))
+
+
+BF16_COUNTS = ('launches', 'bf16_launches', 'bwd_launches',
+               'bf16_bwd_launches')
+
+
+def bf16_counters():
+    from grappa_tpu_torch.ops.fused_block import fused_transformer_block
+    from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
+    from grappa_tpu_torch.ops.fused_symmetriser import fused_symmetriser
+    return (fused_gnn_block, fused_transformer_block, fused_symmetriser)
+
+
+def zero_counts(counters):
+    for c in counters:
+        for k in BF16_COUNTS:
+            setattr(c, k, 0)
+
+
+def read_counts(counters):
+    """{op: (float32 forward, bf16 forward, float32 backward, bf16
+    backward) launches}."""
+    return {c.__name__: tuple(getattr(c, k) for k in BF16_COUNTS)
+            for c in counters}
+
+
+def want_counts(gnn16, heads16, forwards=1, backwards=1):
+    """The launches a run of `forwards` forwards and `backwards` backwards
+    of the default model gives, each stage in bf16 mode or float32."""
+    def of(n, bf16):
+        f, b = n * forwards, n * backwards
+        return (0, f, 0, b) if bf16 else (f, 0, b, 0)
+    return {'fused_gnn_block': of(7, gnn16),
+            'fused_transformer_block': of(12, heads16),
+            'fused_symmetriser': of(4, heads16)}
+
+
+def compare_grad_bf16(torch, entries, case):
+    """Phase 10(c)(a): a backward kernel in bf16 mode against autograd
+    through its plain bf16 version on the same inputs and dropout masks.
+    Per gradient tensor: mean |kernel - plain| <= max(BF16_RULE x the bf16
+    effect (plain bf16 - plain float32), BF16_ORDER x the plain bf16
+    version's own distance on the CPU, the same arithmetic in another
+    float32 order; computed only where the first is exceeded), max <=
+    BF16_MAX x the effect's max; a gradient bf16 leaves as it is at
+    GRAD_RTOL. Times the backward alone (the bf16 kernel, its plain
+    version, the float32 kernel) into entries[name + '.bf16_bwd'], with
+    the bf16 bound."""
+    bf16, x, dy = torch.bfloat16, case['inputs'], case['dy']
+
+    def graph(fn, dt, device='cuda'):
+        leaves = [t.detach().to(device).clone().requires_grad_(True)
+                  for t in x]
+        return fn(dt)(*leaves), leaves
+
+    runs = {k: graph(case[fn], dt) for k, fn, dt in (
+        ('k16', 'kernel', bf16), ('p16', 'plain', bf16),
+        ('p32', 'plain', None), ('k32', 'kernel', None))}
+    bwd = {k: (lambda y=y, l=l: torch.autograd.grad(y, l, dy,
+                                                   retain_graph=True))
+           for k, (y, l) in runs.items()}
+    gk, gp, g32 = bwd['k16'](), bwd['p16'](), bwd['p32']()
+    torch.cuda.synchronize()
+    ok, max_abs, ratios = True, 0.0, {}
+    for i, (a, b, c) in enumerate(zip(gk, gp, g32)):
+        err, eff = (a - b).abs(), (b - c).abs()
+        scale = max(float(c.abs().max()), 1e-30)
+        ok &= bool(torch.isfinite(a).all())
+        max_abs = max(max_abs, float(err.max()))
+        if float(eff.max()) <= 1e-6 * scale:
+            ok &= float(err.max()) <= GRAD_RTOL * scale
+            continue
+        ratios[i] = [float(err.mean() / eff.mean()),
+                     float(err.max() / eff.max()), 0.0]
+    if any(r[0] > BF16_RULE for r in ratios.values()):
+        y, leaves = graph(case['plain'], bf16, 'cpu')
+        gc = torch.autograd.grad(y, leaves, dy.cpu())
+        for i, r in ratios.items():
+            r[2] = float((gc[i].to(gp[i].device) - gp[i]).abs().mean()
+                         / (gp[i] - g32[i]).abs().mean())
+    for mean_r, max_r, order in ratios.values():
+        ok &= mean_r <= max(BF16_RULE, BF16_ORDER * order)
+        ok &= max_r <= BF16_MAX
+    worst = max(ratios.values(), key=lambda r: r[0] / max(
+        BF16_RULE, BF16_ORDER * r[2]))
+    ms = timed(torch, bwd['k16'], iters=5)
+    plain_ms = timed(torch, bwd['p16'], iters=5)
+    f32_ms = timed(torch, bwd['k32'], iters=5)
+    flops, nbytes = case['bwd']
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    name = case['name'] + '.bf16_bwd'
+    check(ok, f'{name} {case["label"]}: {len(gk)} gradients, {len(ratios)} '
+              f'moved by bf16; worst mean err / bf16 effect {worst[0]:.3e} '
+              f'(tol max({BF16_RULE}, {BF16_ORDER} x the CPU\'s plain bf16 '
+              f'{worst[2]:.3e})), max over gradients of max err / effect '
+              f'max {max(r[1] for r in ratios.values()):.3e} (tol '
+              f'{BF16_MAX}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+              f'float32 kernel {f32_ms:.4f} ms, bf16 bound {b_ms:.4f} ms '
+              f'({b_by}, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)')
+    accumulate(entries, name, max_abs, ms, plain_ms, flops, nbytes,
+               PEAK_BF16_FLOPS)
+    entries[name]['f32_ms'] = entries[name].get('f32_ms', 0.0) + f32_ms
+
+
+def bf16_training_kernel_phase(torch, batches, entries):
+    """Phase 10(c)(a): K1b-K3b in bf16 mode at phase 4's shapes."""
+    phase('10(c)(a). K1b-K3b in bf16 mode against autograd through their '
+          'plain bf16 versions (phase 4\'s shapes)')
+    for case in training_cases(torch, batches):
+        compare_grad_bf16(torch, entries, case)
+
+
+def step_runs(torch, step, batch, w, gen, n):
+    """n steps of `step` (after one warm-up): their ms (CUDA events),
+    losses and launches (read_counts, zeroed before each step), and the
+    peak memory in GiB."""
+    counters = bf16_counters()
+    step(batch, w, TRAIN_LR, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, counts = [], [], []
+    for _ in range(n):
+        zero_counts(counters)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, _ = step(batch, w, TRAIN_LR, gen)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+        counts.append(read_counts(counters))
+    return ms, losses, counts, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def bf16_step_phase(torch, cfg, graphs, batch):
+    """Phase 10(c)(c): make_train_step in bf16 with the config's dropout
+    at full width on the 128 x 32 batch and bench.py's 512 x 32 peak
+    config, beside the float32 step on the same batch and weights (turns:
+    float32, bf16, float32): 7 / 12 / 4 bf16 forward and backward
+    launches a step and no float32 one, finite losses, step ms (median of
+    10), peak memory and idle share; then gnn_compute_dtype and
+    heads_compute_dtype alone. Returns the bf16 launches by path."""
+    from grappa_tpu_torch.data.graph_batch import collate
+    from grappa_tpu_torch.data.loader import bucketed_pad_spec
+    from grappa_tpu_torch.models.grappa_model import make_model
+    from grappa_tpu_torch.train.trainer import make_optimizer, make_train_step
+    phase('10(c)(c). make_train_step in bf16, default config with its '
+          'dropout, 128 x 32 and 512 x 32')
+    rest = training_batches(torch, TRAIN_MOLS, 4 * TRAIN_MOLS)
+    big_graphs = graphs + rest
+    big = collate(big_graphs, bucketed_pad_spec(big_graphs, TRAIN_CONFS),
+                  TRAIN_CONFS, device='cuda')
+    del rest
+    print('512 x 32 batch, padded: N=%d, T bonds / angles / propers / '
+          'impropers = %s' % (big.xyz.shape[0], ' / '.join(
+              str(big.terms[t].idxs.shape[0])
+              for t in ('n2', 'n3', 'n4', 'n4_improper'))), flush=True)
+    state = perturbed_model(torch, make_model, cfg).state_dict()
+    gen = torch.Generator().manual_seed(11)
+
+    def make_step(**over):
+        model = make_model(dict(cfg, **over))
+        model.load_state_dict(state)
+        return make_train_step(model.cuda(), make_optimizer())
+
+    launches = {'fwd': {}, 'bwd': {}}
+    for label, b in (('train bf16', batch), ('train bf16 512', big)):
+        w = loss_weights(torch, b.num_mols, 'cuda')
+        steps = {'bf16': make_step(compute_dtype='bfloat16'),
+                 'float32': make_step()}
+        res = {}
+        for dtype, n in (('float32', 5), ('bf16', 10), ('float32', 5)):
+            ms, losses, counts, peak = step_runs(torch, steps[dtype], b, w,
+                                                 gen, n)
+            prev = res.get(dtype, ([], [], [], 0.0))
+            res[dtype] = (prev[0] + ms, prev[1] + losses, prev[2] + counts,
+                          max(prev[3], peak))
+        for dtype, (ms, losses, counts, peak) in res.items():
+            want = want_counts(dtype == 'bf16', dtype == 'bf16')
+            check(all(c == want for c in counts)
+                  and bool(np.isfinite(losses).all()),
+                  f'(c) {label} {dtype}: {len(ms)} steps, each launched '
+                  f'{want} (float32 fwd, bf16 fwd, float32 bwd, bf16 bwd): '
+                  f'{all(c == want for c in counts)}; losses '
+                  f'{", ".join(f"{l:.6e}" for l in losses)}')
+            runs = idle_share(torch, lambda: steps[dtype](b, w, TRAIN_LR,
+                                                          gen))
+            print(f'(c) {label}, {b.num_mols} molecules x {TRAIN_CONFS} '
+                  f'conformers, {dtype} step: median {np.median(ms):.2f} ms '
+                  f'(CUDA events; all: {", ".join(f"{t:.2f}" for t in ms)})'
+                  f'; peak memory {peak:.2f} GiB (max_memory_allocated); '
+                  f'device idle share ' + (
+                      'not measured' if runs is None else
+                      f'{np.median([r[2] for r in runs]):.4f} (torch.'
+                      f'profiler, 3 steps; busy ms '
+                      f'{", ".join(f"{r[1]:.2f}" for r in runs)})'),
+                  flush=True)
+        n = len(res['bf16'][0])
+        for key, col in (('fwd', 1), ('bwd', 3)):
+            for c in ('fused_gnn_block', 'fused_transformer_block',
+                      'fused_symmetriser'):
+                launches[key].setdefault(c, {})[label] = sum(
+                    counts[c][col] for counts in res['bf16'][2])
+        del steps
+        torch.cuda.empty_cache()
+        print(f'(c) {label}: bf16 / float32 step median '
+              f'{np.median(res["bf16"][0]):.2f} / '
+              f'{np.median(res["float32"][0]):.2f} ms over {n} steps each',
+              flush=True)
+    del big
+    torch.cuda.empty_cache()
+    w = loss_weights(torch, batch.num_mols, 'cuda')
+    for key, gnn16, heads16 in (('gnn_compute_dtype', True, False),
+                                ('heads_compute_dtype', False, True)):
+        step = make_step(**{key: 'bfloat16'})
+        _, losses, counts, _ = step_runs(torch, step, batch, w, gen, 1)
+        want = want_counts(gnn16, heads16)
+        check(counts[0] == want and bool(np.isfinite(losses).all()),
+              f'(c) {key}=\'bfloat16\' alone, a step on the 128 x 32 batch: '
+              f'launches {counts[0]} (want {want}), loss {losses[0]:.6e}')
+    return launches
+
+
+def update_ratio(card, card_ulp, cpu16, cpu32):
+    """(mean |card - cpu16| / mean |cpu16 - cpu32|, the same of
+    |card_ulp - card|: the card's own spread), None where bf16 leaves the
+    value as it is."""
+    eff = float((cpu16 - cpu32).abs().mean())
+    scale = float(cpu32.abs().mean())
+    if eff <= 1e-7 * max(scale, 1e-30):
+        return None
+    return (float((card - cpu16).abs().mean()) / eff,
+            float((card_ulp - card).abs().mean()) / eff)
+
+
+def bf16_card_cpu_phase(torch, cfg, graphs):
+    """Phase 10(c)(d): one dropout-free bf16 step at full width on the
+    card and on the CPU (fused: the plain bf16 versions), 8 molecules x 4
+    conformers, measured in units of the bf16 effect (the CPU's bf16
+    against its float32) beside the card's own spread under a one-ulp
+    weight change: the loss within max(BF16_RULE, 1.25 x its spread);
+    the gradients and Adam's update, the median over tensors within
+    max(BF16_RULE, 1.25 x the spread's median) and every tensor within
+    1.25 x the widest spread."""
+    from grappa_tpu_torch.data.graph_batch import collate
+    from grappa_tpu_torch.data.loader import bucketed_pad_spec
+    from grappa_tpu_torch.models.grappa_model import make_model
+    from grappa_tpu_torch.train.trainer import loss_gradients, make_optimizer
+    phase('10(c)(d). a bf16 step on the card against the CPU, default '
+          'config, dropout off')
+    no_drop = dict(cfg, gnn_dropout_attention=0.0, parameter_dropout=0.0,
+                   gnn_dropout_final=0.0, gnn_dropout_initial=0.0)
+    few = graphs[:8]
+    pad = bucketed_pad_spec(few, 4)
+    batches = {d: collate(few, pad, 4, device=d) for d in ('cpu', 'cuda')}
+    state = perturbed_model(torch, make_model, no_drop).state_dict()
+    gen = torch.Generator().manual_seed(5)
+    ulp_state = {k: torch.nextafter(v, torch.where(
+        torch.rand(v.shape, generator=gen) < 0.5, -np.inf, np.inf))
+        if v.is_floating_point() else v for k, v in state.items()}
+    fused = dict(fused_gnn=True, fused_heads=True)
+
+    def run(over, sd, device):
+        model = make_model(dict(no_drop, **over))
+        model.load_state_dict(sd)
+        model.to(device)
+        b = batches[device]
+        t0 = time.time()
+        loss, _, grads = loss_gradients(
+            model, b, loss_weights(torch, b.num_mols, device))
+        params = dict(model.named_parameters())
+        before = {k: v.detach().clone() for k, v in params.items()}
+        make_optimizer().step(params, list(grads.values()), TRAIN_LR)
+        return (float(loss), {k: g.cpu() for k, g in grads.items()},
+                {k: (params[k].detach() - before[k]).cpu()
+                 for k in params}, time.time() - t0)
+
+    bf16 = dict(compute_dtype='bfloat16')
+    card = run(bf16, state, 'cuda')
+    ulp = run(bf16, ulp_state, 'cuda')
+    cpu16 = run(dict(bf16, **fused), state, 'cpu')
+    cpu32 = run(fused, state, 'cpu')
+    eff = abs(cpu16[0] - cpu32[0])
+    loss_r = (abs(card[0] - cpu16[0]) / eff, abs(ulp[0] - card[0]) / eff)
+    check(loss_r[0] <= max(BF16_RULE, 1.25 * loss_r[1]),
+          f'(d) loss card {card[0]:.6e}, CPU {cpu16[0]:.6e} (float32 '
+          f'{cpu32[0]:.6e}): card vs CPU / bf16 effect {loss_r[0]:.3e}, the '
+          f'card\'s own spread {loss_r[1]:.3e}; CPU bf16 step {cpu16[3]:.1f} '
+          f's')
+    # per tensor, card vs CPU and the card's own spread are two draws of
+    # one cascade (as bf16 predictions part, phase 10(b)): one tensor's
+    # draw may exceed its own spread's; held are the distribution (the
+    # median over tensors) and every tensor against the widest spread
+    for what, idx in (('gradient', 1), ('Adam update', 2)):
+        ratios = {k: update_ratio(card[idx][k], ulp[idx][k], cpu16[idx][k],
+                                  cpu32[idx][k]) for k in card[idx]}
+        moved = {k: r for k, r in ratios.items() if r is not None}
+        rs = np.array([r for r, _ in moved.values()])
+        fl = np.array([f for _, f in moved.values()])
+        tol = max(BF16_RULE, 1.25 * fl.max())
+        worst = max(moved, key=lambda k: moved[k][0])
+        check(np.median(rs) <= max(BF16_RULE, 1.25 * np.median(fl))
+              and rs.max() <= tol
+              and all(bool(torch.isfinite(card[idx][k]).all())
+                      for k in card[idx]),
+              f'(d) every {what} ({len(moved)} of {len(ratios)} moved by '
+              f'bf16): card vs CPU / bf16 effect median {np.median(rs):.3e} '
+              f'(tol max({BF16_RULE}, 1.25 x the card\'s own spread\'s '
+              f'median {np.median(fl):.3e})), max {rs.max():.3e} ({worst}; '
+              f'tol {tol:.3e}: 1.25 x the widest spread); '
+              f'{int((rs > 1.25 * fl).sum())} tensors past 1.25 x their own '
+              f'spread; quartiles card {np.percentile(rs, [25, 75])}, '
+              f'spread {np.percentile(fl, [25, 75])}')
+
+
+def bf16_trainrun_phase(torch, work, data_dir, test_batches, f32_steady):
+    """Phase 10(c)(e): do_trainrun with compute_dtype='bfloat16' on phase
+    8's dataset for 2 epochs, then resume_trainrun by one: bf16 launches
+    only, finite losses, the dtype kept through the stored config and the
+    resume; model.npz holds float32 parameters that, loaded into a bf16
+    model on the card, give the run's own test metrics; the resumed
+    Trainer's writer-free steps/s beside phase 8's float32 (`f32_steady`,
+    None when phase 8 did not run). Returns the bf16 launches and the
+    `trainrun_bf16` line."""
+    import copy
+    from pathlib import Path
+    from grappa_tpu_torch import Grappa
+    from grappa_tpu_torch.train.config import default_config, read_yaml
+    from grappa_tpu_torch.train.eval_model import BootstrapEvaluator
+    from grappa_tpu_torch.train.export import load_model_dict
+    from grappa_tpu_torch.train.run import do_trainrun, resume_trainrun
+    from grappa_tpu_torch.train.trainer import make_eval_step
+    phase('10(c)(e). the training run in bf16 (do_trainrun / '
+          'resume_trainrun), default config')
+    config = trainrun_config(default_config, data_dir)
+    config['model_config']['compute_dtype'] = 'bfloat16'
+    config['trainer_config']['max_epochs'] = 2
+    counters = bf16_counters()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    out = do_trainrun(copy.deepcopy(config), project_dir=work,
+                      run_name='trainrun_bf16')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = ran = read_counts(counters)
+    trainer, run_dir = out['trainer'], Path(out['run_dir'])
+    split = json.loads((run_dir / 'split.json').read_text())
+    steps = trainer.global_step
+    forwards = (steps + trainer.epoch * len(trainer.val_loader)
+                + len(split['test']) + 1)
+    want = want_counts(True, True, forwards, steps)
+    losses = sum(trainer.train_losses, [])
+    check(got == want and bool(np.isfinite(losses).all()),
+          f'(e) do_trainrun in bf16, {trainer.epoch} epochs, {steps} steps, '
+          f'{forwards} forwards in {wall:.1f} s: launches {got} (want '
+          f'{want}); train losses {", ".join(f"{l:.6e}" for l in losses)}')
+    stored = read_yaml(run_dir / 'grappa_config.yaml')['model_config']
+    dtypes = {m.dtype for m in trainer.model.modules()
+              if hasattr(m, 'dtype')}
+    check(stored['compute_dtype'] == 'bfloat16'
+          and dtypes == {torch.bfloat16},
+          f'(e) the run\'s stored compute_dtype {stored["compute_dtype"]!r},'
+          f' its modules\' dtypes {sorted(map(str, dtypes))}')
+
+    # model.npz: float32 arrays; loaded into a bf16 model on the card they
+    # give the run's own test metrics (best.ckpt's weights)
+    d = load_model_dict(out['model_dict_path'])
+    kinds = {str(np.asarray(v).dtype) for v in d['state_dict'].values()
+             if np.asarray(v).dtype.kind == 'f'}
+    ff = Grappa.from_model_dict(d)
+    loaded = {m.dtype for m in ff.model.modules() if hasattr(m, 'dtype')}
+    evaluator = BootstrapEvaluator()
+    eval_step = make_eval_step(ff.model)
+    for batch, names in test_batches:
+        energy, gradient = eval_step(batch)
+        evaluator.step(batch, energy, gradient, names)
+    again = evaluator.pool(n_bootstrap=200)
+    want_m = d['results']['test']
+    worst = max(abs(again[ds][k] - v) / max(abs(v), 1e-30)
+                for ds, m in want_m.items() for k, v in m.items()
+                if isinstance(v, float))
+    check(kinds == {'float32'} and loaded == {torch.bfloat16}
+          and again.keys() == want_m.keys() and worst <= EVAL_RTOL,
+          f'(e) model.npz floating arrays {sorted(kinds)}, loaded as a '
+          f'bf16 model '
+          f'({sorted(map(str, loaded))}) on the card: its test metrics '
+          f'against the run\'s own, worst rel {worst:.2e} (tol {EVAL_RTOL})')
+    del ff
+
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    resumed = resume_trainrun(str(run_dir), extra_epochs=1)
+    resume_s = time.perf_counter() - t0
+    rt = resumed['trainer']
+    got = read_counts(counters)
+    dtypes = {m.dtype for m in rt.model.modules() if hasattr(m, 'dtype')}
+    check(rt.epoch == 3 and bool(np.isfinite(rt.train_losses[-1]).all())
+          and got['fused_gnn_block'][3] > 0
+          and not any(c[0] or c[2] for c in got.values())
+          and dtypes == {torch.bfloat16},
+          f'(e) resume_trainrun(extra_epochs=1) ends at epoch {rt.epoch} '
+          f'(want 3) in {resume_s:.1f} s, launches {got}, dtypes '
+          f'{sorted(map(str, dtypes))}; losses '
+          f'{", ".join(f"{l:.6e}" for l in rt.train_losses[-1])}')
+    steady = steady_epochs(torch, rt, epochs=3, rounds=1)
+    rate = [r[1] for r in steady['loader']]
+    print(f'(e) bf16 writer-free epochs (ms, steps/s): ' + '; '.join(
+        f'{r[0]:.1f}, {r[1]:.3f}' for r in steady['loader'])
+        + f'; median {np.median(rate):.3f} steps/s against phase 8\'s '
+        f'float32 ' + ('(not run)' if f32_steady is None
+                       else f'{f32_steady:.3f}'), flush=True)
+    line = {'epochs': rt.epoch, 'train_steps': rt.global_step,
+            'run_wall_s': round(wall, 3), 'resume_s': round(resume_s, 3),
+            'steady_train_steps_per_s': float(np.median(rate)),
+            'steady_steps_per_s_min_max': [min(rate), max(rate)],
+            'f32_steady_train_steps_per_s': f32_steady,
+            'test_metrics_worst_rel': worst}
+    return {'run': ran, 'resumed': got}, line
+
+
+def bf16_training_phase(torch, cfg, graphs, train_batch, run_batches, work,
+                        data_dir, test_batches, entries, f32_steady=None):
+    """Phase 10(c): training in bf16 on the card, (a) the kernels, (c) the
+    step, (d) card vs CPU, (e) the training run; the SASS, (b), is
+    phase 10(d) (bf16_sass). Returns the bf16 launches by kernel and
+    path, and the `trainrun_bf16` line."""
+    bf16_training_kernel_phase(
+        torch, {'train': train_batch, 'trainrun train': run_batches['train']},
+        entries)
+    steps = bf16_step_phase(torch, cfg, graphs, train_batch)
+    bf16_card_cpu_phase(torch, cfg, graphs)
+    run, line = bf16_trainrun_phase(torch, work, data_dir, test_batches,
+                                    f32_steady)
+    launches = {}
+    for c in ('fused_gnn_block', 'fused_transformer_block',
+              'fused_symmetriser'):
+        fwd = dict(steps['fwd'][c])
+        bwd = dict(steps['bwd'][c])
+        fwd['trainrun bf16'] = run['run'][c][1] + run['resumed'][c][1]
+        bwd['trainrun bf16'] = run['run'][c][3] + run['resumed'][c][3]
+        launches[f'{c}.bf16'] = fwd
+        launches[f'{c}.bf16_bwd'] = bwd
+    return launches, line
 
 
 def trainrun_config(default_config, data_dir):
@@ -2739,8 +3220,13 @@ def main() -> int:
     if bf16_only:
         entries = {}
         bf16_kernel_phase(torch, workloads, entries)
-        bf16_predict_phase(torch, cfg, smalls, protein, paths,
-                           workloads['small'])
+        bf16_predict_phase(torch, cfg, smalls, protein, paths)
+        graphs = training_batches(torch)
+        _, line = bf16_training_phase(
+            torch, cfg, graphs, collate(graphs, bucketed_pad_spec(
+                graphs, TRAIN_CONFS), TRAIN_CONFS, device='cuda'),
+            run_batches, work, data_dir, test_batches, entries)
+        print('trainrun_bf16 ' + json.dumps(line), flush=True)
         print('bf16_kernel_times ' + json.dumps(entries), flush=True)
         return 1 if FAILURES else 0
 
@@ -2769,6 +3255,9 @@ def main() -> int:
     block_profile(torch, train_batch)
     if kernels_only:
         bf16_kernel_phase(torch, workloads, entries)
+        bf16_training_kernel_phase(
+            torch, {'train': train_batch,
+                    'trainrun train': run_batches['train']}, entries)
         print('kernel_times ' + json.dumps(entries), flush=True)
         return 1 if FAILURES else 0
 
@@ -2828,8 +3317,12 @@ def main() -> int:
         for name, n in counts.items():
             launches[name][path] = n
     bf16_kernel_phase(torch, workloads, entries)
-    launches.update(bf16_predict_phase(torch, cfg, smalls, protein, paths,
-                                       workloads['small']))
+    launches.update(bf16_predict_phase(torch, cfg, smalls, protein, paths))
+    bf16_train, trainrun_bf16_line = bf16_training_phase(
+        torch, cfg, graphs, train_batch, run_batches, work, data_dir,
+        test_batches, entries, trainrun_line['steady_train_steps_per_s'])
+    for name, per_path in bf16_train.items():
+        launches.setdefault(name, {}).update(per_path)
 
     if FAILURES:
         print(f'chip_smoke.py: {len(FAILURES)} check(s) failed',
@@ -2859,7 +3352,13 @@ def main() -> int:
         'fused_transformer_block.bf16': ('fused_block.cu',
                                          'fused_block.py:379'),
         'fused_symmetriser.bf16': ('fused_symmetriser.cu',
-                                   'fused_symmetriser.py:174')}
+                                   'fused_symmetriser.py:174'),
+        # the bf16 mode of K1b-K3b
+        'fused_gnn_block.bf16_bwd': ('fused_gnn.cu', 'fused_gnn.py:323'),
+        'fused_transformer_block.bf16_bwd': ('fused_block.cu',
+                                             'fused_block.py:421'),
+        'fused_symmetriser.bf16_bwd': ('fused_symmetriser.cu',
+                                       'fused_symmetriser.py:199')}
     kernels = []
     for name, (source, replaces) in sources.items():
         e = entries[name]
@@ -2868,7 +3367,8 @@ def main() -> int:
         kernels.append(dict(
             name=name, route='cuda', source=csrc + source,
             replaces=tpu + replaces,
-            status='bf16 mode ported' if name.endswith('.bf16') else 'ported',
+            status=('bf16 mode ported' if name.endswith(('.bf16', '_bwd'))
+                    else 'ported'),
             launches=sum(per_path.values()), launches_per_path=per_path,
             max_abs_err=e['max_abs_err'], ms=e['ms'],
             plain_ms=e['plain_ms'], bound_ms=b_ms, bound_by=b_by,
@@ -2884,6 +3384,7 @@ def main() -> int:
             kernels[-1]['bound_tc_ms'] = bound(3 * e['flops'], e['nbytes'],
                                                PEAK_TF32_FLOPS)[0]
     print('trainrun ' + json.dumps(trainrun_line))
+    print('trainrun_bf16 ' + json.dumps(trainrun_bf16_line))
     print('eval ' + json.dumps(eval_line))
     print('ingest ' + json.dumps(ingest_line))
     print(json.dumps({'kernels': kernels}))

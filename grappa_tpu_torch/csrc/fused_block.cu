@@ -21,7 +21,8 @@
 //
 // In bf16 mode (the JAX kernel's mm_dtype=bfloat16) the forward's 3.1 MFLOP
 // a row run at the 989 TFLOP/s bf16 peak: 3.2 ns a row against 1.2 ns for
-// its ~4 KB of float32 input and output, still bound by operations.
+// its ~4 KB of float32 input and output, still bound by operations; the
+// backward's 6.3 MFLOP a row 6.4 ns against 1.8 ns for x, dy and dx.
 //
 // Design: every product runs on the tensor cores through tc_gemm.cuh (3xTF32
 // mma.sync fed by a cp.async ring, or its bf16 policy in bf16 mode; its note
@@ -317,7 +318,11 @@ long long grappa_fused_block_bwd_scratch(int s, int t, int f, int hid) {
 // Gradients of the forward above for dy (S, T, F): dx (S, T, F) and the
 // twelve parameter gradients in the parameters' shapes. `fwd` is the
 // forward's scratch from the same inputs, read only; b1, b2 and the biases
-// are not read (the forward's intermediates hold their effect).
+// are not read (the forward's intermediates hold their effect). mm_bf16:
+// the eight products in tc_gemm.cuh's bf16 policy, both operands rounded
+// to bf16 (dy's descendants too), float32 sums, as the JAX kernel's
+// _dot_tn / _dot_nt with mm_dtype=bfloat16; column sums, LayerNorm and
+// attention backward stay float32, as there.
 int grappa_fused_block_bwd(
     const float* x, const float* g1, const float* b1, const float* wq,
     const float* bq, const float* wo, const float* bo, const float* g2,
@@ -327,7 +332,7 @@ int grappa_fused_block_bwd(
     float* dx, float* dg1, float* db1, float* dwq, float* dbq, float* dwo,
     float* dbo, float* dg2, float* db2, float* dw1, float* dc1, float* dw2,
     float* dc2, int s, int t, int f, int hid, int n_heads, float scale,
-    void* stream) {
+    int mm_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int r = s * t;
   const FwdLayout lf = fwd_layout(r, f, hid);
@@ -343,48 +348,53 @@ int grappa_fused_block_bwd(
   const Drop m1 = make_drop(seed, 0, threshold, drop_scale, drop_on, f);
   const Drop m2 = make_drop(seed, 1, threshold, drop_scale, drop_on, f);
 
-  // y = h * mask2 + x1n, h = a w2^T + c2, a = elu(x1n w1^T + c1)
-  const float* dhm = dy;
-  if (drop_on) {
-    RETURN_IF_ERR(mask_grad(dy, m2, nullptr, dh, r, f, st));
-    dhm = dh;
-  }
-  RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dhm, f}), tr(Mat{a, hid}), dw2, f, hid,
-                              r, wpart, st));
-  RETURN_IF_ERR(colsum(Mat{dhm, f}, dc2, r, f, cpart, st));
-  RETURN_IF_ERR(tc_gemm(Mat{dhm, f}, tr(Mat{w2, hid}),
-                        EluGradOut{dt, hid, a, hid}, r, hid, f, st));
-  RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dt, hid}), tr(Mat{x1n, f}), dw1, hid, f,
-                              r, wpart, st));
-  RETURN_IF_ERR(colsum(Mat{dt, hid}, dc1, r, hid, cpart, st));
-  Out o = out_to(dx1n, f);
-  o.R = dy;
-  o.ldr = f;
-  RETURN_IF_ERR(tc_gemm(Mat{dt, hid}, tr(Mat{w1, f}), o, r, f, hid, st));
-  // x1n = LN2(x1); x1 = attn1 * mask1 + xn
-  RETURN_IF_ERR(layernorm_bwd(dx1n, Mat{x1, f}, g2, dx1, dg2, db2, r, f, mean,
-                              rstd, cpart, st));
-  const float* da = dx1;
-  if (drop_on) {
-    RETURN_IF_ERR(mask_grad(dx1, m1, nullptr, da1, r, f, st));
-    da = da1;
-  }
-  // attn1 = attn0 wo^T + bo
-  RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{da, f}), tr(Mat{attn0, f}), dwo, f, f,
-                              r, wpart, st));
-  RETURN_IF_ERR(colsum(Mat{da, f}, dbo, r, f, cpart, st));
-  RETURN_IF_ERR(tc_gemm(Mat{da, f}, tr(Mat{wo, f}), out_to(datt, f), r, f,
-                        f, st));
-  RETURN_IF_ERR(attention_bwd(qkv, datt, dqkv, s, t, f, n_heads, scale, st));
-  // qkv = xn wq^T + bq; xn also feeds the residual: dxn = dx1 + dqkv wq
-  RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dqkv, 3 * f}), tr(Mat{xn, f}), dwq,
-                              3 * f, f, r, wpart, st));
-  RETURN_IF_ERR(colsum(Mat{dqkv, 3 * f}, dbq, r, 3 * f, cpart, st));
-  o = out_to(dxn, f);
-  o.R = dx1;
-  o.ldr = f;
-  RETURN_IF_ERR(tc_gemm(Mat{dqkv, 3 * f}, tr(Mat{wq, f}), o, r, f, 3 * f,
-                        st));
+  auto run = [&](auto policy) {
+    using P = decltype(policy);
+    // y = h * mask2 + x1n, h = a w2^T + c2, a = elu(x1n w1^T + c1)
+    const float* dhm = dy;
+    if (drop_on) {
+      RETURN_IF_ERR(mask_grad(dy, m2, nullptr, dh, r, f, st));
+      dhm = dh;
+    }
+    RETURN_IF_ERR(tc_gemm_wgrad<P>(tr(Mat{dhm, f}), tr(Mat{a, hid}), dw2, f,
+                                   hid, r, wpart, st));
+    RETURN_IF_ERR(colsum(Mat{dhm, f}, dc2, r, f, cpart, st));
+    RETURN_IF_ERR(tc_gemm<P>(Mat{dhm, f}, tr(Mat{w2, hid}),
+                             EluGradOut{dt, hid, a, hid}, r, hid, f, st));
+    RETURN_IF_ERR(tc_gemm_wgrad<P>(tr(Mat{dt, hid}), tr(Mat{x1n, f}), dw1,
+                                   hid, f, r, wpart, st));
+    RETURN_IF_ERR(colsum(Mat{dt, hid}, dc1, r, hid, cpart, st));
+    Out o = out_to(dx1n, f);
+    o.R = dy;
+    o.ldr = f;
+    RETURN_IF_ERR(tc_gemm<P>(Mat{dt, hid}, tr(Mat{w1, f}), o, r, f, hid,
+                             st));
+    // x1n = LN2(x1); x1 = attn1 * mask1 + xn
+    RETURN_IF_ERR(layernorm_bwd(dx1n, Mat{x1, f}, g2, dx1, dg2, db2, r, f,
+                                mean, rstd, cpart, st));
+    const float* da = dx1;
+    if (drop_on) {
+      RETURN_IF_ERR(mask_grad(dx1, m1, nullptr, da1, r, f, st));
+      da = da1;
+    }
+    // attn1 = attn0 wo^T + bo
+    RETURN_IF_ERR(tc_gemm_wgrad<P>(tr(Mat{da, f}), tr(Mat{attn0, f}), dwo, f,
+                                   f, r, wpart, st));
+    RETURN_IF_ERR(colsum(Mat{da, f}, dbo, r, f, cpart, st));
+    RETURN_IF_ERR(tc_gemm<P>(Mat{da, f}, tr(Mat{wo, f}), out_to(datt, f), r,
+                             f, f, st));
+    RETURN_IF_ERR(attention_bwd(qkv, datt, dqkv, s, t, f, n_heads, scale,
+                                st));
+    // qkv = xn wq^T + bq; xn also feeds the residual: dxn = dx1 + dqkv wq
+    RETURN_IF_ERR(tc_gemm_wgrad<P>(tr(Mat{dqkv, 3 * f}), tr(Mat{xn, f}), dwq,
+                                   3 * f, f, r, wpart, st));
+    RETURN_IF_ERR(colsum(Mat{dqkv, 3 * f}, dbq, r, 3 * f, cpart, st));
+    o = out_to(dxn, f);
+    o.R = dx1;
+    o.ldr = f;
+    return tc_gemm<P>(Mat{dqkv, 3 * f}, tr(Mat{wq, f}), o, r, f, 3 * f, st);
+  };
+  RETURN_IF_ERR(mm_bf16 ? run(TcBf16{}) : run(TcTf32x3{}));
   // xn = LN1(x)
   return layernorm_bwd(dxn, Mat{x, f}, g1, dx, dg1, db1, r, f, mean, rstd,
                        cpart, st);

@@ -24,7 +24,9 @@
 // In bf16 mode (the JAX kernel's mm_dtype=bfloat16) the three forward
 // products' 4.7 MFLOP a row take 4.8 ns at the 989 TFLOP/s bf16 peak, and
 // the (3 + D) F float32 values a row read and written (feat, nbr, hn, y)
-// 6.7 ns at D = 8: bound by bytes.
+// 6.7 ns at D = 8: bound by bytes. So is the backward's: its 9.4 MFLOP a
+// row take 9.5 ns, its (4 + 2D) F float32 values a row (feat, nbr, dy and
+// dfeat, dnbr, dhn) 12.2 ns.
 //
 // Design: chains of launches on the caller's stream, every product on the
 // tensor cores through tc_gemm.cuh (3xTF32 mma.sync fed by a cp.async
@@ -277,7 +279,11 @@ long long grappa_fused_gnn_bwd_scratch(int n, int f, int hid) {
 // Gradients of the forward above for dy (N, F): dfeat, dhn (N, F), dnbr
 // (D, N, F) and the eight parameter gradients in the parameters' shapes.
 // `fwd` is the forward's scratch from the same inputs, read only; hn and
-// the biases are not read (the intermediates hold their effect).
+// the biases are not read (the intermediates hold their effect). mm_bf16:
+// the six products in tc_gemm.cuh's bf16 policy, both operands rounded to
+// bf16 (dy's descendants too), float32 sums, as the JAX kernel's
+// _dot_tn / _dot_nt with mm_dtype=bfloat16; the column sums, the
+// LayerNorm backward and the attention backward stay float32, as there.
 int grappa_fused_gnn_bwd(const float* feat, const float* nbr,
                          const float* mask, const float* wr, const float* g2,
                          const float* w1, const float* w2, const float* dy,
@@ -287,7 +293,7 @@ int grappa_fused_gnn_bwd(const float* feat, const float* nbr,
                          float* dbr, float* dg2, float* db2, float* dw1,
                          float* dc1, float* dw2, float* dc2, int n, int f,
                          int hid, int d, int n_heads, float scale,
-                         void* stream) {
+                         int mm_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const FwdLayout lf = fwd_layout(n, f, hid);
   const float *attn0 = fwd + lf.attn0, *x1 = fwd + lf.x1,
@@ -300,35 +306,40 @@ int grappa_fused_gnn_bwd(const float* feat, const float* nbr,
   const Drop m1 = make_drop(seed, 0, threshold, drop_scale, drop_on, f);
   const Drop m2 = make_drop(seed, 1, threshold, drop_scale, drop_on, f);
 
-  // y = e2 * mask2 + x1n, e2 = elu(t2), t2 = e1 w2^T + c2
-  RETURN_IF_ERR(mask_grad(dy, m2, e2, dt2, n, f, st));
-  RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dt2, f}), tr(Mat{e1, hid}), dw2, f, hid,
-                              n, wpart, st));
-  RETURN_IF_ERR(colsum(Mat{dt2, f}, dc2, n, f, cpart, st));
-  RETURN_IF_ERR(tc_gemm(Mat{dt2, f}, tr(Mat{w2, hid}),
-                        EluGradOut{dt1, hid, e1, hid}, n, hid, f, st));
-  // e1 = elu(t1), t1 = x1n w1^T + c1; x1n also feeds the residual
-  RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dt1, hid}), tr(Mat{x1n, f}), dw1, hid, f,
-                              n, wpart, st));
-  RETURN_IF_ERR(colsum(Mat{dt1, hid}, dc1, n, hid, cpart, st));
-  Out o = out_to(dx1n, f);
-  o.R = dy;
-  o.ldr = f;
-  RETURN_IF_ERR(tc_gemm(Mat{dt1, hid}, tr(Mat{w1, f}), o, n, f, hid, st));
-  // x1n = LN(x1); x1 = a1 * mask1 + hn, so dhn = dx1
-  RETURN_IF_ERR(layernorm_bwd(dx1n, Mat{x1, f}, g2, dhn, dg2, db2, n, f, mean,
-                              rstd, cpart, st));
-  const float* da = dhn;
-  if (drop_on) {
-    RETURN_IF_ERR(mask_grad(dhn, m1, nullptr, da1, n, f, st));
-    da = da1;
-  }
-  // a1 = attn0 wr^T + br
-  RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{da, f}), tr(Mat{attn0, f}), dwr, f, f, n,
-                              wpart, st));
-  RETURN_IF_ERR(colsum(Mat{da, f}, dbr, n, f, cpart, st));
-  RETURN_IF_ERR(tc_gemm(Mat{da, f}, tr(Mat{wr, f}), out_to(dattn0, f), n, f,
-                        f, st));
+  auto run = [&](auto policy) {
+    using P = decltype(policy);
+    // y = e2 * mask2 + x1n, e2 = elu(t2), t2 = e1 w2^T + c2
+    RETURN_IF_ERR(mask_grad(dy, m2, e2, dt2, n, f, st));
+    RETURN_IF_ERR(tc_gemm_wgrad<P>(tr(Mat{dt2, f}), tr(Mat{e1, hid}), dw2, f,
+                                   hid, n, wpart, st));
+    RETURN_IF_ERR(colsum(Mat{dt2, f}, dc2, n, f, cpart, st));
+    RETURN_IF_ERR(tc_gemm<P>(Mat{dt2, f}, tr(Mat{w2, hid}),
+                             EluGradOut{dt1, hid, e1, hid}, n, hid, f, st));
+    // e1 = elu(t1), t1 = x1n w1^T + c1; x1n also feeds the residual
+    RETURN_IF_ERR(tc_gemm_wgrad<P>(tr(Mat{dt1, hid}), tr(Mat{x1n, f}), dw1,
+                                   hid, f, n, wpart, st));
+    RETURN_IF_ERR(colsum(Mat{dt1, hid}, dc1, n, hid, cpart, st));
+    Out o = out_to(dx1n, f);
+    o.R = dy;
+    o.ldr = f;
+    RETURN_IF_ERR(tc_gemm<P>(Mat{dt1, hid}, tr(Mat{w1, f}), o, n, f, hid,
+                             st));
+    // x1n = LN(x1); x1 = a1 * mask1 + hn, so dhn = dx1
+    RETURN_IF_ERR(layernorm_bwd(dx1n, Mat{x1, f}, g2, dhn, dg2, db2, n, f,
+                                mean, rstd, cpart, st));
+    const float* da = dhn;
+    if (drop_on) {
+      RETURN_IF_ERR(mask_grad(dhn, m1, nullptr, da1, n, f, st));
+      da = da1;
+    }
+    // a1 = attn0 wr^T + br
+    RETURN_IF_ERR(tc_gemm_wgrad<P>(tr(Mat{da, f}), tr(Mat{attn0, f}), dwr, f,
+                                   f, n, wpart, st));
+    RETURN_IF_ERR(colsum(Mat{da, f}, dbr, n, f, cpart, st));
+    return tc_gemm<P>(Mat{da, f}, tr(Mat{wr, f}), out_to(dattn0, f), n, f, f,
+                      st);
+  };
+  RETURN_IF_ERR(mm_bf16 ? run(TcBf16{}) : run(TcTf32x3{}));
   if (n > 0)
     gnn_attention_bwd_kernel<<<cdiv((long long)n * n_heads, kWarps), kThreads,
                                0, st>>>(feat, nbr, mask, dattn0, dfeat, dnbr,

@@ -20,7 +20,8 @@
 //
 // In bf16 mode (the JAX kernel's mm_dtype=bfloat16) the forward's products
 // run at the 989 TFLOP/s bf16 peak, 3.2 ns a (4, 512) tuple against 2.4 ns
-// for its 8 KB of float32 input: still bound by operations, barely.
+// for its 8 KB of float32 input: still bound by operations, barely; the
+// backward's twice the products 6.5 ns against 4.9 ns for x and dx.
 //
 // Design: all P permutations run as one batch of P*T rows, and every product
 // runs on the tensor cores through tc_gemm.cuh (3xTF32 mma.sync fed by a
@@ -393,12 +394,17 @@ long long grappa_fused_symmetriser_bwd_scratch(int n_perm, int t,
 // grads (6 * n_layers device pointers, the order of params), every
 // parameter gradient summed over the permutations. `fwd` is the forward's
 // scratch from the same inputs, read only; the linear biases are not read.
+// mm_bf16: every layer's four products in tc_gemm.cuh's bf16 policy, both
+// operands rounded to bf16 (dy's descendants too), float32 sums, as the
+// JAX kernel's _dot_tn / _dot_nt with mm_dtype=bfloat16; column sums and
+// LayerNorm backward stay float32, as there.
 int grappa_fused_symmetriser_bwd(const float* x, int s, int t, int f,
                                  const int* perms, int n_perm,
                                  const float* const* params, const int* dims,
                                  int n_layers, const float* dy,
                                  const float* fwd, float* scratch, float* dx,
-                                 float* const* grads, void* stream) {
+                                 float* const* grads, int mm_bf16,
+                                 void* stream) {
   if (bad_shape(s, n_perm, n_layers)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = n_perm * t;
@@ -424,7 +430,8 @@ int grappa_fused_symmetriser_bwd(const float* x, int s, int t, int f,
         dy, dout, total, (long long)t * out_last);
   RETURN_IF_ERR((int)cudaGetLastError());
 
-  for (int i = n_layers - 1; i >= 0; --i) {
+  auto layer = [&](auto policy, int i) {
+    using P = decltype(policy);
     const float* const* p = params + 6 * i;
     float* const* g = grads + 6 * i;
     const int in = dims[3 * i], hid = dims[3 * i + 1], out = dims[3 * i + 2];
@@ -432,33 +439,33 @@ int grappa_fused_symmetriser_bwd(const float* x, int s, int t, int f,
     const float* e = fwd + lf.e[i];
     const float* hn = fwd + lf.hn[i];
     // out = e_i w2^T + c2 (+ hn_i), e_i = elu(t_i)
-    RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dout, out}), tr(Mat{e, hid}), g[4],
-                                out, hid, rows, wpart, st));
+    RETURN_IF_ERR(tc_gemm_wgrad<P>(tr(Mat{dout, out}), tr(Mat{e, hid}), g[4],
+                                   out, hid, rows, wpart, st));
     RETURN_IF_ERR(colsum(Mat{dout, out}, g[5], rows, out, cpart, st));
-    RETURN_IF_ERR(tc_gemm(Mat{dout, out}, tr(Mat{p[4], hid}),
-                          EluGradOut{dt, hid, e, hid}, rows, hid, out, st));
+    RETURN_IF_ERR(tc_gemm<P>(Mat{dout, out}, tr(Mat{p[4], hid}),
+                             EluGradOut{dt, hid, e, hid}, rows, hid, out,
+                             st));
     // t_i = hn_i w1^T + c1
-    RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dt, hid}), tr(Mat{hn, in}), g[2], hid,
-                                in, rows, wpart, st));
+    RETURN_IF_ERR(tc_gemm_wgrad<P>(tr(Mat{dt, hid}), tr(Mat{hn, in}), g[2],
+                                   hid, in, rows, wpart, st));
     RETURN_IF_ERR(colsum(Mat{dt, hid}, g[3], rows, hid, cpart, st));
     Out o = out_to(dhn, in);
     if (skip) {
       o.R = dout;
       o.ldr = out;
     }
-    RETURN_IF_ERR(tc_gemm(Mat{dt, hid}, tr(Mat{p[2], in}), o, rows, in, hid,
-                          st));
+    RETURN_IF_ERR(tc_gemm<P>(Mat{dt, hid}, tr(Mat{p[2], in}), o, rows, in,
+                             hid, st));
     // hn_i = LN(h_i); h_i is the previous layer's output (for layer 0, the
     // permuted row of x, whose gradient goes straight into dx)
     if (i > 0)
-      RETURN_IF_ERR(layernorm_bwd(dhn, Mat{fwd + lf.h[i], in}, p[0], dout,
-                                  g[0], g[1], rows, in, mean, rstd, cpart,
-                                  st));
-    else
-      RETURN_IF_ERR(perm_layernorm_bwd(dhn, pr, pp, n_perm, s, mean0, rstd0,
-                                       p[0], dx, g[0], g[1], mean, rstd,
-                                       cpart, st));
-  }
+      return layernorm_bwd(dhn, Mat{fwd + lf.h[i], in}, p[0], dout, g[0],
+                           g[1], rows, in, mean, rstd, cpart, st);
+    return perm_layernorm_bwd(dhn, pr, pp, n_perm, s, mean0, rstd0, p[0], dx,
+                              g[0], g[1], mean, rstd, cpart, st);
+  };
+  for (int i = n_layers - 1; i >= 0; --i)
+    RETURN_IF_ERR(mm_bf16 ? layer(TcBf16{}, i) : layer(TcTf32x3{}, i));
   return (int)cudaGetLastError();
 }
 

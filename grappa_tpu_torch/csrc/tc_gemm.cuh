@@ -21,7 +21,9 @@
 //
 // Arithmetic, TcBf16 (the JAX kernels' mm_dtype=bfloat16: both operands of
 // each product cast to bf16, the products summed in float32, the output
-// float32). Each pair of float32 operands is rounded to nearest even by
+// float32; K1-K3 and K1b-K3b in bf16 mode, so the backward's dX products
+// read W MN-major and its split-K dW products both operands MN-major, an
+// incoming gradient rounded like any operand, as JAX's _dot_tn / _dot_nt). Each pair of float32 operands is rounded to nearest even by
 // cvt.rn.bf16x2.f32 (XLA's astype(bfloat16) rounding) as a warp builds its
 // fragments, and each 16-deep step is one
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (SASS
@@ -481,16 +483,17 @@ inline int tc_wgrad_splits(int M, int N, int K) {
 
 // dW[m, n] = sum_k A(m, k) B(n, k) over a long k (the rows of a batch):
 // the slices of k run in parallel into `partial` (kMaxSplits x M x N floats
-// at most) and sum_slices adds them in slice order.
-template <class AL, class BL>
+// at most) and sum_slices adds them in slice order. In either policy the
+// partial products and their sum are float32, in the same fixed order.
+template <class P = TcTf32x3, class AL, class BL>
 int tc_gemm_wgrad(const AL& a, const BL& b, float* dW, int M, int N, int K,
                   float* partial, cudaStream_t st) {
   const int s = tc_wgrad_splits(M, N, K);
-  if (s == 1) return tc_gemm(a, b, out_to(dW, N), M, N, K, st);
+  if (s == 1) return tc_gemm<P>(a, b, out_to(dW, N), M, N, K, st);
   const int chunk = cdiv(cdiv(K, s), kTcBK) * kTcBK;
   const int used = cdiv(K, chunk);
-  RETURN_IF_ERR(tc_launch(a, b, Partial{partial, M, N}, M, N, K, used, chunk,
-                          st));
+  RETURN_IF_ERR(tc_launch<P>(a, b, Partial{partial, M, N}, M, N, K, used,
+                             chunk, st));
   return sum_slices(partial, dW, used, (long long)M * N, st);
 }
 

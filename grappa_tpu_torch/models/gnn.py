@@ -38,7 +38,7 @@ from torch import nn
 
 from grappa_tpu_torch import constants
 from grappa_tpu_torch.models.layers import (
-    ChargeEncoding, Dropout, dense, make_norm, masked_softmax,
+    ChargeEncoding, Dropout, dense, elu, make_norm, masked_softmax,
     repeat_interleave_skip, use_fused, zero_init)
 from grappa_tpu_torch.ops import philox
 from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
@@ -129,8 +129,8 @@ class ResidualAttentionBlock(nn.Module):
         if self.has_self_interaction:
             h = self.interaction_norm(h)
             d1, _, d2, _ = self.self_interaction
-            x = F.elu(dense(F.elu(dense(h, d1.weight, d1.bias, dt)),
-                            d2.weight, d2.bias, dt))
+            x = elu(dense(elu(dense(h, d1.weight, d1.bias, dt)),
+                          d2.weight, d2.bias, dt))
             h = self.dropout(x.to(h.dtype), generator) + h
         return h
 

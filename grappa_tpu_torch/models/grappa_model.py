@@ -134,8 +134,8 @@ class GrappaModel(nn.Module):
     model with `.to(device)`. With fused_gnn / fused_heads 'auto' the fused
     kernels run whenever the inputs lie on a CUDA device. With a bfloat16
     compute dtype (`stage_dtype`) the GNN's attention blocks and the four
-    writers compute as the JAX package's bf16 model; on the card that is
-    forward only (the bf16 backward kernels are not ported yet)."""
+    writers compute as the JAX package's bf16 model, forward and backward
+    (on the card the fused ops' bf16 mode), parameters float32."""
 
     def __init__(self, config: Dict, stats: Dict,
                  generator: Optional[torch.Generator] = None):

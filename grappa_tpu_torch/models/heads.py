@@ -31,12 +31,11 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from grappa_tpu_torch.models import scalers
 from grappa_tpu_torch.models.layers import (FeedForward, TransformerBlock,
-                                            dense, use_fused)
+                                            dense, elu, use_fused)
 from grappa_tpu_torch.ops import philox
 from grappa_tpu_torch.ops.fused_block import fused_transformer_block
 from grappa_tpu_torch.ops.fused_symmetriser import fused_symmetriser
@@ -71,7 +70,7 @@ class RepProjector(nn.Module):
     def forward(self, h, idxs):
         # h: (N, F_rep); idxs: (T, arity) -> (arity, T, F)
         lin = self.mlp[0]
-        x = F.elu(dense(h, lin.weight, lin.bias, self.dtype)).to(h.dtype)
+        x = elu(dense(h, lin.weight, lin.bias, self.dtype)).to(h.dtype)
         return x[idxs.t()].contiguous()
 
 

@@ -12,9 +12,10 @@ modules so that a reference-named state_dict loads strictly:
 `dtype=torch.bfloat16` (the config's compute_dtype) gives a module the JAX
 package's flax semantics of `nn.Dense(dtype=bfloat16)` (`dense`): input,
 weight and bias rounded to bf16, the product summed in float32 and rounded
-to bf16, the bias added in bf16, the activation on bf16, and a cast back to
-float32 where the flax module casts. Parameters, LayerNorms and the
-attention softmax stay float32. None is float32 throughout.
+to bf16, the bias added in bf16, the activation on bf16 (`elu`, with
+jax.nn.elu's bf16 gradient), and a cast back to float32 where the flax
+module casts. Parameters, LayerNorms and the attention softmax stay
+float32. None is float32 throughout.
 
 LayerNorm uses eps=1e-5 as in the JAX package. Parameters are initialised
 like flax's (`init_parameters`): LeCun-normal kernels, zero biases, and zero
@@ -73,10 +74,28 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
     return y if bias is None else y + bias.to(dtype)
 
 
-def uses_bf16(module: nn.Module) -> bool:
-    """True when a module below `module` computes in bfloat16."""
-    return any(getattr(m, 'dtype', None) == torch.bfloat16
-               for m in module.modules())
+class _EluBf16(torch.autograd.Function):
+    """elu of a bf16 tensor with the gradient jax.nn.elu has in bf16: JAX
+    differentiates expm1 by its output, g (expm1(x) + 1), the sum and the
+    product each rounded to bf16; torch's elu backward forms g exp(x) in
+    float32 and rounds once, which differs in about a fifth of the
+    elements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = F.elu(x)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return torch.where(x > 0, g, g * (y + 1))
+
+
+def elu(x: torch.Tensor) -> torch.Tensor:
+    """F.elu, with JAX's bf16 gradient on a bf16 tensor (`_EluBf16`)."""
+    return _EluBf16.apply(x) if x.dtype == torch.bfloat16 else F.elu(x)
 
 
 def use_fused(flag, x: torch.Tensor) -> bool:
@@ -159,7 +178,7 @@ class FeedForward(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.norm1(x)
         l1, l2, dt = self.linear1, self.linear2, self.dtype
-        h = dense(F.elu(dense(x, l1.weight, l1.bias, dt)), l2.weight,
+        h = dense(elu(dense(x, l1.weight, l1.bias, dt)), l2.weight,
                   l2.bias, dt)
         h = self.dropout(h.to(x.dtype), generator)
         if self.skip:

@@ -42,19 +42,19 @@ _SIGNATURES = {
                              + [_F, _I, _P]),
     'grappa_fused_gnn_bwd_scratch': (_LL, [_I, _I, _I]),
     'grappa_fused_gnn_bwd': (_I, [_P] * 8 + _DROP + [_P] * 13 + [_I] * 5
-                             + [_F, _P]),
+                             + [_F, _I, _P]),
     'grappa_fused_block_scratch': (_LL, [_I, _I, _I, _I]),
     'grappa_fused_block_fwd': (_I, [_P] * 13 + _DROP + [_P] * 2 + [_I] * 5
                                + [_F, _I, _P]),
     'grappa_fused_block_bwd_scratch': (_LL, [_I, _I, _I, _I]),
     'grappa_fused_block_bwd': (_I, [_P] * 14 + _DROP + [_P] * 15
-                               + [_I] * 5 + [_F, _P]),
+                               + [_I] * 5 + [_F, _I, _P]),
     'grappa_fused_symmetriser_scratch': (_LL, [_I, _I, _I, _P]),
     'grappa_fused_symmetriser_fwd': (
         _I, [_P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P]),
     'grappa_fused_symmetriser_bwd_scratch': (_LL, [_I, _I, _I, _P]),
     'grappa_fused_symmetriser_bwd': (
-        _I, [_P, _I, _I, _I, _P, _I, _P, _P, _I] + [_P] * 6),
+        _I, [_P, _I, _I, _I, _P, _I, _P, _P, _I] + [_P] * 5 + [_I, _P]),
     'grappa_dropout_masks': (_I, [_U, _U, _F, _LL, _P, _P, _P]),
     'grappa_torsion_energy': (_I, [_P, _P, _P, _I, _I, _I, _P]),
     'grappa_torsion_grad': (_I, [_P] * 5 + [_I] * 3 + [_P]),
@@ -185,13 +185,6 @@ def grad_output(dy: torch.Tensor, like: torch.Tensor, name: str
     return dy.contiguous()
 
 
-# The bf16 backward kernels are still to port: a bf16 forward on the card
-# has no backward, and no float32 backward stands in for one.
-BF16_BACKWARD = ("the bfloat16 backward kernels (K1b-K3b) are not ported "
-                 "yet (ROADMAP.md, 'bf16 kernels'): bf16 runs forward only "
-                 "on the card")
-
-
 def mm_bf16(mm_dtype) -> bool:
     """The kernels' product mode for `mm_dtype`: True for torch.bfloat16
     (each product's operands rounded to bf16, the products summed in
@@ -205,14 +198,49 @@ def mm_bf16(mm_dtype) -> bool:
                      f"torch.bfloat16, got {mm_dtype!r}")
 
 
+def _round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (nearest even), kept in t's dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+class _Bf16Linear(torch.autograd.Function):
+    """x w^T + b with x and w rounded to bf16 and float32 sums. Its backward
+    rounds the incoming gradient as well as the other operand of each
+    product, as the JAX kernels' backward does (_dot_nt / _dot_tn with
+    mm_dtype=bfloat16): dx = r(dy) r(w), dw = r(dy)^T r(x), db = sum dy,
+    all summed in float32. Differentiating the forward's casts instead
+    (a straight-through round) would leave dy unrounded."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        xr, wr = _round_bf16(x), _round_bf16(w)
+        ctx.save_for_backward(xr, wr)
+        ctx.has_bias = b is not None
+        return F.linear(xr, wr, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xr, wr = ctx.saved_tensors
+        dyr = _round_bf16(dy)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = dyr @ wr
+        if ctx.needs_input_grad[1]:
+            dw = dyr.reshape(-1, wr.shape[0]).t() @ xr.reshape(-1,
+                                                               wr.shape[1])
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = dy.reshape(-1, wr.shape[0]).sum(0)
+        return dx, dw, db
+
+
 def mm_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
               bf16: bool) -> torch.Tensor:
     """A plain version's product x w^T + b; with bf16, x and w are rounded
     to bf16 (nearest even) and the product is summed in float32, the bias
-    added in float32 (the JAX kernels' _dot with mm_dtype=bfloat16)."""
+    added in float32 (the JAX kernels' _dot with mm_dtype=bfloat16), and
+    its gradients round their operands alike (`_Bf16Linear`)."""
     if bf16:
-        x = x.to(torch.bfloat16).to(x.dtype)
-        w = w.to(torch.bfloat16).to(w.dtype)
+        return _Bf16Linear.apply(x, w, b)
     return F.linear(x, w, b)
 
 

@@ -16,14 +16,18 @@ and the design). On CPU
 tensors it runs `reference_block`, the plain PyTorch version, and autograd
 differentiates it. `fused_transformer_block.launches` and
 `fused_transformer_block.bwd_launches` count kernel launches,
-`fused_transformer_block.bf16_launches` the forward's in bf16 mode.
+`fused_transformer_block.bf16_launches` and
+`fused_transformer_block.bf16_bwd_launches` the forward's and the
+backward's in bf16 mode.
 
 `mm_dtype=torch.bfloat16` is the JAX op's bf16 mode: the four dense
 products (QKV, out_proj, FF in, FF out) round both operands to bf16 and sum
-in float32; LayerNorms and the attention stay float32. On the card it is
-the forward kernel's bf16 mode; its backward is not ported yet and raises
-(ROADMAP.md, "bf16 kernels"). On the CPU the plain version rounds the same
-operands and autograd differentiates it.
+in float32; LayerNorms and the attention stay float32. The backward's
+eight products round both operands too, the incoming gradient's
+descendants included (the JAX op's _dot_tn / _dot_nt). On the card both
+are the kernels' bf16 mode. On the CPU the plain version rounds the same
+operands and autograd differentiates it through `_cuda.mm_linear`, whose
+bf16 product rounds its backward's operands alike.
 
 Dropout (training mode, rate > 0) takes a 32-bit `seed`: mask 1 (after
 out_proj) and mask 2 (after linear2) are Philox bits keyed by (seed, 0) and
@@ -124,9 +128,6 @@ class _BlockKernel(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        if ctx.bf16:
-            raise NotImplementedError(
-                f"fused_transformer_block: {_cuda.BF16_BACKWARD}")
         x, saved, *params = ctx.saved_tensors
         dy = _cuda.grad_output(dy, x, 'fused_transformer_block')
         (s, t, f), hid = x.shape, params[8].shape[0]
@@ -139,10 +140,13 @@ class _BlockKernel(torch.autograd.Function):
             *[p.data_ptr() for p in (x, *params, dy)], *ctx.drop,
             saved.data_ptr(), scratch.data_ptr(),
             *[g.data_ptr() for g in grads], s, t, f, hid,
-            ctx.n_heads, _cuda.head_scale(f // ctx.n_heads),
+            ctx.n_heads, _cuda.head_scale(f // ctx.n_heads), int(ctx.bf16),
             _cuda.stream_of(x))
         _cuda.check(rc, 'grappa_fused_block_bwd')
-        fused_transformer_block.bwd_launches += 1
+        if ctx.bf16:
+            fused_transformer_block.bf16_bwd_launches += 1
+        else:
+            fused_transformer_block.bwd_launches += 1
         dx, *dparams = grads
         return (dx, None, None, None, *dparams)
 
@@ -191,4 +195,5 @@ def dropout_masks(seed: int, shape: Sequence[int], rate: float,
 fused_transformer_block.launches = 0
 fused_transformer_block.bf16_launches = 0
 fused_transformer_block.bwd_launches = 0
+fused_transformer_block.bf16_bwd_launches = 0
 dropout_masks.launches = 0

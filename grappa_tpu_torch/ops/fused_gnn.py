@@ -22,16 +22,20 @@ the card's bound and the design). On CPU tensors it runs
 `reference_gnn_block`, the plain PyTorch version, and autograd
 differentiates it.
 `fused_gnn_block.launches` and `fused_gnn_block.bwd_launches` count
-kernel launches, `fused_gnn_block.bf16_launches` the forward's in bf16
-mode.
+kernel launches, `fused_gnn_block.bf16_launches` and
+`fused_gnn_block.bf16_bwd_launches` the forward's and the backward's in
+bf16 mode.
 
 `mm_dtype=torch.bfloat16` is the JAX op's bf16 mode (`mm_dtype=
 jnp.bfloat16`): the three dense products (head_reducer, FF in, FF out) round
 both operands to bf16 and sum in float32; the scores, softmax and message
-sum stay float32. On the card it is the forward kernel's bf16 mode (bf16
-tensor-core products, `csrc/tc_gemm.cuh`); its backward is not ported yet
-and raises (ROADMAP.md, "bf16 kernels"). On the CPU the plain version
-rounds the same operands and autograd differentiates it.
+sum stay float32. The backward's six products round both operands too,
+the incoming gradient's descendants included (the JAX op's _dot_tn /
+_dot_nt); its softmax, LayerNorm and attention backward stay float32. On
+the card both are the kernels' bf16 mode (bf16 tensor-core products,
+`csrc/tc_gemm.cuh`). On the CPU the plain version rounds the same
+operands and autograd differentiates it through `_cuda.mm_linear`, whose
+bf16 product rounds its backward's operands alike.
 
 Dropout (training mode, rate > 0) takes a 32-bit `seed`: mask 1 (after
 head_reducer) and mask 2 (after the FF's elu) are Philox bits keyed by
@@ -143,9 +147,6 @@ class _GnnBlockKernel(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        if ctx.bf16:
-            raise NotImplementedError(
-                f"fused_gnn_block: {_cuda.BF16_BACKWARD}")
         feat, nbr, mask, saved, *params = ctx.saved_tensors
         wr, _, g2, _, w1, _, w2, _ = params    # the biases are not read
         dy = _cuda.grad_output(dy, feat, 'fused_gnn_block')
@@ -159,9 +160,13 @@ class _GnnBlockKernel(torch.autograd.Function):
             *[t.data_ptr() for t in (feat, nbr, mask, wr, g2, w1, w2, dy)],
             *ctx.drop, saved.data_ptr(), scratch.data_ptr(),
             *[g.data_ptr() for g in grads], n, f, hid, d, ctx.n_heads,
-            _cuda.head_scale(f // ctx.n_heads), _cuda.stream_of(feat))
+            _cuda.head_scale(f // ctx.n_heads), int(ctx.bf16),
+            _cuda.stream_of(feat))
         _cuda.check(rc, 'grappa_fused_gnn_bwd')
-        fused_gnn_block.bwd_launches += 1
+        if ctx.bf16:
+            fused_gnn_block.bf16_bwd_launches += 1
+        else:
+            fused_gnn_block.bwd_launches += 1
         dfeat, dnbr, dhn, *dparams = grads
         return (dfeat, dnbr, dhn, None, None, None, None, *dparams)
 
@@ -213,4 +218,5 @@ def dropout_masks(seed: int, shape: Sequence[int], rate: float,
 fused_gnn_block.launches = 0
 fused_gnn_block.bf16_launches = 0
 fused_gnn_block.bwd_launches = 0
+fused_gnn_block.bf16_bwd_launches = 0
 dropout_masks.launches = 0

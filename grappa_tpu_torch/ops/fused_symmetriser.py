@@ -20,14 +20,18 @@ permutations (the source notes give the card's bound and the design). On
 CPU tensors it runs `reference_symmetriser`, and autograd differentiates
 it.
 `fused_symmetriser.launches` and `fused_symmetriser.bwd_launches` count
-kernel launches, `fused_symmetriser.bf16_launches` the forward's in bf16
-mode.
+kernel launches, `fused_symmetriser.bf16_launches` and
+`fused_symmetriser.bf16_bwd_launches` the forward's and the backward's in
+bf16 mode.
 
 `mm_dtype=torch.bfloat16` is the JAX op's bf16 mode: every layer's two
 products round both operands to bf16 and sum in float32; LayerNorms, elu,
-the skips and the sum over permutations stay float32. On the card it is
-the forward kernel's bf16 mode; its backward is not ported yet and raises
-(ROADMAP.md, "bf16 kernels").
+the skips and the sum over permutations stay float32. The backward's
+four products a layer round both operands too, the incoming gradient's
+descendants included (the JAX op's _dot_tn / _dot_nt). On the card both
+are the kernels' bf16 mode; on the CPU autograd differentiates the plain
+version through `_cuda.mm_linear`, whose bf16 product rounds its
+backward's operands alike.
 
 `layers` holds one tuple per FeedForward layer, in torch layout:
     (norm1.weight, norm1.bias, linear1.weight, linear1.bias,
@@ -147,9 +151,6 @@ class _SymmetriserKernel(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        if ctx.bf16:
-            raise NotImplementedError(
-                f"fused_symmetriser: {_cuda.BF16_BACKWARD}")
         x, saved, *flat = ctx.saved_tensors
         dy = _cuda.grad_output(dy, x, 'fused_symmetriser')
         s, t, f = x.shape
@@ -168,9 +169,12 @@ class _SymmetriserKernel(torch.autograd.Function):
             x.data_ptr(), s, t, f, perms, len(permutations), _pointers(flat),
             dims, n_layers, dy.data_ptr(), saved.data_ptr(),
             scratch.data_ptr(), dx.data_ptr(), _pointers(grads),
-            _cuda.stream_of(x))
+            int(ctx.bf16), _cuda.stream_of(x))
         _cuda.check(rc, 'grappa_fused_symmetriser_bwd')
-        fused_symmetriser.bwd_launches += 1
+        if ctx.bf16:
+            fused_symmetriser.bf16_bwd_launches += 1
+        else:
+            fused_symmetriser.bwd_launches += 1
         return (dx, None, None, None, *grads)
 
 
@@ -199,3 +203,4 @@ def fused_symmetriser(x, layers: Sequence[Sequence[torch.Tensor]],
 fused_symmetriser.launches = 0
 fused_symmetriser.bf16_launches = 0
 fused_symmetriser.bwd_launches = 0
+fused_symmetriser.bf16_bwd_launches = 0

@@ -43,8 +43,6 @@ import torch
 
 from grappa_tpu_torch.data.graph_batch import GraphBatch
 from grappa_tpu_torch.models import mm_energy
-from grappa_tpu_torch.models.layers import uses_bf16
-from grappa_tpu_torch.ops import _cuda
 from grappa_tpu_torch.train.evaluator import (
     StreamingEvaluator, early_stopping_loss)
 from grappa_tpu_torch.train.loss import LossWeights, molwise_loss
@@ -133,17 +131,6 @@ def make_optimizer(grad_clip: float = 10.0,
     return AdamClip(grad_clip, weight_decay)
 
 
-def refuse_bf16_on_card(model: torch.nn.Module, device=None) -> None:
-    """Raise NotImplementedError for a model with a bfloat16 stage on a
-    CUDA device (`device`, else its parameters'): the bf16 backward kernels
-    are not ported yet, and no float32 backward stands in for them. On the
-    CPU autograd runs through the plain versions, as in the JAX package."""
-    device = torch.device(device or next(model.parameters()).device)
-    if device.type == 'cuda' and uses_bf16(model):
-        raise NotImplementedError(
-            f"training a bfloat16 model on the card: {_cuda.BF16_BACKWARD}")
-
-
 def make_train_step(model: torch.nn.Module, optimizer: AdamClip
                     ) -> Callable:
     """Returns step(batch, weights, lr, generator) -> (loss, aux): one
@@ -151,8 +138,11 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamClip
     seeded from `generator` (a CPU torch.Generator, one seed per fused
     block), updating the model's parameters and the optimizer's state in
     place. loss and aux are detached tensors on the batch's device.
-    Refuses a bfloat16 model on a CUDA device (`refuse_bf16_on_card`)."""
-    refuse_bf16_on_card(model)
+    A model with a bfloat16 compute dtype trains in bf16 (the fused ops'
+    bf16 mode forward and backward, flax's bf16 Dense in the eager
+    modules); its parameters, gradients and Adam state stay float32, and
+    no loss scaling is applied (bf16 has float32's exponent range), as in
+    the JAX package."""
     params = dict(model.named_parameters())
 
     def step(batch: GraphBatch, weights: LossWeights, lr,

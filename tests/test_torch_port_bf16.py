@@ -411,21 +411,42 @@ def test_eval_model_runs_bf16_forward_only(fixture):
     assert metrics['bfloat16'] != metrics['float32']
 
 
-# ------------------------------------------------------------ refusals
+# ------------------------------------------------------------ the card
 class _FakeLib:
-    """Stands in for the kernel library on the CPU: the forward entry
-    points write nothing and record their mm_bf16 flag."""
+    """Stands in for the kernel library on the CPU: the forward and
+    backward entry points write nothing and record (entry, mm_bf16)."""
 
     def __init__(self):
-        self.flags = []
+        self.calls = []
 
     def __getattr__(self, name):
         if name.endswith('_scratch'):
             return lambda *a: 16
-        if name.endswith('_fwd'):
+        if name.endswith(('_fwd', '_bwd')):
             # mm_bf16 is the argument before the stream
-            return lambda *a: self.flags.append(a[-2]) or 0
+            return lambda *a: self.calls.append((name[-3:], a[-2])) or 0
         raise AssertionError(f'{name} must not run')
+
+
+def _simulate_card(monkeypatch, names=None):
+    """on_cuda answers True (for the ops in `names`, else for all), the
+    library is a _FakeLib, and outputs the kernels would write are zeros."""
+    lib = _FakeLib()
+    monkeypatch.setattr(_cuda, 'on_cuda', lambda tensors, name: (
+        names is None or name in names) or _on_cuda(tensors, name))
+    monkeypatch.setattr(_cuda, 'lib', lambda: lib)
+    monkeypatch.setattr(_cuda, 'stream_of', lambda t: 0)
+    monkeypatch.setattr(torch, 'empty', torch.zeros)
+    monkeypatch.setattr(torch, 'empty_like', torch.zeros_like)
+    return lib
+
+
+_on_cuda = _cuda.on_cuda
+_COUNTS = ('launches', 'bf16_launches', 'bwd_launches', 'bf16_bwd_launches')
+
+
+def _counts(op):
+    return [getattr(op, c) for c in _COUNTS]
 
 
 def _launch_k1(bf16):
@@ -458,39 +479,53 @@ def _launch_k3(bf16):
     (_launch_k1, tfg.fused_gnn_block),
     (_launch_k2, tfb.fused_transformer_block),
     (_launch_k3, tfs.fused_symmetriser)], ids=['K1', 'K2', 'K3'])
-def test_bf16_backward_on_card_raises(monkeypatch, launch, op):
-    """On a CUDA tensor the bf16 forward launches the kernel in bf16 mode
-    (counted apart from the float32 launches) and its backward raises,
-    naming ROADMAP's item; no float32 backward kernel runs. The card is
-    simulated: on_cuda answers True and the library is a fake."""
-    lib = _FakeLib()
-    monkeypatch.setattr(_cuda, 'on_cuda', lambda tensors, name: True)
-    monkeypatch.setattr(_cuda, 'lib', lambda: lib)
-    monkeypatch.setattr(_cuda, 'stream_of', lambda t: 0)
-    f32, b16 = op.launches, op.bf16_launches
-    y = launch(BF16)
-    assert lib.flags == [1]
-    assert (op.launches, op.bf16_launches) == (f32, b16 + 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*bf16 kernels"):
-        y.sum().backward()
-    launch(None)
-    assert lib.flags == [1, 0] and op.launches == f32 + 1
+def test_bf16_backward_on_card_launches_bf16_kernels(monkeypatch, launch,
+                                                     op):
+    """On a CUDA tensor the bf16 forward and its backward launch the
+    kernels with mm_bf16 = 1, counted apart from the float32 launches
+    (bf16_launches, bf16_bwd_launches); no float32 kernel runs in their
+    place. The float32 op launches with mm_bf16 = 0. The card is simulated:
+    on_cuda answers True and the library is a fake."""
+    lib = _simulate_card(monkeypatch)
+    before = _counts(op)
+    launch(BF16).sum().backward()
+    assert lib.calls == [('fwd', 1), ('bwd', 1)]
+    assert _counts(op) == [before[0], before[1] + 1, before[2],
+                           before[3] + 1]
+    launch(None).sum().backward()
+    assert lib.calls[2:] == [('fwd', 0), ('bwd', 0)]
+    assert _counts(op) == [before[0] + 1, before[1] + 1, before[2] + 1,
+                           before[3] + 1]
 
 
-def test_bf16_training_refused_on_card_runs_on_cpu(fixture):
-    """make_train_step (and so the Trainer) refuses a bf16 model on a CUDA
-    device up front; on the CPU a step runs through the plain versions, as
-    in the JAX package."""
+def test_bf16_train_step_on_card_and_cpu(fixture, monkeypatch):
+    """make_train_step (and so the Trainer) takes a bf16 model for the
+    card: on a simulated card a step launches each fused op's bf16 forward
+    and backward once a block and no float32 kernel; on the CPU the same
+    step runs through the plain versions and moves the weights, as in the
+    JAX package."""
     fx = fixture
-    model = fx.port(compute_dtype='bfloat16', fused_gnn=True,
-                    fused_heads=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*bf16 kernels"):
-        ttr.refuse_bf16_on_card(model, 'cuda')
-    ttr.refuse_bf16_on_card(fx.port(), 'cuda')       # float32: allowed
-    step = ttr.make_train_step(model, ttr.make_optimizer())
+    ops = (tfg.fused_gnn_block, tfb.fused_transformer_block,
+           tfs.fused_symmetriser)
     w = LossWeights(torch.tensor(1.0), torch.tensor(0.8),
                     torch.full((fx.tb.num_mols,), 1e-3), torch.tensor(1e-3),
                     torch.tensor(1e-3))
+    with monkeypatch.context() as m:
+        lib = _simulate_card(m, {op.__name__ for op in ops})
+        model = fx.port(compute_dtype='bfloat16', fused_gnn=True,
+                        fused_heads=True)
+        step = ttr.make_train_step(model, ttr.make_optimizer())
+        before = [_counts(op) for op in ops]
+        step(fx.tb, w, 1e-3, torch.Generator().manual_seed(0))
+        got = [[a - b for a, b in zip(_counts(op), was)]
+               for op, was in zip(ops, before)]
+    blocks = (fx.cfg['gnn_attentional_layers'],
+              4 * fx.cfg['bond_transformer_depth'], 4)
+    assert got == [[0, n, 0, n] for n in blocks], got
+    assert {flag for _, flag in lib.calls} == {1}
+    model = fx.port(compute_dtype='bfloat16', fused_gnn=True,
+                    fused_heads=True)
+    step = ttr.make_train_step(model, ttr.make_optimizer())
     before = {k: v.clone() for k, v in model.state_dict().items()}
     loss, _ = step(fx.tb, w, 1e-3, torch.Generator().manual_seed(0))
     assert torch.isfinite(loss)

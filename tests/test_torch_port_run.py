@@ -321,3 +321,54 @@ def test_entry_points_run_on_the_card_unless_asked(ds_dir, tmp_path,
     (tmp_path / 'cache' / 'datasets' / 'local').mkdir(parents=True)
     assert zoo.dataset_path_from_tag('local') == \
         tmp_path / 'cache' / 'datasets' / 'local'
+
+
+def _stage_dtypes(model):
+    """The compute dtypes of the GNN's and the writers' modules."""
+    return tuple({m.dtype for m in stage.modules() if hasattr(m, 'dtype')}
+                 for stage in (model.gnn, model.parameter_writer))
+
+
+@pytest.mark.parametrize('override,want', [
+    ({'compute_dtype': 'bfloat16'}, (torch.bfloat16, torch.bfloat16)),
+    ({'heads_compute_dtype': 'bfloat16'}, (None, torch.bfloat16))],
+    ids=['compute_dtype', 'heads_only'])
+def test_bf16_run_keeps_its_dtype(ds_dir, tmp_path, override, want):
+    """do_trainrun with a bfloat16 compute dtype, or one stage's override,
+    trains that stage in bf16: the config's dtype keys reach make_model
+    unchanged, are stored, and a resumed run keeps them; the parameters
+    stay float32, and model.npz loads into a bf16 and a float32 model
+    alike."""
+    config = _config(ds_dir, max_epochs=1)
+    config['model_config'].update(override)
+    out = trun.do_trainrun(config, project_dir=str(tmp_path), device='cpu')
+    run_dir = Path(out['run_dir'])
+    stored = tconfig.read_yaml(run_dir / 'grappa_config.yaml')
+    for key, value in override.items():
+        assert stored['model_config'][key] == value
+    assert _stage_dtypes(out['trainer'].model) == tuple({d} for d in want)
+    assert all(p.dtype == torch.float32
+               for p in out['trainer'].model.parameters())
+    assert np.isfinite(sum(out['trainer'].train_losses, [])).all()
+    resumed = trun.resume_trainrun(str(run_dir), extra_epochs=1,
+                                   device='cpu')
+    assert resumed['trainer'].epoch == 2
+    assert _stage_dtypes(resumed['trainer'].model) == tuple(
+        {d} for d in want)
+
+    d = texport.load_model_dict(resumed['model_dict_path'])
+    assert {np.asarray(v).dtype for v in d['state_dict'].values()
+            if np.asarray(v).dtype.kind == 'f'} == {np.dtype(np.float32)}
+    model16, _ = texport.model_from_dict(d)
+    assert _stage_dtypes(model16) == tuple({d} for d in want)
+    cfg32 = {k: v for k, v in d['config']['model_config'].items()
+             if k not in override}
+    model32, _ = texport.model_from_dict(
+        dict(d, config=dict(d['config'], model_config=cfg32)))
+    assert _stage_dtypes(model32) == ({None}, {None})
+    _, tb = _predict_batch()
+    with torch.no_grad():
+        p16, p32 = model16.eval()(tb), model32.eval()(tb)
+    for key in p32:
+        assert torch.isfinite(p16[key]).all(), key
+    assert any(not torch.equal(p16[k], p32[k]) for k in p32)
