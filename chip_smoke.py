@@ -5,7 +5,7 @@
     python3 chip_smoke.py --kernels-only   # phases 1, 2 and 4 alone
     python3 chip_smoke.py --torsion        # phase 1 and the K5 path's times
     python3 chip_smoke.py --trainrun       # phases 1 and 8 alone
-    python3 chip_smoke.py --train-step     # phases 1 and 5 alone
+    python3 chip_smoke.py --train-step     # phases 1, 5 and 10(c)(c)
     python3 chip_smoke.py --eval           # phases 1 and 9 alone
     python3 chip_smoke.py --bf16           # phases 1 and 10 alone
 
@@ -32,8 +32,9 @@ Phases, each printing its own lines:
      autograd through the plain versions (same dropout seeds), the K1m /
      K2m mask dumps (bench batch alone) bit-equal to the plain Philox,
      with times, device times and bounds. Then the
-     `block_profile` line: K2 / K2b at the n4 training shape (S=4,
-     T=8256, F=hid=512, dropout 0.5), K1 / K1b at the training batch's
+     `block_profile` line: K2 / K2b (float32 and bf16) at the n4
+     training shape (S=4, T=8256, F=hid=512, dropout 0.5), K1 / K1b at the
+     training batch's
      nodes (N=3376, dropout 0.3) and K3 / K3b at the n4 training shape
      under torch.profiler, each launch of one call with its device ms and
      share (printed above the line) and the device ms by kernel name,
@@ -163,7 +164,9 @@ Phases, each printing its own lines:
      free steps/s beside phase 8's float32 (`trainrun_bf16` line); (d)
      the built library's SASS: every tc_gemm_kernel of the bf16 policy
      (the backward's MN-major and split-K ones among them) has
-     HMMA.16816.F32.BF16 and no TF32 HMMA, every float32 one the reverse.
+     HMMA.16816.F32.BF16 and no TF32 HMMA, every float32 one the reverse;
+     every wg_gemm_kernel (K2 / K2b's bf16 products, MN-major and split-K
+     ones among them) a bf16 HGMMA and no HMMA.
 
 The `trainrun {...}`, `trainrun_bf16 {...}`, `eval {...}` and `ingest
 {...}` lines come before
@@ -194,8 +197,9 @@ the kernels' sums as a `kernel_times` line instead; `--bf16` runs phase
 10 alone (building phase 2's workloads; `trainrun_bf16` and
 `bf16_kernel_times` lines); `--trainrun` runs phase 8 alone and
 `--eval` phase 9 alone and
-`--train-step` phase 5 alone (with names a parent checkout shares, so that
-one copy of this script times the step of both); `--torsion` prints only
+`--train-step` phase 5 and 10(c)(c) alone (the float32 and the bf16
+steps, with names a parent checkout shares, so that one copy of this
+script times the steps of both); `--torsion` prints only
 K5's host time by
 part at the propers' shapes (`k5_host` lines) and the energy + dE/dx
 path's times and kernels (`torsion_path_phase`), with names a parent
@@ -484,9 +488,11 @@ def block_profile(torch, batch, iters=3):
     n4 training shape (S=4, T=8256, F=hid=512, 8 heads, dropout 0.5), K1
     and K1b at the training batch's nodes and neighbour list (F=512, 16
     heads, dropout 0.3), K3 and K3b at the n4 training shape (2
-    permutations, 3 x 256, out 12). Beside them one torch.matmul (float32,
-    TF32 off) of K2's largest product, 33024 x 1536 x 512, as a yardstick
-    the port never calls."""
+    permutations, 3 x 256, out 12); K2 and K2b also in bf16 mode at their
+    shape (K2.bf16, K2b.bf16: the split between wg_gemm.cuh's products and
+    the LayerNorm, attention, cast and column-sum passes). Beside them one
+    torch.matmul (float32, TF32 off) of K2's largest product, 33024 x 1536
+    x 512, as a yardstick the port never calls."""
     from grappa_tpu_torch.models.heads import PERMUTATIONS
     from grappa_tpu_torch.ops import fused_block as fb
     from grappa_tpu_torch.ops import fused_gnn as fg
@@ -505,6 +511,8 @@ def block_profile(torch, batch, iters=3):
         ((f, f), 'w'), ((f,), 'b'), ((f,), 'g'), ((f,), 'b'),
         ((hid, f), 'w'), ((hid,), 'b'), ((f, hid), 'w'), ((f,), 'b')])
     k2 = lambda a, *q: fb.fused_transformer_block(a, q, 8, rate, True, seed)
+    k2h = lambda a, *q: fb.fused_transformer_block(
+        a, q, 8, rate, True, seed, mm_dtype=torch.bfloat16)
 
     nb = batch.neighbors
     n, d = nb.shape
@@ -527,8 +535,11 @@ def block_profile(torch, batch, iters=3):
     k3 = lambda a, *q: fs.fused_symmetriser(
         a, [q[6 * j:6 * j + 6] for j in range(3)], perms)
 
+    dy2 = torch.randn_like(x)
     calls = {'K2': lambda: k2(x, *p2),
-             'K2b': backward_of(k2, [x, *p2], torch.randn_like(x)),
+             'K2b': backward_of(k2, [x, *p2], dy2),
+             'K2.bf16': lambda: k2h(x, *p2),
+             'K2b.bf16': backward_of(k2h, [x, *p2], dy2),
              'K1': lambda: k1(feat, nbr, hn, *p1),
              'K1b': backward_of(k1, [feat, nbr, hn, *p1],
                                 torch.randn_like(feat)),
@@ -623,7 +634,7 @@ def sass_functions(so):
     for m in re.finditer(r'Function : (\S+)\n(.*?)(?=\n\s*Function :|\Z)',
                          sass, re.S):
         ops = re.findall(r'/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?'
-                         r'([A-Z][A-Z0-9_.]*)', m.group(2))
+                         r'([A-Z][A-Za-z0-9_.]*)', m.group(2))
         ops = [op for op in ops if op != 'NOP']
         out[m.group(1)] = (ops[:len(ops) - ops[::-1].index('EXIT')]
                            if 'EXIT' in ops else ops)
@@ -1767,18 +1778,33 @@ def compare_bf16(torch, entries, name, label, kernel, plain, flops, nbytes,
 
 def bf16_sass(torch):
     """Phase 10(d): every tensor-core GEMM kernel of the built library runs
-    its policy's instruction: the bf16 policy's instantiations (the bf16
-    mode's products, forward and backward: the dX products' MN-major W and
-    the split-K dW products' two MN-major operands among them)
-    BF16_HMMA and no TF32 mma, the float32 ones TF32_HMMA and no bf16
-    mma."""
+    its policy's instruction: the bf16 policy's instantiations (K1, K3 and
+    K1b, K3b's bf16 products, forward and backward: the dX products'
+    MN-major W and the split-K dW products' two MN-major operands among
+    them) BF16_HMMA and no TF32 mma, the float32 ones TF32_HMMA and no bf16
+    mma; and every instantiation of wg_gemm.cuh's kernel (K2 and K2b's bf16
+    products, MN-major and split-K ones among them) a bf16 warpgroup mma
+    (HGMMA ... BF16) and no mma.sync (HMMA)."""
     from grappa_tpu_torch.ops import _cuda
     kinds = {'TcBf16': [], 'TcTf32x3': []}
+    wg = []
     for name, ops in sass_functions(_cuda.build()).items():
         for policy in kinds:
             if 'tc_gemm_kernel' in name and policy in name:
                 kinds[policy].append((name, sorted(
                     {op for op in ops if op.startswith('HMMA')})))
+        if 'wg_gemm_kernel' in name:
+            wg.append((name, sorted(
+                {op for op in ops if op.startswith(('HGMMA', 'HMMA'))})))
+    mn = sum('Lb0E' in name for name, _ in wg)
+    split = sum('Partial' in name for name, _ in wg)
+    check(bool(wg) and mn > 0 and split > 0 and all(
+        any(op.startswith('HGMMA') and 'BF16' in op for op in h)
+        and not any(op.startswith('HMMA') for op in h) for _, h in wg),
+          f'SASS: {len(wg)} wg_gemm_kernel instantiations ({mn} with an '
+          f'MN-major operand, {split} split-K), each with a bf16 HGMMA and '
+          f'no HMMA (their opcodes: '
+          f'{sorted({op for _, h in wg for op in h})})')
     for policy, want, other in (('TcBf16', BF16_HMMA, TF32_HMMA),
                                 ('TcTf32x3', TF32_HMMA, BF16_HMMA)):
         found = kinds[policy]
@@ -3197,10 +3223,11 @@ def main() -> int:
     cfg = get_default_model_config()
     if train_step_only:
         graphs = training_batches(torch)
+        batch = collate(graphs, bucketed_pad_spec(graphs, TRAIN_CONFS),
+                        TRAIN_CONFS, device='cuda')
         phase('5. training steps, default config')
-        training_phase(torch, graphs, collate(
-            graphs, bucketed_pad_spec(graphs, TRAIN_CONFS), TRAIN_CONFS,
-            device='cuda'), cfg)
+        training_phase(torch, graphs, batch, cfg)
+        bf16_step_phase(torch, cfg, graphs, batch)
         return 1 if FAILURES else 0
 
     protein = protein_like_molecule(Molecule)
@@ -3367,8 +3394,10 @@ def main() -> int:
         kernels.append(dict(
             name=name, route='cuda', source=csrc + source,
             replaces=tpu + replaces,
-            status=('bf16 mode ported' if name.endswith(('.bf16', '_bwd'))
-                    else 'ported'),
+            status=('bf16 mode on wgmma (wg_gemm.cuh)'
+                    if name.startswith('fused_transformer_block.bf16')
+                    else 'bf16 mode ported'
+                    if name.endswith(('.bf16', '_bwd')) else 'ported'),
             launches=sum(per_path.values()), launches_per_path=per_path,
             max_abs_err=e['max_abs_err'], ms=e['ms'],
             plain_ms=e['plain_ms'], bound_ms=b_ms, bound_by=b_by,

@@ -24,9 +24,9 @@
 // its ~4 KB of float32 input and output, still bound by operations; the
 // backward's 6.3 MFLOP a row 6.4 ns against 1.8 ns for x, dy and dx.
 //
-// Design: every product runs on the tensor cores through tc_gemm.cuh (3xTF32
-// mma.sync fed by a cp.async ring, or its bf16 policy in bf16 mode; its note
-// gives the design), with bias,
+// Design: every product runs on the tensor cores, through tc_gemm.cuh in
+// float32 (3xTF32 mma.sync fed by a cp.async ring) and through wg_gemm.cuh in
+// bf16 mode (wgmma fed by TMA; their notes give the designs), with bias,
 // dropout, the elu' factor, a residual or a split-K partial store in its
 // epilogue. Forward -- LN1, the QKV GEMM, the attention pass (one warp per
 // tuple and head; all S slots of the tuple are read by that warp, so the S x S
@@ -42,7 +42,21 @@
 // pass (one warp per tuple and head, the S x S softmax backward in registers).
 // Rows are the S planes of T tuples one after another; the ragged T edge is
 // masked, nothing is padded.
-#include "tc_gemm.cuh"
+//
+// bf16 mode: wg_gemm.cuh reads bf16 operands, so each is rounded once where
+// it is made and stored beside (or instead of) its float32 value, in rows
+// padded to a multiple of 8 elements. Forward: the weights are cast once a
+// call (one launch for the four) and kept in the forward's scratch for the
+// backward; LN1 and LN2 write xn and x1n in both types, FF1's epilogue a in
+// both, and the attention pass attn0 in bf16 alone (only products read
+// it). Backward: the dropout-mask pass writes dhm and da in both types (a
+// cast pass writes the bf16 copy of dy, or of dx1, when dropout is off), the
+// elu' epilogue dt in both and the attention backward dqkv in both. The
+// float32 copies feed the column sums, the LayerNorm backward and the
+// epilogues, as in float32 mode.
+#include "wg_gemm.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -169,79 +183,262 @@ tuple_attention_bwd_kernel(const float* __restrict__ qkv,
   }
 }
 
+// launch(std::integral_constant<int, S>) for S = s in 2..4.
+template <class Launch>
+int by_arity(int s, Launch launch) {
+  switch (s) {
+    case 2: launch(std::integral_constant<int, 2>{}); break;
+    case 3: launch(std::integral_constant<int, 3>{}); break;
+    case 4: launch(std::integral_constant<int, 4>{}); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 int attention(const float* qkv, float* attn0, int s, int t, int f,
               int n_heads, float scale, cudaStream_t st) {
   if (t == 0) return (int)cudaGetLastError();
-  const int blocks = cdiv((long long)t * n_heads, kWarps);
-  switch (s) {
-    case 2:
-      tuple_attention_kernel<2><<<blocks, kThreads, 0, st>>>(
-          qkv, attn0, t, f, n_heads, scale);
-      break;
-    case 3:
-      tuple_attention_kernel<3><<<blocks, kThreads, 0, st>>>(
-          qkv, attn0, t, f, n_heads, scale);
-      break;
-    case 4:
-      tuple_attention_kernel<4><<<blocks, kThreads, 0, st>>>(
-          qkv, attn0, t, f, n_heads, scale);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return by_arity(s, [&](auto arity) {
+    tuple_attention_kernel<decltype(arity)::value>
+        <<<cdiv((long long)t * n_heads, kWarps), kThreads, 0, st>>>(
+            qkv, attn0, t, f, n_heads, scale);
+  });
 }
 
 int attention_bwd(const float* qkv, const float* dattn0, float* dqkv, int s,
                   int t, int f, int n_heads, float scale, cudaStream_t st) {
   if (t == 0) return (int)cudaGetLastError();
-  const int blocks = cdiv((long long)t * n_heads, kWarps);
-  switch (s) {
-    case 2:
-      tuple_attention_bwd_kernel<2><<<blocks, kThreads, 0, st>>>(
-          qkv, dattn0, dqkv, t, f, n_heads, scale);
-      break;
-    case 3:
-      tuple_attention_bwd_kernel<3><<<blocks, kThreads, 0, st>>>(
-          qkv, dattn0, dqkv, t, f, n_heads, scale);
-      break;
-    case 4:
-      tuple_attention_bwd_kernel<4><<<blocks, kThreads, 0, st>>>(
-          qkv, dattn0, dqkv, t, f, n_heads, scale);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+  return by_arity(s, [&](auto arity) {
+    tuple_attention_bwd_kernel<decltype(arity)::value>
+        <<<cdiv((long long)t * n_heads, kWarps), kThreads, 0, st>>>(
+            qkv, dattn0, dqkv, t, f, n_heads, scale);
+  });
+}
+
+// ---------------------------------------------------------------- bf16 mode
+// The attention pass of tuple_attention_kernel with attn0 stored in bf16
+// alone, rows ld apart (its only readers are products).
+template <int S>
+__global__ void __launch_bounds__(kThreads)
+tuple_attention_h_kernel(const float* __restrict__ qkv, bf16* __restrict__ out,
+                         int ld, int T, int F, int H, float scale) {
+  const int w = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (w >= T * H) return;
+  const int t = w / H, h = w - t * H;
+  const int dh = F / H;
+  const float* base = qkv + (size_t)t * 3 * F + h * dh;
+  const size_t plane = (size_t)T * 3 * F;
+  float wgt[S][S];
+  tuple_weights<S>(base, plane, F, dh, scale, lane, wgt);
+  for (int j = lane; j < dh; j += 32) {
+    float v[S];
+#pragma unroll
+    for (int s2 = 0; s2 < S; ++s2) v[s2] = base[s2 * plane + 2 * F + j];
+#pragma unroll
+    for (int s1 = 0; s1 < S; ++s1) {
+      float acc = 0.f;
+#pragma unroll
+      for (int s2 = 0; s2 < S; ++s2) acc += wgt[s1][s2] * v[s2];
+      out[((size_t)s1 * T + t) * ld + h * dh + j] = __float2bfloat16_rn(acc);
+    }
   }
+}
+
+// tuple_attention_bwd_kernel, also storing dqkv rounded to bf16 into dqkvh
+// (rows ld apart).
+template <int S>
+__global__ void __launch_bounds__(kThreads)
+tuple_attention_bwd_h_kernel(const float* __restrict__ qkv,
+                             const float* __restrict__ dattn0,
+                             float* __restrict__ dqkv,
+                             bf16* __restrict__ dqkvh, int ld, int T, int F,
+                             int H, float scale) {
+  const int w = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (w >= T * H) return;
+  const int t = w / H, h = w - t * H;
+  const int dh = F / H;
+  const size_t off = (size_t)t * 3 * F + h * dh;
+  const size_t plane = (size_t)T * 3 * F;
+  const float* base = qkv + off;
+  float wgt[S][S];
+  tuple_weights<S>(base, plane, F, dh, scale, lane, wgt);
+  const float* da = dattn0 + (size_t)t * F + h * dh;
+  const size_t dplane = (size_t)T * F;
+  float ds[S][S];
+#pragma unroll
+  for (int s1 = 0; s1 < S; ++s1) {
+    float wdot = 0.f;
+#pragma unroll
+    for (int s2 = 0; s2 < S; ++s2) {
+      const float* v = base + s2 * plane + 2 * F;
+      float p = 0.f;
+      for (int j = lane; j < dh; j += 32) p += da[s1 * dplane + j] * v[j];
+      ds[s1][s2] = warp_sum(p);
+      wdot += wgt[s1][s2] * ds[s1][s2];
+    }
+#pragma unroll
+    for (int s2 = 0; s2 < S; ++s2)
+      ds[s1][s2] = wgt[s1][s2] * (ds[s1][s2] - wdot) * scale;
+  }
+  float* out = dqkv + off;
+  bf16* outh = dqkvh + (size_t)t * ld + h * dh;
+  const size_t hplane = (size_t)T * ld;
+  for (int j = lane; j < dh; j += 32) {
+    float q[S], k[S], a[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      q[s] = base[s * plane + j];
+      k[s] = base[s * plane + F + j];
+      a[s] = da[s * dplane + j];
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      float dq = 0.f, dk = 0.f, dv = 0.f;
+#pragma unroll
+      for (int u = 0; u < S; ++u) {
+        dq += ds[s][u] * k[u];
+        dk += ds[u][s] * q[u];
+        dv += wgt[u][s] * a[u];
+      }
+      out[s * plane + j] = dq;
+      out[s * plane + F + j] = dk;
+      out[s * plane + 2 * F + j] = dv;
+      outh[s * hplane + j] = __float2bfloat16_rn(dq);
+      outh[s * hplane + F + j] = __float2bfloat16_rn(dk);
+      outh[s * hplane + 2 * F + j] = __float2bfloat16_rn(dv);
+    }
+  }
+}
+
+// LayerNorm (layernorm_kernel) storing y in float32 and, rounded, in bf16
+// (rows ldh apart).
+__global__ void __launch_bounds__(kThreads)
+layernorm_h_kernel(const float* __restrict__ x, float* __restrict__ y,
+                   bf16* __restrict__ yh, int ldh,
+                   const float* __restrict__ g, const float* __restrict__ b,
+                   int M, int L) {
+  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  float mean, rstd;
+  row_moments(Mat{x, L}, row, L, lane, mean, rstd);
+  const float* xr = x + (size_t)row * L;
+  float* yr = y + (size_t)row * L;
+  bf16* yhr = yh + (size_t)row * ldh;
+  for (int j = lane; j < L; j += 32) {
+    const float v = (xr[j] - mean) * rstd * g[j] + b[j];
+    yr[j] = v;
+    yhr[j] = __float2bfloat16_rn(v);
+  }
+}
+
+int layernorm_h(const float* x, float* y, bf16* yh, int ldh, const float* g,
+                const float* b, int M, int L, cudaStream_t st) {
+  if (M > 0)
+    layernorm_h_kernel<<<cdiv(M, kWarps), kThreads, 0, st>>>(x, y, yh, ldh,
+                                                             g, b, M, L);
   return (int)cudaGetLastError();
+}
+
+// One rows x cols float32 matrix x (contiguous) to bf16: yh[m, n] (rows ldh
+// apart) = bf16(x[m, n] * mask(m, n)), the masked value also to y in float32
+// when y is set (mask_grad's rule: the mask counted by the flat index).
+struct ToBf16 {
+  const float* x;
+  Drop drop;
+  float* y;
+  bf16* yh;
+  int rows, cols, ldh;
+};
+
+constexpr int kMaxCasts = 4;
+struct ToBf16Jobs {
+  ToBf16 job[kMaxCasts];
+};
+
+// blockIdx.y picks the job (read in place: the jobs are a grid constant).
+__global__ void __launch_bounds__(kThreads)
+to_bf16_kernel(const __grid_constant__ ToBf16Jobs jobs) {
+  const ToBf16& j = jobs.job[blockIdx.y];
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= (long long)j.rows * j.cols) return;
+  float v = j.x[i];
+  if (j.drop.on) v *= j.drop.at((unsigned long long)i);
+  if (j.y) j.y[i] = v;
+  const long long m = i / j.cols;
+  j.yh[m * j.ldh + (i - m * j.cols)] = __float2bfloat16_rn(v);
+}
+
+int to_bf16(const ToBf16* jobs, int n, cudaStream_t st) {
+  ToBf16Jobs all{};
+  long long most = 0;
+  for (int k = 0; k < n; ++k) {
+    all.job[k] = jobs[k];
+    const long long e = (long long)jobs[k].rows * jobs[k].cols;
+    most = e > most ? e : most;
+  }
+  if (most > 0)
+    to_bf16_kernel<<<dim3(cdiv(most, kThreads), n), kThreads, 0, st>>>(all);
+  return (int)cudaGetLastError();
+}
+
+ToBf16 cast_of(const float* x, bf16* yh, int rows, int cols, int ldh,
+               const Drop& drop = make_drop(0, 0, 0, 1.f, 0, 0),
+               float* y = nullptr) {
+  return ToBf16{x, drop, y, yh, rows, cols, ldh};
 }
 
 // The forward's intermediates, which the backward reads: xn = LN1(x),
 // qkv, attn0, x1 = (attn0 wo^T + bo) * mask1 + xn, x1n = LN2(x1) and the
-// FF's activation a = elu(x1n w1^T + c1), R = S*T rows each.
+// FF's activation a = elu(x1n w1^T + c1), R = S*T rows each. In bf16 mode
+// also the bf16 copies of xn, x1n and a, attn0 in bf16 alone, and the four
+// weights in bf16 (rows padded to 8 elements; offsets in floats, 16-byte
+// aligned).
 struct FwdLayout {
   size_t xn, qkv, attn0, x1, x1n, a, total;
+  size_t xn_h, attn0_h, x1n_h, a_h, wq_h, wo_h, w1_h, w2_h;
 };
 
-FwdLayout fwd_layout(long long r, long long f, long long hid) {
-  FwdLayout l;
+// Floats of n bf16 elements.
+inline long long h_floats(long long n) { return (n + 1) / 2; }
+
+FwdLayout fwd_layout(long long r, long long f, long long hid, bool h) {
+  FwdLayout l{};
   size_t o = 0;
   l.xn = o; o += r * f;
   l.qkv = o; o += r * 3 * f;
-  l.attn0 = o; o += r * f;
+  if (!h) { l.attn0 = o; o += r * f; }
   l.x1 = o; o += r * f;
   l.x1n = o; o += r * f;
   l.a = o; o += r * hid;
+  if (h) {
+    const long long fh = pad8(f), hh = pad8(hid);
+    o = (o + 3) / 4 * 4;
+    l.xn_h = carve(o, h_floats(r * fh));
+    l.attn0_h = carve(o, h_floats(r * fh));
+    l.x1n_h = carve(o, h_floats(r * fh));
+    l.a_h = carve(o, h_floats(r * hh));
+    l.wq_h = carve(o, h_floats(3 * f * fh));
+    l.wo_h = carve(o, h_floats(f * fh));
+    l.w1_h = carve(o, h_floats(hid * fh));
+    l.w2_h = carve(o, h_floats(f * hh));
+  }
   l.total = o;
   return l;
 }
 
+// In bf16 mode also the bf16 copies of dhm (dy x mask2), dt, da (dx1 x
+// mask1) and dqkv.
 struct BwdLayout {
   size_t dh, dt, dx1n, dx1, da1, datt, dqkv, dxn, mean, rstd, wpart, cpart,
       total;
+  size_t dhm_h, dt_h, da_h, dqkv_h;
 };
 
-BwdLayout bwd_layout(long long r, long long f, long long hid) {
-  BwdLayout l;
+BwdLayout bwd_layout(long long r, long long f, long long hid, bool h) {
+  BwdLayout l{};
   size_t o = 0;
   l.dh = o; o += r * f;
   l.dt = o; o += r * hid;
@@ -256,8 +453,142 @@ BwdLayout bwd_layout(long long r, long long f, long long hid) {
   const long long wide = 3 * f > hid ? 3 * f : hid;
   l.wpart = o; o += wgrad_scratch(wide, f);
   l.cpart = o; o += colsum_scratch(r, wide);
+  if (h) {
+    o = (o + 3) / 4 * 4;
+    l.dhm_h = carve(o, h_floats(r * pad8(f)));
+    l.dt_h = carve(o, h_floats(r * pad8(hid)));
+    l.da_h = carve(o, h_floats(r * pad8(f)));
+    l.dqkv_h = carve(o, h_floats(r * pad8(3 * f)));
+  }
   l.total = o;
   return l;
+}
+
+bf16* as_h(float* base, size_t at) {
+  return reinterpret_cast<bf16*>(base + at);
+}
+const bf16* as_h(const float* base, size_t at) {
+  return reinterpret_cast<const bf16*>(base + at);
+}
+
+// The forward in bf16 mode: every product on wg_gemm.cuh.
+int block_fwd_bf16(const float* x, const float* g1, const float* b1,
+                   const float* wq, const float* bq, const float* wo,
+                   const float* bo, const float* g2, const float* b2,
+                   const float* w1, const float* c1, const float* w2,
+                   const float* c2, const Drop& m1, const Drop& m2,
+                   float* scratch, float* y, int s, int t, int f, int hid,
+                   int n_heads, float scale, cudaStream_t st) {
+  const int r = s * t, fh = pad8(f), hh = pad8(hid);
+  const FwdLayout l = fwd_layout(r, f, hid, true);
+  float *xn = scratch + l.xn, *qkv = scratch + l.qkv, *x1 = scratch + l.x1,
+        *x1n = scratch + l.x1n, *a = scratch + l.a;
+  bf16 *xn_h = as_h(scratch, l.xn_h), *attn0_h = as_h(scratch, l.attn0_h),
+       *x1n_h = as_h(scratch, l.x1n_h), *a_h = as_h(scratch, l.a_h),
+       *wq_h = as_h(scratch, l.wq_h), *wo_h = as_h(scratch, l.wo_h),
+       *w1_h = as_h(scratch, l.w1_h), *w2_h = as_h(scratch, l.w2_h);
+  const ToBf16 weights[4] = {cast_of(wq, wq_h, 3 * f, f, fh),
+                             cast_of(wo, wo_h, f, f, fh),
+                             cast_of(w1, w1_h, hid, f, fh),
+                             cast_of(w2, w2_h, f, hid, hh)};
+  RETURN_IF_ERR(to_bf16(weights, 4, st));
+  RETURN_IF_ERR(layernorm_h(x, xn, xn_h, fh, g1, b1, r, f, st));
+  Out o = out_to(qkv, 3 * f);
+  o.bias = bq;
+  RETURN_IF_ERR(wg_gemm(MatH{xn_h, fh}, MatH{wq_h, fh}, o, r, 3 * f, f, st));
+  if (t > 0)
+    RETURN_IF_ERR(by_arity(s, [&](auto arity) {
+      tuple_attention_h_kernel<decltype(arity)::value>
+          <<<cdiv((long long)t * n_heads, kWarps), kThreads, 0, st>>>(
+              qkv, attn0_h, fh, t, f, n_heads, scale);
+    }));
+  // x1 = (attn0 wo^T + bo) * mask1 + xn
+  o = out_to(x1, f);
+  o.bias = bo;
+  o.drop = m1;
+  o.R = xn;
+  o.ldr = f;
+  RETURN_IF_ERR(wg_gemm(MatH{attn0_h, fh}, MatH{wo_h, fh}, o, r, f, f, st));
+  RETURN_IF_ERR(layernorm_h(x1, x1n, x1n_h, fh, g2, b2, r, f, st));
+  RETURN_IF_ERR(wg_gemm(MatH{x1n_h, fh}, MatH{w1_h, fh},
+                        EluOutH{c1, a, hid, a_h, hh}, r, hid, f, st));
+  // y = (a @ w2^T + c2) * mask2 + x1n
+  o = out_to(y, f);
+  o.bias = c2;
+  o.drop = m2;
+  o.R = x1n;
+  o.ldr = f;
+  return wg_gemm(MatH{a_h, hh}, MatH{w2_h, hh}, o, r, f, hid, st);
+}
+
+// The backward's products in bf16 mode (wg_gemm.cuh), up to dxn.
+int block_bwd_bf16(const float* g2, const float* dy, const Drop& m1,
+                   const Drop& m2, const float* fwd, float* p, float* dg2,
+                   float* db2, float* dbq, float* dwq, float* dwo, float* dbo,
+                   float* dw1, float* dc1, float* dw2, float* dc2, int s,
+                   int t, int f, int hid, int n_heads, float scale,
+                   cudaStream_t st) {
+  const int r = s * t, fh = pad8(f), hh = pad8(hid), qh = pad8(3 * f);
+  const FwdLayout lf = fwd_layout(r, f, hid, true);
+  const float *qkv = fwd + lf.qkv, *x1 = fwd + lf.x1, *a = fwd + lf.a;
+  const bf16 *xn_h = as_h(fwd, lf.xn_h), *attn0_h = as_h(fwd, lf.attn0_h),
+             *x1n_h = as_h(fwd, lf.x1n_h), *a_h = as_h(fwd, lf.a_h),
+             *wq_h = as_h(fwd, lf.wq_h), *wo_h = as_h(fwd, lf.wo_h),
+             *w1_h = as_h(fwd, lf.w1_h), *w2_h = as_h(fwd, lf.w2_h);
+  const BwdLayout l = bwd_layout(r, f, hid, true);
+  float *dh = p + l.dh, *dt = p + l.dt, *dx1n = p + l.dx1n, *dx1 = p + l.dx1,
+        *da1 = p + l.da1, *datt = p + l.datt, *dqkv = p + l.dqkv,
+        *dxn = p + l.dxn, *mean = p + l.mean, *rstd = p + l.rstd,
+        *wpart = p + l.wpart, *cpart = p + l.cpart;
+  bf16 *dhm_h = as_h(p, l.dhm_h), *dt_h = as_h(p, l.dt_h),
+       *da_h = as_h(p, l.da_h), *dqkv_h = as_h(p, l.dqkv_h);
+
+  // y = h * mask2 + x1n, h = a w2^T + c2, a = elu(x1n w1^T + c1)
+  const float* dhm = m2.on ? dh : dy;
+  const ToBf16 dhm_cast =
+      cast_of(dy, dhm_h, r, f, fh, m2, m2.on ? dh : nullptr);
+  RETURN_IF_ERR(to_bf16(&dhm_cast, 1, st));
+  RETURN_IF_ERR(wg_gemm_wgrad(tr(MatH{dhm_h, fh}), tr(MatH{a_h, hh}), dw2, f,
+                              hid, r, wpart, st));
+  RETURN_IF_ERR(colsum(Mat{dhm, f}, dc2, r, f, cpart, st));
+  RETURN_IF_ERR(wg_gemm(MatH{dhm_h, fh}, tr(MatH{w2_h, hh}),
+                        EluGradOutH{dt, hid, a, hid, dt_h, hh}, r, hid, f,
+                        st));
+  RETURN_IF_ERR(wg_gemm_wgrad(tr(MatH{dt_h, hh}), tr(MatH{x1n_h, fh}), dw1,
+                              hid, f, r, wpart, st));
+  RETURN_IF_ERR(colsum(Mat{dt, hid}, dc1, r, hid, cpart, st));
+  Out o = out_to(dx1n, f);
+  o.R = dy;
+  o.ldr = f;
+  RETURN_IF_ERR(wg_gemm(MatH{dt_h, hh}, tr(MatH{w1_h, fh}), o, r, f, hid,
+                        st));
+  // x1n = LN2(x1); x1 = attn1 * mask1 + xn
+  RETURN_IF_ERR(layernorm_bwd(dx1n, Mat{x1, f}, g2, dx1, dg2, db2, r, f,
+                              mean, rstd, cpart, st));
+  const float* da = m1.on ? da1 : dx1;
+  const ToBf16 da_cast =
+      cast_of(dx1, da_h, r, f, fh, m1, m1.on ? da1 : nullptr);
+  RETURN_IF_ERR(to_bf16(&da_cast, 1, st));
+  // attn1 = attn0 wo^T + bo
+  RETURN_IF_ERR(wg_gemm_wgrad(tr(MatH{da_h, fh}), tr(MatH{attn0_h, fh}), dwo,
+                              f, f, r, wpart, st));
+  RETURN_IF_ERR(colsum(Mat{da, f}, dbo, r, f, cpart, st));
+  RETURN_IF_ERR(wg_gemm(MatH{da_h, fh}, tr(MatH{wo_h, fh}), out_to(datt, f),
+                        r, f, f, st));
+  if (t > 0)
+    RETURN_IF_ERR(by_arity(s, [&](auto arity) {
+      tuple_attention_bwd_h_kernel<decltype(arity)::value>
+          <<<cdiv((long long)t * n_heads, kWarps), kThreads, 0, st>>>(
+              qkv, datt, dqkv, dqkv_h, qh, t, f, n_heads, scale);
+    }));
+  // qkv = xn wq^T + bq; xn also feeds the residual: dxn = dx1 + dqkv wq
+  RETURN_IF_ERR(wg_gemm_wgrad(tr(MatH{dqkv_h, qh}), tr(MatH{xn_h, fh}), dwq,
+                              3 * f, f, r, wpart, st));
+  RETURN_IF_ERR(colsum(Mat{dqkv, 3 * f}, dbq, r, 3 * f, cpart, st));
+  o = out_to(dxn, f);
+  o.R = dx1;
+  o.ldr = f;
+  return wg_gemm(MatH{dqkv_h, qh}, tr(MatH{wq_h, fh}), o, r, f, 3 * f, st);
 }
 
 }  // namespace
@@ -265,16 +596,19 @@ BwdLayout bwd_layout(long long r, long long f, long long hid) {
 extern "C" {
 
 // Floats of the forward's scratch: its intermediates (FwdLayout), R x (7F +
-// hid). The backward reads them: keep the scratch until it has run.
-long long grappa_fused_block_scratch(int s, int t, int f, int hid) {
-  return (long long)fwd_layout((long long)s * t, f, hid).total;
+// hid); in bf16 mode R x (6F + hid) and the bf16 copies, R x (3F + hid) / 2
+// and the weights. The backward reads them: keep the scratch until it has
+// run.
+long long grappa_fused_block_scratch(int s, int t, int f, int hid,
+                                     int mm_bf16) {
+  return (long long)fwd_layout((long long)s * t, f, hid, mm_bf16).total;
 }
 
 // x, y: (S, T, F); weights in torch layout: wq (3F, F), wo (F, F),
 // w1 (hid, F), w2 (F, hid). S must be 2, 3 or 4. Dropout: masks keyed by
 // (seed, 0) and (seed, 1) when drop_on, keep iff Philox bits >= threshold,
-// kept values x drop_scale. mm_bf16: the four products in tc_gemm.cuh's bf16
-// policy (operands rounded to bf16, float32 sums), the JAX kernel's
+// kept values x drop_scale. mm_bf16: the four products on wg_gemm.cuh's
+// bf16 wgmma (operands rounded to bf16, float32 sums), the JAX kernel's
 // mm_dtype=bfloat16; LayerNorms and attention stay float32, as there.
 int grappa_fused_block_fwd(const float* x, const float* g1, const float* b1,
                            const float* wq, const float* bq, const float* wo,
@@ -287,40 +621,41 @@ int grappa_fused_block_fwd(const float* x, const float* g1, const float* b1,
                            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int r = s * t;
-  const FwdLayout l = fwd_layout(r, f, hid);
+  const Drop m1 = make_drop(seed, 0, threshold, drop_scale, drop_on, f);
+  const Drop m2 = make_drop(seed, 1, threshold, drop_scale, drop_on, f);
+  if (mm_bf16)
+    return block_fwd_bf16(x, g1, b1, wq, bq, wo, bo, g2, b2, w1, c1, w2, c2,
+                          m1, m2, scratch, y, s, t, f, hid, n_heads, scale,
+                          st);
+  const FwdLayout l = fwd_layout(r, f, hid, false);
   float *xn = scratch + l.xn, *qkv = scratch + l.qkv,
         *attn0 = scratch + l.attn0, *x1 = scratch + l.x1,
         *x1n = scratch + l.x1n, *a = scratch + l.a;
-  const Drop m1 = make_drop(seed, 0, threshold, drop_scale, drop_on, f);
-  const Drop m2 = make_drop(seed, 1, threshold, drop_scale, drop_on, f);
-  auto run = [&](auto policy) {
-    using P = decltype(policy);
-    RETURN_IF_ERR(layernorm(x, f, xn, f, g1, b1, r, f, st));
-    RETURN_IF_ERR(tc_gemm<P>(Mat{xn, f}, wq, f, bq, nullptr, 0, qkv, 3 * f, r,
-                             3 * f, f, false, st));
-    RETURN_IF_ERR(attention(qkv, attn0, s, t, f, n_heads, scale, st));
-    RETURN_IF_ERR(tc_gemm<P>(Mat{attn0, f}, wo, f, bo, xn, f, x1, f, r, f, f,
-                             false, st, m1));
-    RETURN_IF_ERR(layernorm(x1, f, x1n, f, g2, b2, r, f, st));
-    RETURN_IF_ERR(tc_gemm<P>(Mat{x1n, f}, w1, f, c1, nullptr, 0, a, hid, r,
-                             hid, f, true, st));
-    // y = (a @ w2^T + c2) * mask2 + x1n
-    return tc_gemm<P>(Mat{a, hid}, w2, hid, c2, x1n, f, y, f, r, f, hid,
-                      false, st, m2);
-  };
-  return mm_bf16 ? run(TcBf16{}) : run(TcTf32x3{});
+  RETURN_IF_ERR(layernorm(x, f, xn, f, g1, b1, r, f, st));
+  RETURN_IF_ERR(tc_gemm(Mat{xn, f}, wq, f, bq, nullptr, 0, qkv, 3 * f, r,
+                        3 * f, f, false, st));
+  RETURN_IF_ERR(attention(qkv, attn0, s, t, f, n_heads, scale, st));
+  RETURN_IF_ERR(tc_gemm(Mat{attn0, f}, wo, f, bo, xn, f, x1, f, r, f, f,
+                        false, st, m1));
+  RETURN_IF_ERR(layernorm(x1, f, x1n, f, g2, b2, r, f, st));
+  RETURN_IF_ERR(tc_gemm(Mat{x1n, f}, w1, f, c1, nullptr, 0, a, hid, r, hid,
+                        f, true, st));
+  // y = (a @ w2^T + c2) * mask2 + x1n
+  return tc_gemm(Mat{a, hid}, w2, hid, c2, x1n, f, y, f, r, f, hid, false,
+                 st, m2);
 }
 
-long long grappa_fused_block_bwd_scratch(int s, int t, int f, int hid) {
-  return (long long)bwd_layout((long long)s * t, f, hid).total;
+long long grappa_fused_block_bwd_scratch(int s, int t, int f, int hid,
+                                         int mm_bf16) {
+  return (long long)bwd_layout((long long)s * t, f, hid, mm_bf16).total;
 }
 
 // Gradients of the forward above for dy (S, T, F): dx (S, T, F) and the
 // twelve parameter gradients in the parameters' shapes. `fwd` is the
-// forward's scratch from the same inputs, read only; b1, b2 and the biases
-// are not read (the forward's intermediates hold their effect). mm_bf16:
-// the eight products in tc_gemm.cuh's bf16 policy, both operands rounded
-// to bf16 (dy's descendants too), float32 sums, as the JAX kernel's
+// forward's scratch from the same inputs and mode, read only; b1, b2 and the
+// biases are not read (the forward's intermediates hold their effect).
+// mm_bf16: the eight products on wg_gemm.cuh's bf16 wgmma, both operands
+// rounded to bf16 (dy's descendants too), float32 sums, as the JAX kernel's
 // _dot_tn / _dot_nt with mm_dtype=bfloat16; column sums, LayerNorm and
 // attention backward stay float32, as there.
 int grappa_fused_block_bwd(
@@ -335,40 +670,42 @@ int grappa_fused_block_bwd(
     int mm_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int r = s * t;
-  const FwdLayout lf = fwd_layout(r, f, hid);
-  const float *xn = fwd + lf.xn, *qkv = fwd + lf.qkv,
-              *attn0 = fwd + lf.attn0, *x1 = fwd + lf.x1,
-              *x1n = fwd + lf.x1n, *a = fwd + lf.a;
-  const BwdLayout l = bwd_layout(r, f, hid);
-  float* p = scratch;
-  float *dh = p + l.dh, *dt = p + l.dt, *dx1n = p + l.dx1n, *dx1 = p + l.dx1,
-        *da1 = p + l.da1, *datt = p + l.datt, *dqkv = p + l.dqkv,
-        *dxn = p + l.dxn, *mean = p + l.mean, *rstd = p + l.rstd,
-        *wpart = p + l.wpart, *cpart = p + l.cpart;
   const Drop m1 = make_drop(seed, 0, threshold, drop_scale, drop_on, f);
   const Drop m2 = make_drop(seed, 1, threshold, drop_scale, drop_on, f);
-
-  auto run = [&](auto policy) {
-    using P = decltype(policy);
+  const BwdLayout l = bwd_layout(r, f, hid, mm_bf16);
+  float* p = scratch;
+  float *dxn = p + l.dxn, *mean = p + l.mean, *rstd = p + l.rstd,
+        *cpart = p + l.cpart;
+  if (mm_bf16) {
+    RETURN_IF_ERR(block_bwd_bf16(g2, dy, m1, m2, fwd, p, dg2, db2, dbq, dwq,
+                                 dwo, dbo, dw1, dc1, dw2, dc2, s, t, f, hid,
+                                 n_heads, scale, st));
+  } else {
+    const FwdLayout lf = fwd_layout(r, f, hid, false);
+    const float *xn = fwd + lf.xn, *qkv = fwd + lf.qkv,
+                *attn0 = fwd + lf.attn0, *x1 = fwd + lf.x1,
+                *x1n = fwd + lf.x1n, *a = fwd + lf.a;
+    float *dh = p + l.dh, *dt = p + l.dt, *dx1n = p + l.dx1n,
+          *dx1 = p + l.dx1, *da1 = p + l.da1, *datt = p + l.datt,
+          *dqkv = p + l.dqkv, *wpart = p + l.wpart;
     // y = h * mask2 + x1n, h = a w2^T + c2, a = elu(x1n w1^T + c1)
     const float* dhm = dy;
     if (drop_on) {
       RETURN_IF_ERR(mask_grad(dy, m2, nullptr, dh, r, f, st));
       dhm = dh;
     }
-    RETURN_IF_ERR(tc_gemm_wgrad<P>(tr(Mat{dhm, f}), tr(Mat{a, hid}), dw2, f,
-                                   hid, r, wpart, st));
+    RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dhm, f}), tr(Mat{a, hid}), dw2, f,
+                                hid, r, wpart, st));
     RETURN_IF_ERR(colsum(Mat{dhm, f}, dc2, r, f, cpart, st));
-    RETURN_IF_ERR(tc_gemm<P>(Mat{dhm, f}, tr(Mat{w2, hid}),
-                             EluGradOut{dt, hid, a, hid}, r, hid, f, st));
-    RETURN_IF_ERR(tc_gemm_wgrad<P>(tr(Mat{dt, hid}), tr(Mat{x1n, f}), dw1,
-                                   hid, f, r, wpart, st));
+    RETURN_IF_ERR(tc_gemm(Mat{dhm, f}, tr(Mat{w2, hid}),
+                          EluGradOut{dt, hid, a, hid}, r, hid, f, st));
+    RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dt, hid}), tr(Mat{x1n, f}), dw1, hid,
+                                f, r, wpart, st));
     RETURN_IF_ERR(colsum(Mat{dt, hid}, dc1, r, hid, cpart, st));
     Out o = out_to(dx1n, f);
     o.R = dy;
     o.ldr = f;
-    RETURN_IF_ERR(tc_gemm<P>(Mat{dt, hid}, tr(Mat{w1, f}), o, r, f, hid,
-                             st));
+    RETURN_IF_ERR(tc_gemm(Mat{dt, hid}, tr(Mat{w1, f}), o, r, f, hid, st));
     // x1n = LN2(x1); x1 = attn1 * mask1 + xn
     RETURN_IF_ERR(layernorm_bwd(dx1n, Mat{x1, f}, g2, dx1, dg2, db2, r, f,
                                 mean, rstd, cpart, st));
@@ -378,23 +715,23 @@ int grappa_fused_block_bwd(
       da = da1;
     }
     // attn1 = attn0 wo^T + bo
-    RETURN_IF_ERR(tc_gemm_wgrad<P>(tr(Mat{da, f}), tr(Mat{attn0, f}), dwo, f,
-                                   f, r, wpart, st));
+    RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{da, f}), tr(Mat{attn0, f}), dwo, f,
+                                f, r, wpart, st));
     RETURN_IF_ERR(colsum(Mat{da, f}, dbo, r, f, cpart, st));
-    RETURN_IF_ERR(tc_gemm<P>(Mat{da, f}, tr(Mat{wo, f}), out_to(datt, f), r,
-                             f, f, st));
+    RETURN_IF_ERR(tc_gemm(Mat{da, f}, tr(Mat{wo, f}), out_to(datt, f), r, f,
+                          f, st));
     RETURN_IF_ERR(attention_bwd(qkv, datt, dqkv, s, t, f, n_heads, scale,
                                 st));
     // qkv = xn wq^T + bq; xn also feeds the residual: dxn = dx1 + dqkv wq
-    RETURN_IF_ERR(tc_gemm_wgrad<P>(tr(Mat{dqkv, 3 * f}), tr(Mat{xn, f}), dwq,
-                                   3 * f, f, r, wpart, st));
+    RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dqkv, 3 * f}), tr(Mat{xn, f}), dwq,
+                                3 * f, f, r, wpart, st));
     RETURN_IF_ERR(colsum(Mat{dqkv, 3 * f}, dbq, r, 3 * f, cpart, st));
     o = out_to(dxn, f);
     o.R = dx1;
     o.ldr = f;
-    return tc_gemm<P>(Mat{dqkv, 3 * f}, tr(Mat{wq, f}), o, r, f, 3 * f, st);
-  };
-  RETURN_IF_ERR(mm_bf16 ? run(TcBf16{}) : run(TcTf32x3{}));
+    RETURN_IF_ERR(tc_gemm(Mat{dqkv, 3 * f}, tr(Mat{wq, f}), o, r, f, 3 * f,
+                          st));
+  }
   // xn = LN1(x)
   return layernorm_bwd(dxn, Mat{x, f}, g1, dx, dg1, db1, r, f, mean, rstd,
                        cpart, st);

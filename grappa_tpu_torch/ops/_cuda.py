@@ -43,10 +43,10 @@ _SIGNATURES = {
     'grappa_fused_gnn_bwd_scratch': (_LL, [_I, _I, _I]),
     'grappa_fused_gnn_bwd': (_I, [_P] * 8 + _DROP + [_P] * 13 + [_I] * 5
                              + [_F, _I, _P]),
-    'grappa_fused_block_scratch': (_LL, [_I, _I, _I, _I]),
+    'grappa_fused_block_scratch': (_LL, [_I] * 5),
     'grappa_fused_block_fwd': (_I, [_P] * 13 + _DROP + [_P] * 2 + [_I] * 5
                                + [_F, _I, _P]),
-    'grappa_fused_block_bwd_scratch': (_LL, [_I, _I, _I, _I]),
+    'grappa_fused_block_bwd_scratch': (_LL, [_I] * 5),
     'grappa_fused_block_bwd': (_I, [_P] * 14 + _DROP + [_P] * 15
                                + [_I] * 5 + [_F, _I, _P]),
     'grappa_fused_symmetriser_scratch': (_LL, [_I, _I, _I, _P]),

@@ -9,7 +9,8 @@ onto the LN2 output, as one op on the (S, T, F) layout.
 
 On CUDA tensors `fused_transformer_block` launches the hand-written kernels
 in `csrc/fused_block.cu`, whose products run on the tensor cores
-(`csrc/tc_gemm.cuh`): the forward, whose scratch of intermediates autograd
+(`csrc/tc_gemm.cuh` in float32, `csrc/wg_gemm.cuh`'s wgmma in bf16 mode):
+the forward, whose scratch of intermediates autograd
 keeps, and in the backward a kernel chain that reads them and returns dx
 and the twelve parameter gradients (the source notes give the card's bound
 and the design). On CPU
@@ -107,8 +108,9 @@ class _BlockKernel(torch.autograd.Function):
     def forward(ctx, x, n_heads, drop, bf16, *params):
         (s, t, f), hid = x.shape, params[8].shape[0]
         lib = _cuda.lib()
-        scratch = torch.empty(lib.grappa_fused_block_scratch(s, t, f, hid),
-                              dtype=torch.float32, device=x.device)
+        scratch = torch.empty(
+            lib.grappa_fused_block_scratch(s, t, f, hid, int(bf16)),
+            dtype=torch.float32, device=x.device)
         y = torch.empty_like(x)
         rc = lib.grappa_fused_block_fwd(
             x.data_ptr(), *[p.data_ptr() for p in params], *drop,
@@ -133,7 +135,7 @@ class _BlockKernel(torch.autograd.Function):
         (s, t, f), hid = x.shape, params[8].shape[0]
         lib = _cuda.lib()
         scratch = torch.empty(
-            lib.grappa_fused_block_bwd_scratch(s, t, f, hid),
+            lib.grappa_fused_block_bwd_scratch(s, t, f, hid, int(ctx.bf16)),
             dtype=torch.float32, device=x.device)
         grads = [torch.empty_like(p) for p in (x, *params)]
         rc = lib.grappa_fused_block_bwd(

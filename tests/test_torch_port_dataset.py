@@ -204,8 +204,17 @@ def _ring_bonds(n_rings=6, size=6):
 
 
 @pytest.mark.parametrize('seed', [0, 1, 2])
-def test_native_matches_python_and_jax(seed, monkeypatch):
+def test_native_matches_python_and_jax(seed, monkeypatch, tmp_path):
     assert native.available(), 'g++ builds the native library here'
+    # the JAX package builds its library straight to its shared path, so
+    # test workers that build it at once can load a half-written file:
+    # give it a private path, built anew here
+    monkeypatch.setattr(jax_native, '_LIB_PATH',
+                        tmp_path / 'libgraph_preproc.so')
+    monkeypatch.setattr(jax_native, '_lib', None)
+    monkeypatch.setattr(jax_native, '_tried', False)
+    assert jax_native.available(), \
+        "g++ failed to build the JAX package's native library"
     mol = jax_random_molecule(seed=seed, n_atoms=60)
     cases = [(mol.bonds_by_index(), len(mol.atoms)), _ring_bonds(4 + seed)]
     for bonds, n in cases:

@@ -258,9 +258,17 @@ def test_gnn_kernel_bf16_matches_plain(cuda, n, f, heads, d):
                  tfg.reference_gnn_block(*args, p, heads))
 
 
+# besides the serving and training shapes, the edges of wg_gemm.cuh's
+# tiles: rows R = S x T that are no multiple of 64 or 128 (8194, 111, 15),
+# bf16 rows padded to 8 elements (F = 18, 36; hid = 10, 22, 96), a grid
+# below one wave of 132 SMs (R = 4004 x N = 512: 64-row tiles; R = 15)
+BLOCK_BF16_EDGES = [(2, 4097, 128, 4, 96), (4, 1001, 512, 8, 512),
+                    (3, 5, 36, 4, 20), (4, 33, 64, 4, 96)]
+
+
 @pytest.mark.parametrize('s,t,f,heads,hid', [
     (2, 1376, 512, 8, 512), (3, 1720, 512, 8, 512), (4, 8256, 512, 8, 512),
-    (3, 37, 36, 4, 22), (2, 45, 18, 2, 10)])
+    (3, 37, 36, 4, 22), (2, 45, 18, 2, 10)] + BLOCK_BF16_EDGES)
 def test_block_kernel_bf16_matches_plain(cuda, s, t, f, heads, hid):
     x, p = _block_case(cuda, s, t, f, hid)
     op = tfb.fused_transformer_block
@@ -369,9 +377,14 @@ def test_gnn_backward_bf16_matches_plain(cuda, n, f, heads, d, rate):
 @pytest.mark.parametrize('s,t,f,heads,hid,rate', [
     (2, 1376, 512, 8, 512, 0.5), (3, 1720, 512, 8, 512, 0.0),
     (4, 8256, 512, 8, 512, 0.5), (3, 37, 36, 4, 22, 0.5),
-    (2, 45, 18, 2, 10, 0.0)])
+    (2, 45, 18, 2, 10, 0.0)] + [
+        case + (rate,) for case, rate in zip(BLOCK_BF16_EDGES,
+                                             (0.0, 0.5, 0.5, 0.0))])
 def test_block_backward_bf16_matches_plain(cuda, s, t, f, heads, hid, rate):
-    """K2b in bf16 mode, its eight products on the bf16 tensor cores."""
+    """K2b in bf16 mode, its eight products on wg_gemm.cuh's wgmma: W read
+    MN-major by the dX products, both operands by the split-K dW products
+    (at R = 8194 their 64-row-multiple slices end ragged: 15 slices of 576
+    rows, the last 130)."""
     x, p = _block_case(cuda, s, t, f, hid)
     dy = torch.randn((s, t, f), generator=torch.Generator().manual_seed(8))
     seed = 99 if rate else None
@@ -527,12 +540,15 @@ def test_backward_kernels_are_deterministic(cuda):
         runs += [(outs[0][0], outs[1][0])]
         runs += list(zip(*[g for _, g in outs]))
     runs_b = []
-    for s, t, f, heads, hid in ((4, 900, 128, 4, 128), (4, 8256, 512, 8, 512)):
-        # the second: the n4 training shape, whose dW products split K
+    for s, t, f, heads, hid, dt in ((4, 900, 128, 4, 128, None),
+                                    (4, 8256, 512, 8, 512, None),
+                                    (4, 8256, 512, 8, 512, torch.bfloat16)):
+        # the n4 training shape, whose dW products split K, in float32 and
+        # in bf16 mode (wg_gemm.cuh's split-K slices)
         x, pb = _block_case(cuda, s, t, f, hid)
         dyb = torch.randn_like(x)
         fb = lambda a, *q: tfb.fused_transformer_block(a, q, heads, 0.5,
-                                                       True, 6)
+                                                       True, 6, mm_dtype=dt)
         runs_b += list(zip(*[_grads(fb, [x, *pb], dyb)[1]
                              for _ in range(2)]))
     runs_s = []
