@@ -35,9 +35,10 @@ Phases, each printing its own lines:
      `block_profile` line: K2 / K2b (float32 and bf16) at the n4
      training shape (S=4, T=8256, F=hid=512, dropout 0.5), K1 / K1b at the
      training batch's
-     nodes (N=3376, dropout 0.3) and K3 / K3b at the n4 training shape
-     under torch.profiler, each launch of one call with its device ms and
-     share (printed above the line) and the device ms by kernel name,
+     nodes (N=3376, dropout 0.3) and K3 / K3b (float32 and bf16) at the n4
+     training shape under torch.profiler, each launch of one call with its
+     device ms and share (printed above the line) and the device ms by
+     kernel name,
      beside one torch.matmul
      (fp32, TF32 off) of K2's largest product, 33024 x 1536 x 512, a
      yardstick the port never calls.
@@ -163,10 +164,11 @@ Phases, each printing its own lines:
      model on the card give the run's test metrics (EVAL_RTOL), writer-
      free steps/s beside phase 8's float32 (`trainrun_bf16` line); (d)
      the built library's SASS: every tc_gemm_kernel of the bf16 policy
-     (the backward's MN-major and split-K ones among them) has
-     HMMA.16816.F32.BF16 and no TF32 HMMA, every float32 one the reverse;
-     every wg_gemm_kernel (K2 / K2b's bf16 products, MN-major and split-K
-     ones among them) a bf16 HGMMA and no HMMA.
+     (K1 / K1b's, all in fused_gnn.cu; the backward's MN-major and split-K
+     ones among them) has HMMA.16816.F32.BF16 and no TF32 HMMA, every
+     float32 one the reverse; every wg_gemm_kernel (K2 / K2b's and K3 /
+     K3b's bf16 products, each file's MN-major and split-K ones among them)
+     a bf16 HGMMA and no HMMA.
 
 The `trainrun {...}`, `trainrun_bf16 {...}`, `eval {...}` and `ingest
 {...}` lines come before
@@ -488,9 +490,10 @@ def block_profile(torch, batch, iters=3):
     n4 training shape (S=4, T=8256, F=hid=512, 8 heads, dropout 0.5), K1
     and K1b at the training batch's nodes and neighbour list (F=512, 16
     heads, dropout 0.3), K3 and K3b at the n4 training shape (2
-    permutations, 3 x 256, out 12); K2 and K2b also in bf16 mode at their
-    shape (K2.bf16, K2b.bf16: the split between wg_gemm.cuh's products and
-    the LayerNorm, attention, cast and column-sum passes). Beside them one
+    permutations, 3 x 256, out 12); K2 / K2b and K3 / K3b also in bf16
+    mode at their shapes (K2.bf16, K2b.bf16, K3.bf16, K3b.bf16: the split
+    between wg_gemm.cuh's products and the LayerNorm, attention, permuted-
+    row, cast and column-sum passes). Beside them one
     torch.matmul (float32, TF32 off) of K2's largest product, 33024 x 1536
     x 512, as a yardstick the port never calls."""
     from grappa_tpu_torch.models.heads import PERMUTATIONS
@@ -534,8 +537,12 @@ def block_profile(torch, batch, iters=3):
     flat = [q for layer in layers for q in layer]
     k3 = lambda a, *q: fs.fused_symmetriser(
         a, [q[6 * j:6 * j + 6] for j in range(3)], perms)
+    k3h = lambda a, *q: fs.fused_symmetriser(
+        a, [q[6 * j:6 * j + 6] for j in range(3)], perms,
+        mm_dtype=torch.bfloat16)
 
     dy2 = torch.randn_like(x)
+    dy3 = torch.randn((t, out), device='cuda')
     calls = {'K2': lambda: k2(x, *p2),
              'K2b': backward_of(k2, [x, *p2], dy2),
              'K2.bf16': lambda: k2h(x, *p2),
@@ -544,8 +551,9 @@ def block_profile(torch, batch, iters=3):
              'K1b': backward_of(k1, [feat, nbr, hn, *p1],
                                 torch.randn_like(feat)),
              'K3': lambda: k3(x, *flat),
-             'K3b': backward_of(k3, [x, *flat],
-                                torch.randn((t, out), device='cuda'))}
+             'K3b': backward_of(k3, [x, *flat], dy3),
+             'K3.bf16': lambda: k3h(x, *flat),
+             'K3b.bf16': backward_of(k3h, [x, *flat], dy3)}
     out_line = {'n4': [s, t, f, hid], 'n4_dropout': rate, 'gnn_nodes': n,
                 'gnn_slots': d, 'gnn_dropout': 0.3,
                 'symmetriser': [len(perms), width, out]}
@@ -1778,13 +1786,14 @@ def compare_bf16(torch, entries, name, label, kernel, plain, flops, nbytes,
 
 def bf16_sass(torch):
     """Phase 10(d): every tensor-core GEMM kernel of the built library runs
-    its policy's instruction: the bf16 policy's instantiations (K1, K3 and
-    K1b, K3b's bf16 products, forward and backward: the dX products'
-    MN-major W and the split-K dW products' two MN-major operands among
-    them) BF16_HMMA and no TF32 mma, the float32 ones TF32_HMMA and no bf16
-    mma; and every instantiation of wg_gemm.cuh's kernel (K2 and K2b's bf16
-    products, MN-major and split-K ones among them) a bf16 warpgroup mma
-    (HGMMA ... BF16) and no mma.sync (HMMA)."""
+    its policy's instruction: the bf16 policy's instantiations (K1 and
+    K1b's bf16 products, forward and backward: the dX products' MN-major W
+    and the split-K dW products' two MN-major operands among them), all in
+    fused_gnn.cu, BF16_HMMA and no TF32 mma, the float32 ones TF32_HMMA
+    and no bf16 mma; and every instantiation of wg_gemm.cuh's kernel (K2 /
+    K2b's and K3 / K3b's bf16 products, each file's MN-major and split-K
+    ones among them) a bf16 warpgroup mma (HGMMA ... BF16) and no mma.sync
+    (HMMA)."""
     from grappa_tpu_torch.ops import _cuda
     kinds = {'TcBf16': [], 'TcTf32x3': []}
     wg = []
@@ -1796,15 +1805,24 @@ def bf16_sass(torch):
         if 'wg_gemm_kernel' in name:
             wg.append((name, sorted(
                 {op for op in ops if op.startswith(('HGMMA', 'HMMA'))})))
-    mn = sum('Lb0E' in name for name, _ in wg)
-    split = sum('Partial' in name for name, _ in wg)
-    check(bool(wg) and mn > 0 and split > 0 and all(
+    # an anonymous namespace's mangled name carries its file's name
+    per_file = {src: [(name, h) for name, h in wg if f'{src}_cu' in name]
+                for src in ('fused_block', 'fused_symmetriser')}
+    counts = {src: (len(found), sum('Lb0E' in name for name, _ in found),
+                    sum('Partial' in name for name, _ in found))
+              for src, found in per_file.items()}
+    check(bool(wg) and all(n > 0 and mn > 0 and split > 0
+                           for n, mn, split in counts.values()) and all(
         any(op.startswith('HGMMA') and 'BF16' in op for op in h)
         and not any(op.startswith('HMMA') for op in h) for _, h in wg),
-          f'SASS: {len(wg)} wg_gemm_kernel instantiations ({mn} with an '
-          f'MN-major operand, {split} split-K), each with a bf16 HGMMA and '
-          f'no HMMA (their opcodes: '
+          f'SASS: {len(wg)} wg_gemm_kernel instantiations (by file: '
+          f'instantiations, with an MN-major operand, split-K: {counts}), '
+          f'each with a bf16 HGMMA and no HMMA (their opcodes: '
           f'{sorted({op for _, h in wg for op in h})})')
+    elsewhere = [name for name, _ in kinds['TcBf16']
+                 if 'fused_gnn_cu' not in name]
+    check(not elsewhere, f'SASS: no TcBf16 instantiation outside '
+                         f'fused_gnn.cu ({len(elsewhere)} found)')
     for policy, want, other in (('TcBf16', BF16_HMMA, TF32_HMMA),
                                 ('TcTf32x3', TF32_HMMA, BF16_HMMA)):
         found = kinds[policy]
@@ -3395,7 +3413,8 @@ def main() -> int:
             name=name, route='cuda', source=csrc + source,
             replaces=tpu + replaces,
             status=('bf16 mode on wgmma (wg_gemm.cuh)'
-                    if name.startswith('fused_transformer_block.bf16')
+                    if name.startswith(('fused_transformer_block.bf16',
+                                        'fused_symmetriser.bf16'))
                     else 'bf16 mode ported'
                     if name.endswith(('.bf16', '_bwd')) else 'ported'),
             launches=sum(per_path.values()), launches_per_path=per_path,

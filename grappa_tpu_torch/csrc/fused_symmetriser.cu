@@ -21,12 +21,16 @@
 // In bf16 mode (the JAX kernel's mm_dtype=bfloat16) the forward's products
 // run at the 989 TFLOP/s bf16 peak, 3.2 ns a (4, 512) tuple against 2.4 ns
 // for its 8 KB of float32 input: still bound by operations, barely; the
-// backward's twice the products 6.5 ns against 4.9 ns for x and dx.
+// backward's twice the products 6.5 ns against 4.9 ns for x and dx. Layer
+// 0's normalised permuted rows hn_0 (P x S*F values a tuple) are the
+// largest stream the kernels make themselves, so bf16 mode stores them in
+// bf16 alone.
 //
 // Design: all P permutations run as one batch of P*T rows, and every product
-// runs on the tensor cores through tc_gemm.cuh (3xTF32 mma.sync fed by a
-// cp.async ring, which takes stored operands only; its bf16 policy in bf16
-// mode). Forward -- one row pass
+// runs on the tensor cores: in float32 through tc_gemm.cuh (3xTF32 mma.sync
+// fed by a cp.async ring, which takes stored operands only), in bf16 mode
+// through wg_gemm.cuh (bf16 wgmma fed by TMA; its note gives the design).
+// Forward -- one row pass
 // (a warp a tuple, addressing the S planes of x slot by slot, with no
 // division per element) computes the row mean and 1/std that the tuple's P
 // permuted rows share and writes layer 0's normalised input hn_0 (P*T x S*F),
@@ -46,7 +50,19 @@
 // in permutation order (no permuted gradient is stored) and keeps the dg / db
 // partial sums. The element passes address x slot by slot, with no division
 // per element. No atomics: two runs give the same bits.
-#include "tc_gemm.cuh"
+//
+// bf16 mode: wg_gemm.cuh reads bf16 operands, so each is rounded once where
+// it is made (bf16_passes.cuh), in rows padded to a multiple of 8 elements.
+// Forward: the 2 x n_layers weights are cast once a call and kept in the
+// forward's scratch for the backward; the row pass writes hn_0 in bf16 alone
+// (no float32 hn_0: layer 0 has no skip, and the backward's LayerNorm
+// backward reads x and the row statistics); later layers' LayerNorms write
+// hn_i in both types (float32 for the skip) and the elu epilogue e_i in both
+// (float32 for the backward's elu'). Backward: the output gradient is tiled
+// in both types, the elu' epilogue writes dt in both and a cast pass the
+// bf16 copy of each LayerNorm backward's output; the float32 copies feed the
+// column sums, the epilogues and the LayerNorm backward, as in float32 mode.
+#include "bf16_passes.cuh"
 
 namespace {
 
@@ -76,6 +92,20 @@ tile_rows_kernel(const float* __restrict__ dy, float* __restrict__ dz,
                  long long total, long long per_perm) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i < total) dz[i] = dy[i % per_perm];
+}
+
+// tile_rows_kernel, also storing dz rounded to bf16 into dzh (rows of
+// `cols` elements, ldh apart).
+__global__ void __launch_bounds__(kThreads)
+tile_rows_h_kernel(const float* __restrict__ dy, float* __restrict__ dz,
+                   bf16* __restrict__ dzh, int ldh, int cols,
+                   long long total, long long per_perm) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= total) return;
+  const float v = dy[i % per_perm];
+  dz[i] = v;
+  const long long m = i / cols;
+  dzh[m * ldh + (i - m * cols)] = __float2bfloat16_rn(v);
 }
 
 PermRows perm_rows(const float* x, int s, int t, int f, const int* perms,
@@ -143,6 +173,50 @@ perm_ln_kernel(PermRows pr, int P, int S, const float* __restrict__ g,
       for (int f = lane; f < F; f += 32) {
         const int k = s * F + f;
         out[k] = (xr[f] - mu) * rs * g[k] + b[k];
+      }
+    }
+  }
+}
+
+// perm_ln_kernel storing hn_0 rounded to bf16 alone, rows ldh apart.
+__global__ void __launch_bounds__(kThreads)
+perm_ln_h_kernel(PermRows pr, int P, int S, const float* __restrict__ g,
+                 const float* __restrict__ b, float* __restrict__ mean,
+                 float* __restrict__ rstd, bf16* __restrict__ hn0, int ldh) {
+  const int t = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int T = pr.T, F = pr.F, L = S * F;
+  if (t >= T) return;
+  float acc = 0.f;
+  for (int s = 0; s < S; ++s) {
+    const float* xr = pr.x + ((size_t)s * T + t) * F;
+#pragma unroll 4
+    for (int f = lane; f < F; f += 32) acc += xr[f];
+  }
+  const float mu = warp_sum(acc) / L;
+  acc = 0.f;
+  for (int s = 0; s < S; ++s) {
+    const float* xr = pr.x + ((size_t)s * T + t) * F;
+#pragma unroll 4
+    for (int f = lane; f < F; f += 32) {
+      const float d = xr[f] - mu;
+      acc += d * d;
+    }
+  }
+  const float rs = rsqrtf(warp_sum(acc) / L + kLnEps);
+  for (int p = 0; p < P; ++p) {
+    const size_t r = (size_t)p * T + t;
+    if (lane == 0) {
+      mean[r] = mu;
+      rstd[r] = rs;
+    }
+    bf16* out = hn0 + r * ldh;
+    for (int s = 0; s < S; ++s) {
+      const float* xr = pr.slot(p, s, t);
+#pragma unroll 4
+      for (int f = lane; f < F; f += 32) {
+        const int k = s * F + f;
+        out[k] = __float2bfloat16_rn((xr[f] - mu) * rs * g[k] + b[k]);
       }
     }
   }
@@ -270,37 +344,52 @@ int perm_layernorm_bwd(const float* dy, const PermRows& pr, const PermPos& pp,
 // 1/std, then per layer i its input h_i (i >= 1; layer i-1's output), its
 // normalised input hn_i (for layer 0 the permuted rows of x, normalised)
 // and its activation e_i = elu(hn_i w1^T + c1); z, the last layer's output
-// per permutation before their sum.
+// per permutation before their sum. In bf16 mode (h) also the bf16 copies
+// of hn_i and e_i, and the weights w1, w2 in bf16, rows padded to 8
+// elements; hn_0 in bf16 alone.
 struct FwdLayout {
   size_t mean0, rstd0, h[kMaxLayers], hn[kMaxLayers], e[kMaxLayers], z,
       total;
+  size_t hn_h[kMaxLayers], e_h[kMaxLayers], w1_h[kMaxLayers],
+      w2_h[kMaxLayers];
 };
 
 // dims[3*i .. 3*i+2] = (in, hid, out) of layer i; n_layers <= kMaxLayers.
-FwdLayout fwd_layout(long long rows, int n_layers, const int* dims) {
-  FwdLayout l;
+FwdLayout fwd_layout(long long rows, int n_layers, const int* dims, bool h) {
+  FwdLayout l{};
   size_t o = 0;
   l.mean0 = carve(o, rows);
   l.rstd0 = carve(o, rows);
   for (int i = 0; i < n_layers; ++i) {
     const long long in = dims[3 * i], hid = dims[3 * i + 1];
     l.h[i] = i > 0 ? carve(o, rows * in) : 0;
-    l.hn[i] = carve(o, rows * in);
+    l.hn[i] = i > 0 || !h ? carve(o, rows * in) : 0;
     l.e[i] = carve(o, rows * hid);
   }
   l.z = carve(o, rows * dims[3 * (n_layers - 1) + 2]);
+  for (int i = 0; h && i < n_layers; ++i) {
+    const long long in = dims[3 * i], hid = dims[3 * i + 1],
+                    out = dims[3 * i + 2];
+    l.hn_h[i] = carve(o, h_floats(rows * pad8(in)));
+    l.e_h[i] = carve(o, h_floats(rows * pad8(hid)));
+    l.w1_h[i] = carve(o, h_floats(hid * pad8(in)));
+    l.w2_h[i] = carve(o, h_floats(out * pad8(hid)));
+  }
   l.total = o;
   return l;
 }
 
 // The backward's own scratch: the output and input gradients of the layer
 // being walked; row statistics and reduction partials (column sums, or
-// layer 0's LayerNorm backward's two at once).
+// layer 0's LayerNorm backward's two at once). In bf16 mode also the bf16
+// copies of the output gradient and of dt.
 struct BwdLayout {
   size_t dout, dt, dhn, mean, rstd, wpart, cpart, total;
+  size_t dout_h, dt_h;
 };
 
-BwdLayout bwd_layout(int n_perm, int t, int n_layers, const int* dims) {
+BwdLayout bwd_layout(int n_perm, int t, int n_layers, const int* dims,
+                     bool h) {
   const long long rows = (long long)n_perm * t;
   long long in_max = 0, hid = 0, out_max = 0, wmax = 0;
   for (int i = 0; i < n_layers; ++i) {
@@ -315,7 +404,7 @@ BwdLayout bwd_layout(int n_perm, int t, int n_layers, const int* dims) {
   const long long wide = in_max > out_max ? in_max : out_max;
   const long long sums = colsum_scratch(rows, wide > hid ? wide : hid),
                   ln0 = 2LL * tuple_chunks(t) * n_perm * dims[0];
-  BwdLayout l;
+  BwdLayout l{};
   size_t o = 0;
   l.dout = carve(o, rows * out_max);   // in_i = out_{i-1} for i >= 1
   l.dt = carve(o, rows * hid);
@@ -324,27 +413,83 @@ BwdLayout bwd_layout(int n_perm, int t, int n_layers, const int* dims) {
   l.rstd = carve(o, rows);
   l.wpart = carve(o, kMaxSplits * wmax);
   l.cpart = carve(o, sums > ln0 ? sums : ln0);
+  if (h) {
+    l.dout_h = carve(o, h_floats(rows * pad8(out_max)));
+    l.dt_h = carve(o, h_floats(rows * pad8(hid)));
+  }
   l.total = o;
   return l;
+}
+
+// The forward in bf16 mode: every product on wg_gemm.cuh, into the scratch
+// (z last); the caller sums z over the permutations.
+int sym_fwd_bf16(const float* x, int s, int t, int f, const int* perms,
+                 int n_perm, const float* const* params, const int* dims,
+                 int n_layers, float* scratch, cudaStream_t st) {
+  const int rows = n_perm * t;
+  const FwdLayout l = fwd_layout(rows, n_layers, dims, true);
+  ToBf16 casts[2 * kMaxLayers];
+  for (int i = 0; i < n_layers; ++i) {
+    const int in = dims[3 * i], hid = dims[3 * i + 1], out = dims[3 * i + 2];
+    casts[2 * i] = cast_of(params[6 * i + 2], as_h(scratch, l.w1_h[i]), hid,
+                           in, pad8(in));
+    casts[2 * i + 1] = cast_of(params[6 * i + 4], as_h(scratch, l.w2_h[i]),
+                               out, hid, pad8(hid));
+  }
+  RETURN_IF_ERR(to_bf16(casts, 2 * n_layers, st));
+  if (t > 0)
+    perm_ln_h_kernel<<<cdiv(t, kWarps), kThreads, 0, st>>>(
+        perm_rows(x, s, t, f, perms, n_perm), n_perm, s, params[0],
+        params[1], scratch + l.mean0, scratch + l.rstd0,
+        as_h(scratch, l.hn_h[0]), pad8(s * f));
+  RETURN_IF_ERR((int)cudaGetLastError());
+  for (int i = 0; i < n_layers; ++i) {
+    const float* const* p = params + 6 * i;
+    const int in = dims[3 * i], hid = dims[3 * i + 1], out = dims[3 * i + 2];
+    const int ih = pad8(in), hh = pad8(hid);
+    const bool last = i == n_layers - 1;
+    bf16 *hn_h = as_h(scratch, l.hn_h[i]), *e_h = as_h(scratch, l.e_h[i]);
+    Out o = out_to(scratch + (last ? l.z : l.h[i + 1]), out);
+    o.bias = p[5];
+    if (i > 0) {
+      float* hn = scratch + l.hn[i];
+      RETURN_IF_ERR(layernorm_h(scratch + l.h[i], hn, hn_h, ih, p[0], p[1],
+                                rows, in, st));
+      if (!last) {
+        o.R = hn;
+        o.ldr = in;
+      }
+    }
+    RETURN_IF_ERR(wg_gemm(MatH{hn_h, ih}, MatH{as_h(scratch, l.w1_h[i]), ih},
+                          EluOutH{p[3], scratch + l.e[i], hid, e_h, hh}, rows,
+                          hid, in, st));
+    RETURN_IF_ERR(wg_gemm(MatH{e_h, hh}, MatH{as_h(scratch, l.w2_h[i]), hh},
+                          o, rows, out, hid, st));
+  }
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of the forward's scratch (FwdLayout); -1 above kMaxLayers. The
-// backward reads it: keep the scratch until it has run.
+// Floats of the forward's scratch (FwdLayout) in the mode mm_bf16; -1
+// above kMaxLayers. The backward reads it: keep the scratch until it has
+// run.
 long long grappa_fused_symmetriser_scratch(int n_perm, int t, int n_layers,
-                                           const int* dims) {
+                                           const int* dims, int mm_bf16) {
   if (n_layers < 1 || n_layers > kMaxLayers) return -1;
-  return (long long)fwd_layout((long long)n_perm * t, n_layers, dims).total;
+  return (long long)fwd_layout((long long)n_perm * t, n_layers, dims,
+                               mm_bf16)
+      .total;
 }
 
 // x: (S, T, F); perms: n_perm x S host ints; params: host array of
 // 6 * n_layers device pointers (g, b, w1, c1, w2, c2 per layer, weights in
 // torch layout (out, in)); dims: host (in, hid, out) per layer; y: (T, out).
-// mm_bf16: the 2 x n_layers products in tc_gemm.cuh's bf16 policy (operands
-// rounded to bf16, float32 sums), the JAX kernel's mm_dtype=bfloat16.
+// mm_bf16: the 2 x n_layers products on wg_gemm.cuh's bf16 wgmma (operands
+// rounded to bf16, float32 sums), the JAX kernel's mm_dtype=bfloat16;
+// LayerNorms, elu, the skips and the sum over permutations stay float32.
 int grappa_fused_symmetriser_fwd(const float* x, int s, int t, int f,
                                  const int* perms, int n_perm,
                                  const float* const* params, const int* dims,
@@ -353,15 +498,20 @@ int grappa_fused_symmetriser_fwd(const float* x, int s, int t, int f,
   if (bad_shape(s, n_perm, n_layers)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = n_perm * t;
-  const FwdLayout l = fwd_layout(rows, n_layers, dims);
+  const FwdLayout l = fwd_layout(rows, n_layers, dims, mm_bf16);
+  const long long z_cols = (long long)t * dims[3 * (n_layers - 1) + 2];
+  if (mm_bf16) {
+    RETURN_IF_ERR(sym_fwd_bf16(x, s, t, f, perms, n_perm, params, dims,
+                               n_layers, scratch, st));
+    return sum_slices(scratch + l.z, y, n_perm, z_cols, st);
+  }
   if (t > 0)
     perm_ln_kernel<<<cdiv(t, kWarps), kThreads, 0, st>>>(
         perm_rows(x, s, t, f, perms, n_perm), n_perm, s, params[0],
         params[1], scratch + l.mean0, scratch + l.rstd0, scratch + l.hn[0]);
   RETURN_IF_ERR((int)cudaGetLastError());
 
-  auto layer = [&](auto policy, int i) {
-    using P = decltype(policy);
+  for (int i = 0; i < n_layers; ++i) {
     const float* const* p = params + 6 * i;
     const int in = dims[3 * i], hid = dims[3 * i + 1], out = dims[3 * i + 2];
     const bool last = i == n_layers - 1;
@@ -371,33 +521,31 @@ int grappa_fused_symmetriser_fwd(const float* x, int s, int t, int f,
     if (i > 0)
       RETURN_IF_ERR(layernorm(scratch + l.h[i], in, hn, in, p[0], p[1], rows,
                               in, st));
-    RETURN_IF_ERR(tc_gemm<P>(Mat{hn, in}, p[2], in, p[3], nullptr, 0, e, hid,
-                             rows, hid, in, true, st));
+    RETURN_IF_ERR(tc_gemm(Mat{hn, in}, p[2], in, p[3], nullptr, 0, e, hid,
+                          rows, hid, in, true, st));
     float* dst = scratch + (last ? l.z : l.h[i + 1]);
-    return tc_gemm<P>(Mat{e, hid}, p[4], hid, p[5], skip ? hn : nullptr, in,
-                      dst, out, rows, out, hid, false, st);
-  };
-  for (int i = 0; i < n_layers; ++i)
-    RETURN_IF_ERR(mm_bf16 ? layer(TcBf16{}, i) : layer(TcTf32x3{}, i));
-  return sum_slices(scratch + l.z, y, n_perm,
-                    (long long)t * dims[3 * (n_layers - 1) + 2], st);
+    RETURN_IF_ERR(tc_gemm(Mat{e, hid}, p[4], hid, p[5], skip ? hn : nullptr,
+                          in, dst, out, rows, out, hid, false, st));
+  }
+  return sum_slices(scratch + l.z, y, n_perm, z_cols, st);
 }
 
 long long grappa_fused_symmetriser_bwd_scratch(int n_perm, int t,
                                                int n_layers,
-                                               const int* dims) {
+                                               const int* dims,
+                                               int mm_bf16) {
   if (n_layers < 1 || n_layers > kMaxLayers) return -1;
-  return (long long)bwd_layout(n_perm, t, n_layers, dims).total;
+  return (long long)bwd_layout(n_perm, t, n_layers, dims, mm_bf16).total;
 }
 
 // Gradients of the forward above for dy (T, out): dx (S, T, F) and, in
 // grads (6 * n_layers device pointers, the order of params), every
 // parameter gradient summed over the permutations. `fwd` is the forward's
-// scratch from the same inputs, read only; the linear biases are not read.
-// mm_bf16: every layer's four products in tc_gemm.cuh's bf16 policy, both
-// operands rounded to bf16 (dy's descendants too), float32 sums, as the
-// JAX kernel's _dot_tn / _dot_nt with mm_dtype=bfloat16; column sums and
-// LayerNorm backward stay float32, as there.
+// scratch from the same inputs and mode, read only; the linear biases are
+// not read. mm_bf16: every layer's four products on wg_gemm.cuh's bf16
+// wgmma, both operands rounded to bf16 (dy's descendants too), float32
+// sums, as the JAX kernel's _dot_tn / _dot_nt with mm_dtype=bfloat16;
+// column sums and LayerNorm backward stay float32, as there.
 int grappa_fused_symmetriser_bwd(const float* x, int s, int t, int f,
                                  const int* perms, int n_perm,
                                  const float* const* params, const int* dims,
@@ -408,12 +556,13 @@ int grappa_fused_symmetriser_bwd(const float* x, int s, int t, int f,
   if (bad_shape(s, n_perm, n_layers)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = n_perm * t;
-  const FwdLayout lf = fwd_layout(rows, n_layers, dims);
-  const BwdLayout l = bwd_layout(n_perm, t, n_layers, dims);
+  const FwdLayout lf = fwd_layout(rows, n_layers, dims, mm_bf16);
+  const BwdLayout l = bwd_layout(n_perm, t, n_layers, dims, mm_bf16);
   float* q = scratch;
   float *dout = q + l.dout, *dt = q + l.dt, *dhn = q + l.dhn,
         *mean = q + l.mean, *rstd = q + l.rstd, *wpart = q + l.wpart,
         *cpart = q + l.cpart;
+  bf16 *dout_h = as_h(q, l.dout_h), *dt_h = as_h(q, l.dt_h);
   const PermRows pr = perm_rows(x, s, t, f, perms, n_perm);
   PermPos pp;
   for (int p = 0; p < kMaxPerm; ++p)
@@ -425,13 +574,18 @@ int grappa_fused_symmetriser_bwd(const float* x, int s, int t, int f,
   // every permutation's output row gets dy
   const int out_last = dims[3 * (n_layers - 1) + 2];
   const long long total = (long long)rows * out_last;
-  if (total > 0)
+  if (total > 0 && mm_bf16)
+    tile_rows_h_kernel<<<cdiv(total, kThreads), kThreads, 0, st>>>(
+        dy, dout, dout_h, pad8(out_last), out_last, total,
+        (long long)t * out_last);
+  else if (total > 0)
     tile_rows_kernel<<<cdiv(total, kThreads), kThreads, 0, st>>>(
         dy, dout, total, (long long)t * out_last);
   RETURN_IF_ERR((int)cudaGetLastError());
 
-  auto layer = [&](auto policy, int i) {
-    using P = decltype(policy);
+  // layer i's products, from dout (its output's gradient) to dhn (its
+  // normalised input's), its weight and bias gradients on the way
+  auto products = [&](int i) {
     const float* const* p = params + 6 * i;
     float* const* g = grads + 6 * i;
     const int in = dims[3 * i], hid = dims[3 * i + 1], out = dims[3 * i + 2];
@@ -439,33 +593,64 @@ int grappa_fused_symmetriser_bwd(const float* x, int s, int t, int f,
     const float* e = fwd + lf.e[i];
     const float* hn = fwd + lf.hn[i];
     // out = e_i w2^T + c2 (+ hn_i), e_i = elu(t_i)
-    RETURN_IF_ERR(tc_gemm_wgrad<P>(tr(Mat{dout, out}), tr(Mat{e, hid}), g[4],
-                                   out, hid, rows, wpart, st));
+    RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dout, out}), tr(Mat{e, hid}), g[4],
+                                out, hid, rows, wpart, st));
     RETURN_IF_ERR(colsum(Mat{dout, out}, g[5], rows, out, cpart, st));
-    RETURN_IF_ERR(tc_gemm<P>(Mat{dout, out}, tr(Mat{p[4], hid}),
-                             EluGradOut{dt, hid, e, hid}, rows, hid, out,
-                             st));
+    RETURN_IF_ERR(tc_gemm(Mat{dout, out}, tr(Mat{p[4], hid}),
+                          EluGradOut{dt, hid, e, hid}, rows, hid, out, st));
     // t_i = hn_i w1^T + c1
-    RETURN_IF_ERR(tc_gemm_wgrad<P>(tr(Mat{dt, hid}), tr(Mat{hn, in}), g[2],
-                                   hid, in, rows, wpart, st));
+    RETURN_IF_ERR(tc_gemm_wgrad(tr(Mat{dt, hid}), tr(Mat{hn, in}), g[2], hid,
+                                in, rows, wpart, st));
     RETURN_IF_ERR(colsum(Mat{dt, hid}, g[3], rows, hid, cpart, st));
     Out o = out_to(dhn, in);
     if (skip) {
       o.R = dout;
       o.ldr = out;
     }
-    RETURN_IF_ERR(tc_gemm<P>(Mat{dt, hid}, tr(Mat{p[2], in}), o, rows, in,
-                             hid, st));
+    return tc_gemm(Mat{dt, hid}, tr(Mat{p[2], in}), o, rows, in, hid, st);
+  };
+  // the same on wg_gemm.cuh from the bf16 copies: dout_h, the forward's
+  // e_h, hn_h and weights; the elu' epilogue writes dt in both types
+  auto products_h = [&](int i) {
+    float* const* g = grads + 6 * i;
+    const int in = dims[3 * i], hid = dims[3 * i + 1], out = dims[3 * i + 2];
+    const int ih = pad8(in), hh = pad8(hid), oh = pad8(out);
+    const bool skip = i > 0 && i < n_layers - 1;
+    const bf16 *e_h = as_h(fwd, lf.e_h[i]), *hn_h = as_h(fwd, lf.hn_h[i]),
+               *w1_h = as_h(fwd, lf.w1_h[i]), *w2_h = as_h(fwd, lf.w2_h[i]);
+    RETURN_IF_ERR(wg_gemm_wgrad(tr(MatH{dout_h, oh}), tr(MatH{e_h, hh}), g[4],
+                                out, hid, rows, wpart, st));
+    RETURN_IF_ERR(colsum(Mat{dout, out}, g[5], rows, out, cpart, st));
+    RETURN_IF_ERR(wg_gemm(MatH{dout_h, oh}, tr(MatH{w2_h, hh}),
+                          EluGradOutH{dt, hid, fwd + lf.e[i], hid, dt_h, hh},
+                          rows, hid, out, st));
+    RETURN_IF_ERR(wg_gemm_wgrad(tr(MatH{dt_h, hh}), tr(MatH{hn_h, ih}), g[2],
+                                hid, in, rows, wpart, st));
+    RETURN_IF_ERR(colsum(Mat{dt, hid}, g[3], rows, hid, cpart, st));
+    Out o = out_to(dhn, in);
+    if (skip) {
+      o.R = dout;
+      o.ldr = out;
+    }
+    return wg_gemm(MatH{dt_h, hh}, tr(MatH{w1_h, ih}), o, rows, in, hid, st);
+  };
+  for (int i = n_layers - 1; i >= 0; --i) {
+    const float* const* p = params + 6 * i;
+    float* const* g = grads + 6 * i;
+    const int in = dims[3 * i];
+    RETURN_IF_ERR(mm_bf16 ? products_h(i) : products(i));
     // hn_i = LN(h_i); h_i is the previous layer's output (for layer 0, the
     // permuted row of x, whose gradient goes straight into dx)
-    if (i > 0)
-      return layernorm_bwd(dhn, Mat{fwd + lf.h[i], in}, p[0], dout, g[0],
-                           g[1], rows, in, mean, rstd, cpart, st);
-    return perm_layernorm_bwd(dhn, pr, pp, n_perm, s, mean0, rstd0, p[0], dx,
-                              g[0], g[1], mean, rstd, cpart, st);
-  };
-  for (int i = n_layers - 1; i >= 0; --i)
-    RETURN_IF_ERR(mm_bf16 ? layer(TcBf16{}, i) : layer(TcTf32x3{}, i));
+    if (i == 0)
+      return perm_layernorm_bwd(dhn, pr, pp, n_perm, s, mean0, rstd0, p[0],
+                                dx, g[0], g[1], mean, rstd, cpart, st);
+    RETURN_IF_ERR(layernorm_bwd(dhn, Mat{fwd + lf.h[i], in}, p[0], dout, g[0],
+                                g[1], rows, in, mean, rstd, cpart, st));
+    if (mm_bf16) {
+      const ToBf16 cast = cast_of(dout, dout_h, rows, in, pad8(in));
+      RETURN_IF_ERR(to_bf16(&cast, 1, st));
+    }
+  }
   return (int)cudaGetLastError();
 }
 

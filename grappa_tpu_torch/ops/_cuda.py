@@ -49,10 +49,10 @@ _SIGNATURES = {
     'grappa_fused_block_bwd_scratch': (_LL, [_I] * 5),
     'grappa_fused_block_bwd': (_I, [_P] * 14 + _DROP + [_P] * 15
                                + [_I] * 5 + [_F, _I, _P]),
-    'grappa_fused_symmetriser_scratch': (_LL, [_I, _I, _I, _P]),
+    'grappa_fused_symmetriser_scratch': (_LL, [_I, _I, _I, _P, _I]),
     'grappa_fused_symmetriser_fwd': (
         _I, [_P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P]),
-    'grappa_fused_symmetriser_bwd_scratch': (_LL, [_I, _I, _I, _P]),
+    'grappa_fused_symmetriser_bwd_scratch': (_LL, [_I, _I, _I, _P, _I]),
     'grappa_fused_symmetriser_bwd': (
         _I, [_P, _I, _I, _I, _P, _I, _P, _P, _I] + [_P] * 5 + [_I, _P]),
     'grappa_dropout_masks': (_I, [_U, _U, _F, _LL, _P, _P, _P]),

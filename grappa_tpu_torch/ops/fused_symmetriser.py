@@ -10,15 +10,17 @@ function; its counterpart is the flax `Symmetriser` module, and here
 
 On CUDA tensors `fused_symmetriser` launches the hand-written kernels in
 `csrc/fused_symmetriser.cu`, both running their products on the tensor
-cores (`csrc/tc_gemm.cuh`): the forward, whose scratch (each layer's
-normalised input -- for the first layer the permuted rows of x, normalised
--- activation and input, the first layer's row statistics) is allocated on
-every call, `torch.inference_mode()` included, since its own products read
-it, and is kept by autograd; and in the backward a kernel chain that reads
-it and returns dx and every parameter gradient summed over the
-permutations (the source notes give the card's bound and the design). On
-CPU tensors it runs `reference_symmetriser`, and autograd differentiates
-it.
+cores (`csrc/tc_gemm.cuh` in float32, `csrc/wg_gemm.cuh` in bf16 mode):
+the forward, whose scratch (each layer's normalised input -- for the first
+layer the permuted rows of x, normalised -- activation and input, the
+first layer's row statistics; in bf16 mode also the bf16 copies the
+products read and the weights in bf16, the first layer's normalised rows
+in bf16 alone) is allocated on every call, `torch.inference_mode()`
+included, since its own products read it, and is kept by autograd; and in
+the backward a kernel chain that reads it and returns dx and every
+parameter gradient summed over the permutations (the source notes give
+the card's bound and the design). On CPU tensors it runs
+`reference_symmetriser`, and autograd differentiates it.
 `fused_symmetriser.launches` and `fused_symmetriser.bwd_launches` count
 kernel launches, `fused_symmetriser.bf16_launches` and
 `fused_symmetriser.bf16_bwd_launches` the forward's and the backward's in
@@ -128,7 +130,7 @@ class _SymmetriserKernel(torch.autograd.Function):
         lib = _cuda.lib()
         scratch = torch.empty(
             lib.grappa_fused_symmetriser_scratch(len(permutations), t,
-                                                 n_layers, dims),
+                                                 n_layers, dims, int(bf16)),
             dtype=torch.float32, device=x.device)
         y = torch.empty((t, layers[-1][4].shape[0]), dtype=torch.float32,
                         device=x.device)
@@ -161,7 +163,7 @@ class _SymmetriserKernel(torch.autograd.Function):
         lib = _cuda.lib()
         scratch = torch.empty(
             lib.grappa_fused_symmetriser_bwd_scratch(
-                len(permutations), t, n_layers, dims),
+                len(permutations), t, n_layers, dims, int(ctx.bf16)),
             dtype=torch.float32, device=x.device)
         dx = torch.empty_like(x)
         grads = [torch.empty_like(p) for p in flat]

@@ -278,10 +278,21 @@ def test_block_kernel_bf16_matches_plain(cuda, s, t, f, heads, hid):
                  tfb.reference_block(x, p, heads))
 
 
+# besides the serving shapes and the odd widths (S*F = 36, width 30, out
+# 2: bf16 rows padded to 8 elements), the edges of wg_gemm.cuh's tiles: the
+# n4 training shape (P*T = 16512 rows, layer 0's K = 2048), a grid below
+# one wave of 132 SMs (P*T = 600: 64-row tiles), P*T = 8194 rows (the
+# backward's split-K slices end ragged), out = 6 with 6 permutations
+SYM_BF16_EDGES = [(PERMUTATIONS['n4'], 8256, 512, 256, 12, 3),
+                  (PERMUTATIONS['n3'], 300, 512, 256, 2, 3),
+                  (PERMUTATIONS['n2'], 4097, 512, 256, 2, 3),
+                  (WRONG_SYMMETRY_IMPROPER, 2152, 512, 256, 6, 3)]
+
+
 @pytest.mark.parametrize('perms,t,f,width,out,n_layers', [
     (PERMUTATIONS['n4'], 2152, 512, 256, 12, 3),
     (WRONG_SYMMETRY_IMPROPER, 552, 512, 256, 6, 3),
-    (PERMUTATIONS['n2'], 3377, 18, 30, 2, 3)])
+    (PERMUTATIONS['n2'], 3377, 18, 30, 2, 3)] + SYM_BF16_EDGES)
 def test_symmetriser_kernel_bf16_matches_plain(cuda, perms, t, f, width,
                                                out, n_layers):
     x, layers = _sym_case(cuda, len(perms[0]), t, f, width, out, n_layers)
@@ -404,11 +415,14 @@ def test_block_backward_bf16_matches_plain(cuda, s, t, f, heads, hid, rate):
 @pytest.mark.parametrize('perms,t,f,width,out,n_layers', [
     (PERMUTATIONS['n4'], 2152, 512, 256, 12, 3),
     (WRONG_SYMMETRY_IMPROPER, 552, 512, 256, 6, 3),
-    (PERMUTATIONS['n2'], 3377, 18, 30, 2, 3)])
+    (PERMUTATIONS['n2'], 3377, 18, 30, 2, 3)] + SYM_BF16_EDGES)
 def test_symmetriser_backward_bf16_matches_plain(cuda, perms, t, f, width,
                                                  out, n_layers):
-    """K3b in bf16 mode, every layer's four products on the bf16 tensor
-    cores."""
+    """K3b in bf16 mode, every layer's four products on wg_gemm.cuh's
+    wgmma: W read MN-major by the dX products (the last layer's K = out
+    below one 64-deep stage), both operands by the split-K dW products (the
+    last dW2's M = out below one 64-row tile; at P*T = 8194 rows 15
+    slices of 576 rows, the last 130)."""
     x, layers = _sym_case(cuda, len(perms[0]), t, f, width, out, n_layers)
     flat = [q for layer in layers for q in layer]
     dy = torch.randn((t, out), generator=torch.Generator().manual_seed(9))
@@ -552,13 +566,16 @@ def test_backward_kernels_are_deterministic(cuda):
         runs_b += list(zip(*[_grads(fb, [x, *pb], dyb)[1]
                              for _ in range(2)]))
     runs_s = []
-    for t, f, width in ((900, 128, 64), (8256, 512, 256)):
-        # the second: the n4 training shape
+    for t, f, width, dt in ((900, 128, 64, None), (8256, 512, 256, None),
+                            (8256, 512, 256, torch.bfloat16)):
+        # the n4 training shape, in float32 and in bf16 mode (wg_gemm.cuh's
+        # split-K slices)
         xs, layers = _sym_case(cuda, 4, t, f, width, 12, 3)
         flat = [q for layer in layers for q in layer]
         dys = torch.randn((t, 12), device=cuda)
         fs = lambda a, *q: tfs.fused_symmetriser(
-            a, [q[6 * i:6 * i + 6] for i in range(3)], PERMUTATIONS['n4'])
+            a, [q[6 * i:6 * i + 6] for i in range(3)], PERMUTATIONS['n4'],
+            mm_dtype=dt)
         outs = [_grads(fs, [xs, *flat], dys) for _ in range(2)]
         runs_s += [(outs[0][0], outs[1][0])]
         runs_s += list(zip(*[g for _, g in outs]))
