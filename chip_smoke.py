@@ -8,6 +8,7 @@
     python3 chip_smoke.py --train-step     # phases 1, 5 and 10(c)(c)
     python3 chip_smoke.py --eval           # phases 1 and 9 alone
     python3 chip_smoke.py --bf16           # phases 1 and 10 alone
+    python3 chip_smoke.py --gmx            # phases 1 and 11 alone
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit, the torch / CUDA versions;
@@ -169,15 +170,42 @@ Phases, each printing its own lines:
      float32 one the reverse; every wg_gemm_kernel (K2 / K2b's and K3 /
      K3b's bf16 products, each file's MN-major and split-K ones among them)
      a bf16 HGMMA and no HMMA.
+ 11. the GROMACS path at the default width (GromacsGrappa.parametrize and
+     `cli gmx`, grappa_tpu_torch.wrappers): (a) a .top with the
+     protein-like chain (phase 3's molecule, masses of each element,
+     charges summing to an integer), a 30-atom ligand, SOL x 2000 and NA /
+     CL x 10, the default model with seeded non-zero weights as
+     models/grappa-1.2.pth in a temporary GRAPPA_TPU_CACHE; phase 2 holds
+     K1-K3 at the shapes of its forwards; (b) `cli gmx -t grappa-1.2`
+     returns 0, the written file parses, the protein and the ligand carry
+     a predicted row for every bond, angle, proper (6 periodicities) and
+     improper (3), SOL, the ions and every line outside the moleculetypes
+     are unchanged byte for byte; (c) `cli gmx --focus` on two protein
+     atoms more than GMX_FOCUS_APART x the field of view bonds apart: two
+     components in one predict_many, every row outside the apply set (and
+     the ligand, water, ions) unchanged byte for byte; (d) K1 / K2 / K3
+     launch 7 / 12 / 4 times a forward (2 forwards for (b), 1 for (c),
+     counts zeroed before each command), the kernels line's `gmx` path;
+     (e) GromacsGrappa on the card and on the CPU parametrize the file,
+     whole and with the focus: last_predictions at MODEL_RTOL /
+     MODEL_ATOL (the torsion cutoff rule of compare_outputs), the written
+     files line for line (each parameter at that tolerance x its unit
+     factor + half a printed unit), the CLI's file against the in-process
+     one, and every row formatted from last_predictions in the file; (f)
+     the warm parametrize of the whole file (median of GMX_REPS, host
+     clock) split into parse, featurise + collate, the forward (CUDA
+     events, its host time beside), row formatting + write and the rest;
+     the `gmx` line (with the card's name and power limit and the atoms
+     parametrized a second).
 
-The `trainrun {...}`, `trainrun_bf16 {...}`, `eval {...}` and `ingest
-{...}` lines come before
+The `trainrun {...}`, `trainrun_bf16 {...}`, `eval {...}`, `ingest
+{...}` and `gmx {...}` lines come before
 the last three lines, which are a
 JSON object describing the kernels, the card's name and power limit, and
 {"ok": true, "device": {...}}. In the kernels'
 line, `launches` sums the main paths (the two predict paths and the ten
 training steps, phase 8's training run and phase 9's eval and ingest
-paths for K1-K3; phase 6's four
+paths and phase 11's gmx path for K1-K3; phase 6's four
 paths for K5 and K5b;
 `launches_per_path` gives each), and `ms`, `plain_ms`, `bound_ms`,
 `gflop` and `mbytes` sum one call at each shape of each path; K1-K3 and
@@ -198,7 +226,8 @@ training run). Any failure exits non-zero before those lines.
 the kernels' sums as a `kernel_times` line instead; `--bf16` runs phase
 10 alone (building phase 2's workloads; `trainrun_bf16` and
 `bf16_kernel_times` lines); `--trainrun` runs phase 8 alone and
-`--eval` phase 9 alone and
+`--eval` phase 9 alone, `--gmx` phase 11 alone (after phase 2 at its
+shapes; a `kernel_times` line and the `gmx` line) and
 `--train-step` phase 5 and 10(c)(c) alone (the float32 and the bf16
 steps, with names a parent checkout shares, so that one copy of this
 script times the steps of both); `--torsion` prints only
@@ -321,6 +350,14 @@ BF16_ORDER = 1.5
 # the bf16 mode's SASS: every tensor-core GEMM instantiated with the bf16
 # policy runs this instruction and no TF32 one (tc_gemm.cuh)
 BF16_HMMA, TF32_HMMA = 'HMMA.16816.F32.BF16', 'HMMA.1688.F32.TF32'
+# phase 11: the GROMACS path on a topology of the protein-like chain,
+# a GMX_LIGAND_ATOMS-atom ligand (random_molecule, GMX_LIGAND_SEED),
+# GMX_WATERS waters and GMX_IONS Na+ and Cl- each (skipped, as
+# gromacs_topology.SKIP_MOLECULES says); `--focus` on two protein atoms
+# more than GMX_FOCUS_APART x the field of view bonds apart; the warm
+# parametrize timed GMX_REPS times
+GMX_LIGAND_ATOMS, GMX_LIGAND_SEED, GMX_WATERS, GMX_IONS = 30, 0, 2000, 10
+GMX_FOCUS_APART, GMX_REPS = 4, 5
 REF_FIELDS = {'n2_k': ('n2', 'k_ref'), 'n2_eq': ('n2', 'eq_ref'),
               'n3_k': ('n3', 'k_ref'), 'n3_eq': ('n3', 'eq_ref'),
               'n4_k': ('n4', 'k_ref'),
@@ -3169,6 +3206,551 @@ def eval_phase(torch, work, cfg, smi, fixture, run_dir=None):
         ingest_line
 
 
+GMX_SYMBOLS = {1: 'H', 6: 'C', 7: 'N', 8: 'O', 9: 'F', 15: 'P', 16: 'S',
+               17: 'Cl', 35: 'Br', 53: 'I'}
+GMX_SOLVENT = [
+    '[ moleculetype ]', '; name nrexcl', 'SOL 2', '', '[ atoms ]',
+    '1 OW 1 SOL OW 1 -0.834 15.999', '2 HW 1 SOL HW1 1 0.417 1.008',
+    '3 HW 1 SOL HW2 1 0.417 1.008', '', '[ settles ]',
+    '1 1 0.09572 0.15139', '', '[ exclusions ]', '1 2 3', '2 1 3',
+    '3 1 2', '', '[ moleculetype ]', 'NA 1', '', '[ atoms ]',
+    '1 NA 1 NA NA 1 1.0000 22.990', '', '[ moleculetype ]', 'CL 1', '',
+    '[ atoms ]', '1 CL 1 CL CL 1 -1.0000 35.453', '']
+
+
+def gmx_moleculetype(name, mol):
+    """A [moleculetype] block of `mol` (ids become nrs 1..n): masses of
+    each element, charges at 4 decimals summing to the nearest integer,
+    placeholder bonded parameters (the ones a parametrization replaces),
+    the propers and one improper row an improper atom set in two
+    [ dihedrals ] sections. Rows are single-space separated, as
+    `_merge_partial` writes the rows it keeps, with no blank row between
+    sections (`Section.replace_data` keeps only a section's leading
+    comment rows), so a partial rewrite leaves every other row as it
+    was."""
+    from grappa_tpu_torch.constants import ATOMIC_MASSES
+    q = np.round(np.asarray(mol.partial_charges, np.float64) * 1e4)
+    q = q.astype(np.int64)
+    q[-1] += int(round(q.sum() / 1e4)) * 10000 - q.sum()
+    nr = {int(a): i + 1 for i, a in enumerate(mol.atoms)}
+    lines = ['[ moleculetype ]', '; name nrexcl', f'{name} 3',
+             '[ atoms ]', '; nr type resnr residue atom cgnr charge mass']
+    for i, (a, z) in enumerate(zip(mol.atoms, mol.atomic_numbers)):
+        sym = GMX_SYMBOLS.get(int(z), f'X{int(z)}')
+        lines.append(f'{nr[int(a)]} {sym} {i // 8 + 1} {name} {sym}{i + 1} '
+                     f'{i + 1} {q[i] / 1e4:.4f} '
+                     f'{ATOMIC_MASSES[int(z)]:.3f}')
+    lines += ['[ bonds ]']
+    lines += [f'{nr[int(a)]} {nr[int(b)]} 1 0.1500 250000.0'
+              for a, b in mol.bonds]
+    lines += ['[ angles ]']
+    lines += [f'{nr[int(a)]} {nr[int(b)]} {nr[int(c)]} 1 109.500 400.000'
+              for a, b, c in mol.angles]
+    lines += ['[ dihedrals ]']
+    lines += [' '.join(str(nr[int(x)]) for x in t) + ' 9 0.0 0.6508 3'
+              for t in mol.propers]
+    lines += ['[ dihedrals ]']
+    seen = set()
+    for t in mol.impropers:
+        key = frozenset(int(x) for x in t)
+        if key not in seen:
+            seen.add(key)
+            lines.append(' '.join(str(nr[int(x)]) for x in t)
+                         + ' 4 180.0 4.6024 2')
+    return lines
+
+
+def gmx_topology(work):
+    """Phase 11(a)'s topology under <work>/gmx: the protein-like chain
+    (phase 3's molecule), a 30-atom ligand, GMX_WATERS waters and
+    GMX_IONS Na+ and Cl- each. Returns the .top's path and {moleculetype:
+    the Molecule it was written from}."""
+    from pathlib import Path
+    from grappa_tpu_torch.data.molecule import Molecule
+    from grappa_tpu_torch.data.synthetic import random_molecule
+    root = Path(work) / 'gmx'
+    root.mkdir(parents=True, exist_ok=True)
+    mols = {'PROT': protein_like_molecule(Molecule),
+            'LIG': random_molecule(seed=GMX_LIGAND_SEED,
+                                   n_atoms=GMX_LIGAND_ATOMS,
+                                   charge_model='amber99')}
+    lines = ['; a protein-like chain and a ligand in water with ions',
+             '#include "amber99sb-ildn.ff/forcefield.itp"', '']
+    for name, mol in mols.items():
+        lines += gmx_moleculetype(name, mol)
+    lines += GMX_SOLVENT + [
+        '[ system ]', 'protein-like chain and ligand in water', '',
+        '[ molecules ]', 'PROT 1', 'LIG 1', f'SOL {GMX_WATERS}',
+        f'NA {GMX_IONS}', f'CL {GMX_IONS}']
+    path = root / 'system.top'
+    path.write_text('\n'.join(lines) + '\n')
+    return path, mols
+
+
+def gmx_focus(bonds, fov, n_ligand):
+    """Two protein atom nrs more than GMX_FOCUS_APART x the field of view
+    bonds apart (both above the ligand's nrs): the first backbone atom of
+    the sixth residue and the first atom at 4 fov + 8 bonds from it."""
+    from grappa_tpu_torch import topology
+    nbrs = topology.neighbor_map(bonds)
+    a = 5 * 8 + 1
+    if a <= n_ligand:
+        raise ValueError(f'focus nr {a} is also a ligand atom')
+    dist, frontier = {a: 0}, [a]
+    while frontier:
+        nxt = []
+        for x in frontier:
+            for y in nbrs.get(x, ()):
+                if y not in dist:
+                    dist[y] = dist[x] + 1
+                    nxt.append(y)
+        frontier = nxt
+    b = min(x for x, d in dist.items()
+            if d == GMX_FOCUS_APART * fov + 8)
+    return [a, b], dist[b]
+
+
+def gmx_molecules(top_path, fov, focus=None):
+    """The molecules each parametrize forward of phase 11 gets, built as
+    GromacsGrappa._parametrize_moleculetype builds them: {moleculetype:
+    [Molecule, ...]} (one a component under `focus`)."""
+    from grappa_tpu_torch.wrappers import gromacs_wrapper as gw
+    from grappa_tpu_torch.wrappers.gromacs_topology import (SKIP_MOLECULES,
+                                                            GromacsTopology)
+    top = GromacsTopology.parse(top_path)
+    info = top.atomtype_info()
+    out = {}
+    for mt in top.molecule_types():
+        bonds = mt.bonds()
+        if mt.name.upper() in SKIP_MOLECULES or not bonds:
+            continue
+        comps = [None]
+        if focus:
+            apply = gw.fov_neighborhood(bonds, set(focus), fov)
+            comps = gw._connected_components(
+                bonds, gw.fov_neighborhood(bonds, apply, fov))
+        if comps:
+            out[mt.name] = [gw.molecule_from_moleculetype(
+                mt, atom_filter=c, type_info=info) for c in comps]
+    return out
+
+
+def gmx_data(torch, work, cfg):
+    """Phase 11's topology and focus atoms, made before phase 2 in a whole
+    run, and the batches its forwards give the kernels (on the card)."""
+    from grappa_tpu_torch.data.graph_batch import MolGraph, collate
+    from grappa_tpu_torch.data.loader import bucketed_pad_spec
+    from grappa_tpu_torch.models.grappa_model import field_of_view
+    top_path, mols = gmx_topology(work)
+    fov = field_of_view(cfg)
+    bonds = [(int(a) + 1, int(b) + 1) for a, b in mols['PROT'].bonds]
+    focus, apart = gmx_focus(bonds, fov, len(mols['LIG'].atoms))
+    batches = {}
+    for label, f in (('gmx', None), ('gmx focus', focus)):
+        for name, ms in gmx_molecules(top_path, fov, f).items():
+            graphs = [MolGraph.from_molecule(m) for m in ms]
+            b = collate(graphs, bucketed_pad_spec(graphs, 1), 1,
+                        device='cuda')
+            key = f'{label} {name}'
+            batches[key] = b
+            print(f'{key}: {len(ms)} molecule(s), '
+                  f'{sum(len(m.atoms) for m in ms)} atoms; padded N=%d, T '
+                  f'bonds / angles / propers / impropers = %s' % (
+                      b.xyz.shape[0], ' / '.join(
+                          str(b.terms[t].idxs.shape[0])
+                          for t in ('n2', 'n3', 'n4', 'n4_improper'))),
+                  flush=True)
+    print(f'phase 11\'s topology: {top_path.name}, focus nrs {focus} '
+          f'({apart} bonds apart; field of view {fov})', flush=True)
+    return top_path, mols, focus, batches
+
+
+def gmx_blocks(text):
+    """{moleculetype name: its lines} and the lines outside them."""
+    from grappa_tpu_torch.wrappers.gromacs_topology import (GromacsTopology,
+                                                            Section)
+    top = GromacsTopology.parse(text)
+    blocks = {m.name: [line for s in m.sections
+                       for line in [s.header_line, *s.rows]]
+              for m in top.molecule_types()}
+    inside = {id(s) for m in top.molecule_types() for s in m.sections}
+    blocks[''] = [line for el in top.elements
+                  for line in ((el.header_line, *el.rows)
+                               if isinstance(el, Section) else (el,))
+                  if not isinstance(el, Section) or id(el) not in inside]
+    return top, blocks
+
+
+def gmx_rows(mt):
+    """{section kind: [data row as written]} of a moleculetype; the
+    dihedral rows split by funct."""
+    out = {'bonds': [], 'angles': [], 'propers': [], 'impropers': []}
+    for kind in ('bonds', 'angles'):
+        sec = mt.section(kind)
+        out[kind] = [' '.join(r) for r in (sec.data_rows() if sec else [])]
+    for _, r in mt.dihedral_rows():
+        out['propers' if r[4] in ('9', '1') else 'impropers'].append(
+            ' '.join(r))
+    return out
+
+
+def gmx_lines_agree(label, got, want):
+    """Two written topologies line for line, as
+    tests/test_torch_port_gromacs.py compares them: every line equal, or a
+    bonded row with equal ids, functs and periodicity whose parameters
+    agree at MODEL_ATOL x the unit factor + MODEL_RTOL |value| + half a
+    printed unit; torsion rows that the k cutoff zeroes on one side only
+    are counted and left out."""
+    from grappa_tpu_torch.wrappers import gromacs_wrapper as gw
+    cols = {'bonds': {3: (gw.BOND_EQ_FACTOR, 6), 4: (gw.BOND_K_FACTOR, 4)},
+            'angles': {4: (gw.ANGLE_EQ_FACTOR, 4),
+                       5: (gw.ANGLE_K_FACTOR, 4)},
+            'dihedrals': {5: (gw.TORSION_PHASE_FACTOR, 4),
+                          6: (gw.TORSION_K_FACTOR, 6)}}
+    got, want = got.splitlines(), want.splitlines()
+    ok, section, differ, flips, worst = len(got) == len(want), None, 0, 0, 0.0
+    for g, w in zip(got, want):
+        m = re.match(r'^\s*\[\s*(\S+)\s*\]', w)
+        if m:
+            section = m.group(1).lower()
+        if g == w:
+            continue
+        differ += 1
+        gt, wt, c = g.split(), w.split(), cols.get(section)
+        if not c or len(gt) != len(wt):
+            ok = False
+            continue
+        if section == 'dihedrals' and (
+                abs(float(gt[6])) / gw.TORSION_K_FACTOR > TORSION_CUTOFF) != (
+                abs(float(wt[6])) / gw.TORSION_K_FACTOR > TORSION_CUTOFF):
+            flips += 1
+            ok &= gt[:5] + gt[7:] == wt[:5] + wt[7:]
+            continue
+        for i, (a, b) in enumerate(zip(gt, wt)):
+            if i not in c:
+                ok &= a == b
+                continue
+            factor, decimals = c[i]
+            tol = (MODEL_ATOL * factor + MODEL_RTOL * abs(float(b))
+                   + 0.5 * 10 ** -decimals)
+            worst = max(worst, abs(float(a) - float(b)) / tol)
+    ok &= worst <= 1.0 and flips <= 1e-3 * len(want)
+    check(ok, f'{label}: {len(got)} lines against {len(want)}, {differ} '
+              f'differ, worst parameter at {worst:.3f} of its tolerance '
+              f'(MODEL_ATOL {MODEL_ATOL} x unit + MODEL_RTOL {MODEL_RTOL} '
+              f'|y| + half a printed unit), {flips} torsion rows at the k '
+              f'cutoff left out')
+
+
+class StageClock:
+    """Host seconds by stage of a parametrize call, through wrapped
+    functions (`wrap`), and the model forward's device ms (CUDA events
+    around each forward: `hook`)."""
+
+    def __init__(self, torch):
+        self.torch, self.host, self.events = torch, {}, []
+
+    def wrap(self, stage, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.host[stage] = (self.host.get(stage, 0.0)
+                                    + time.perf_counter() - t0)
+        return timed
+
+    def hook(self, model):
+        torch = self.torch
+
+        def pre(module, args):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self.events.append([start, None, time.perf_counter()])
+
+        def post(module, args, out):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.events[-1][1] = end
+            self.host['forward'] = (self.host.get('forward', 0.0)
+                                    + time.perf_counter()
+                                    - self.events[-1][2])
+        return (model.register_forward_pre_hook(pre),
+                model.register_forward_hook(post))
+
+    def device_ms(self):
+        self.torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e, _ in self.events)
+
+
+def gmx_times(torch, ff, top_path, out_path, reps=GMX_REPS):
+    """Phase 11(f): warm parametrize of the whole topology, host clock
+    (median of `reps`), split into the topology parse, featurise (the
+    moleculetypes' Molecules, MolGraph, pad spec) + collate, the forward
+    (CUDA events; its host time beside), row formatting + the write, and
+    the rest (the copy back, slicing, Parameters)."""
+    from grappa_tpu_torch import api
+    from grappa_tpu_torch.wrappers import gromacs_wrapper as gw
+    runs = []
+    for _ in range(reps):
+        clock = StageClock(torch)
+        saved = {(gw, 'GromacsTopology'): gw.GromacsTopology,
+                 (gw, 'molecule_from_moleculetype'):
+                     gw.molecule_from_moleculetype,
+                 (gw, 'gromacs_parameter_rows'): gw.gromacs_parameter_rows,
+                 (api, 'MolGraph'): api.MolGraph,
+                 (api, 'bucketed_pad_spec'): api.bucketed_pad_spec,
+                 (api, 'collate'): api.collate}
+        base = gw.GromacsTopology
+
+        class Timed(base):
+            @classmethod
+            def parse(cls, *args, **kwargs):
+                return clock.wrap('parse', base.parse.__func__)(
+                    cls, *args, **kwargs)
+
+            def save(self, path):
+                return clock.wrap('rows_write', base.save)(self, path)
+
+        class Graphs:
+            from_molecule = staticmethod(clock.wrap(
+                'featurise_collate', api.MolGraph.from_molecule))
+
+        gw.GromacsTopology = Timed
+        gw.molecule_from_moleculetype = clock.wrap(
+            'featurise_collate', gw.molecule_from_moleculetype)
+        gw.gromacs_parameter_rows = clock.wrap('rows_write',
+                                               gw.gromacs_parameter_rows)
+        api.MolGraph = Graphs
+        api.bucketed_pad_spec = clock.wrap('featurise_collate',
+                                           api.bucketed_pad_spec)
+        api.collate = clock.wrap('featurise_collate', api.collate)
+        hooks = clock.hook(ff.model)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ff.parametrize(top_path, out_path, check_eq_values=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for (mod, name), fn in saved.items():
+                setattr(mod, name, fn)
+            for h in hooks:
+                h.remove()
+        split = {k: v * 1e3 for k, v in clock.host.items()}
+        split['forward_device'] = clock.device_ms()
+        split['other'] = wall * 1e3 - sum(
+            v for k, v in split.items() if k != 'forward_device')
+        runs.append((wall * 1e3, split))
+    order = sorted(range(reps), key=lambda i: runs[i][0])
+    median = runs[order[reps // 2]]
+    return median, [round(r[0], 3) for r in runs]
+
+
+def gmx_phase(torch, cfg, work, smi, data):
+    """Phase 11 on `gmx_data`'s topology. Returns the K1-K3 launches of
+    the path and the `gmx` line's fields."""
+    import contextlib
+    import io
+    from grappa_tpu_torch import cli
+    from grappa_tpu_torch.models.grappa_model import field_of_view, make_model
+    from grappa_tpu_torch.ops.fused_block import fused_transformer_block
+    from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
+    from grappa_tpu_torch.ops.fused_symmetriser import fused_symmetriser
+    from grappa_tpu_torch.train.export import build_model_dict, save_model_dict
+    from grappa_tpu_torch.wrappers import gromacs_wrapper as gw
+    from grappa_tpu_torch.wrappers.gromacs_topology import SKIP_MOLECULES
+
+    phase('11. GROMACS: cli gmx and GromacsGrappa.parametrize, default '
+          'config')
+    top_path, mols, focus, _ = data
+    root = top_path.parent
+    fov = field_of_view(cfg)
+    text = top_path.read_text()
+    _, in_blocks = gmx_blocks(text)
+
+    # (a) the model file in a temporary GRAPPA_TPU_CACHE under the tag
+    cache = root / 'cache'
+    os.environ['GRAPPA_TPU_CACHE'] = str(cache)
+    save_model_dict(build_model_dict(perturbed_model(torch, make_model, cfg,
+                                                     seed=11),
+                                     {'model_config': cfg}),
+                    cache / 'models' / 'grappa-1.2.pth')
+    n_mol = {name: (len(m.atoms), len(m.bonds), len(m.angles),
+                    len(m.propers), len(m.impropers))
+             for name, m in mols.items()}
+    print('(a) ' + ', '.join(
+        f'{name}: {a} atoms, {b} bonds, {an} angles, {p} propers, {i} '
+        f'impropers' for name, (a, b, an, p, i) in n_mol.items())
+        + f'; SOL x {GMX_WATERS}, NA x {GMX_IONS}, CL x {GMX_IONS} '
+        f'(skipped: {sorted(SKIP_MOLECULES & {"SOL", "NA", "CL"})})',
+        flush=True)
+
+    counters = (fused_gnn_block, fused_transformer_block, fused_symmetriser)
+
+    def run_cli(out, *flags):
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rc = cli.main(['gmx', '-f', str(top_path), '-o', str(out), '-t',
+                           'grappa-1.2', *flags])
+        torch.cuda.synchronize()
+        return (rc, time.perf_counter() - t0, buf.getvalue(),
+                {c.__name__: c.launches for c in counters})
+
+    def forwards(counts, n):
+        return counts == {'fused_gnn_block': 7 * n,
+                          'fused_transformer_block': 12 * n,
+                          'fused_symmetriser': 4 * n}
+
+    # (b) cli gmx over the whole topology: one forward a moleculetype
+    out_cli = root / 'cli.top'
+    rc, cli_s, stdout, got = run_cli(out_cli)
+    launches = {name: {'gmx': n} for name, n in got.items()}
+    out_text = out_cli.read_text()
+    out_top, out_blocks = gmx_blocks(out_text)
+    check(rc == 0 and json.loads(stdout) == {'written': str(out_cli)}
+          and forwards(got, 2),
+          f'(b) cli gmx: rc {rc} in {cli_s:.2f} s, {stdout.strip()}; '
+          f'launches {got} (2 forwards x 7 / 12 / 4: PROT, LIG)')
+    n_imp = cfg.get('n_periodicity_improper', 3)
+    n_prop = cfg.get('n_periodicity_proper', 6)
+    for name, mol in mols.items():
+        rows = gmx_rows(next(m for m in out_top.molecule_types()
+                             if m.name == name))
+        tuples = {k: {tuple(r.split()[:n]) for r in rows[k]}
+                  for k, n in (('bonds', 2), ('angles', 3), ('propers', 4),
+                               ('impropers', 4))}
+        want = {k: {tuple(str(int(x) + 1) for x in t)
+                    for t in getattr(mol, k)}
+                for k in ('bonds', 'angles', 'propers', 'impropers')}
+        check(len(rows['bonds']) == len(mol.bonds)
+              and len(rows['angles']) == len(mol.angles)
+              and len(rows['propers']) == n_prop * len(mol.propers)
+              and len(rows['impropers']) == n_imp * len(mol.impropers)
+              and tuples == want
+              and not any(r.endswith(('250000.0', '400.000', '0.6508 3',
+                                      '4.6024 2'))
+                          for v in rows.values() for r in v),
+              f'(b) {name}: predicted rows for every bond '
+              f'({len(rows["bonds"])}), angle ({len(rows["angles"])}), '
+              f'proper x {n_prop} ({len(rows["propers"])}) and improper x '
+              f'{n_imp} ({len(rows["impropers"])}); no placeholder left')
+    same = [n for n in ('SOL', 'NA', 'CL', '')
+            if out_blocks[n] == in_blocks[n]]
+    check(len(same) == 4,
+          f'(b) SOL, NA, CL and the lines outside the moleculetypes '
+          f'unchanged byte for byte ({", ".join(n or "rest" for n in same)})')
+
+    # (c) --focus on two distant protein atoms: one forward, two components
+    out_focus = root / 'focus.top'
+    rc, focus_s, stdout, got = run_cli(
+        out_focus, '--focus', *[str(x) for x in focus])
+    for name, n in got.items():
+        launches[name]['gmx'] += n
+    focus_text = out_focus.read_text()
+    focus_top, focus_blocks = gmx_blocks(focus_text)
+    prot_bonds = [(int(a) + 1, int(b) + 1) for a, b in mols['PROT'].bonds]
+    apply = gw.fov_neighborhood(prot_bonds, set(focus), fov)
+    comps = gmx_molecules(top_path, fov, focus)
+
+    def inside(row, arity):
+        return all(int(x) in apply for x in row.split()[:arity])
+    in_top, _ = gmx_blocks(text)
+    prot_in = gmx_rows(in_top.molecule_types()[0])
+    prot_out = gmx_rows(focus_top.molecule_types()[0])
+    arity = {'bonds': 2, 'angles': 3, 'propers': 4, 'impropers': 4}
+    kept = all([r for r in prot_out[k] if not inside(r, n)]
+               == [r for r in prot_in[k] if not inside(r, n)]
+               for k, n in arity.items())
+    rewritten = {k: sum(inside(r, n) for r in prot_out[k])
+                 for k, n in arity.items()}
+    check(rc == 0 and forwards(got, 1) and list(comps) == ['PROT']
+          and len(comps['PROT']) == 2 and kept
+          and all(focus_blocks[n] == in_blocks[n]
+                  for n in ('LIG', 'SOL', 'NA', 'CL', ''))
+          and rewritten['bonds'] > 0,
+          f'(c) cli gmx --focus {" ".join(map(str, focus))}: rc {rc} in '
+          f'{focus_s:.2f} s; launches {got} (one forward); '
+          f'{len(comps.get("PROT", []))} components of '
+          f'{[len(m.atoms) for m in comps.get("PROT", [])]} atoms; '
+          f'{len(apply)} atoms in the apply set, rows inside it rewritten '
+          f'{rewritten}; every row outside it, LIG, SOL, NA, CL and the '
+          f'rest unchanged byte for byte')
+
+    # (e) the same GromacsGrappa on the card and on the CPU
+    ff = gw.GromacsGrappa.from_tag('grappa-1.2')
+    ff_cpu = gw.GromacsGrappa.from_tag('grappa-1.2', device='cpu')
+    check(ff.device.type == 'cuda' and ff.field_of_view == fov,
+          f'(e) GromacsGrappa.from_tag on {ff.device}, field of view '
+          f'{ff.field_of_view}')
+    for label, flags in (('whole topology', None), ('--focus', focus)):
+        written = {}
+        for dev, f in (('card', ff), ('cpu', ff_cpu)):
+            t0 = time.perf_counter()
+            f.parametrize(top_path, root / f'{dev}.top',
+                          focus_nrs=set(flags) if flags else None)
+            written[dev] = ((root / f'{dev}.top').read_text(),
+                            f.last_predictions, time.perf_counter() - t0)
+        card, cpu = written['card'], written['cpu']
+        check(card[1].keys() == cpu[1].keys()
+              and all(len(card[1][k]) == len(cpu[1][k])
+                      and all(a[1] == b[1] for a, b in zip(card[1][k],
+                                                           cpu[1][k]))
+                      for k in card[1]),
+              f'(e) {label}: the same moleculetypes, components and apply '
+              f'sets on the card ({card[2]:.2f} s) and on the CPU '
+              f'({cpu[2]:.2f} s)')
+        for name in card[1]:
+            compare_outputs(f'(e) {label} {name}, card vs CPU,',
+                            stack([p for p, _ in card[1][name]]),
+                            stack([p for p, _ in cpu[1][name]]))
+        gmx_lines_agree(f'(e) {label}: the card\'s written .top against '
+                        f'the CPU\'s', card[0], cpu[0])
+        gmx_lines_agree(f'(e) {label}: cli gmx\'s written .top against '
+                        f'GromacsGrappa.parametrize\'s on the card',
+                        (out_cli if flags is None else out_focus)
+                        .read_text(), card[0])
+        rows = {}
+        for name, preds in card[1].items():
+            for params, app in preds:
+                for k, v in gw.gromacs_parameter_rows(params, app).items():
+                    rows.setdefault((name, k), []).extend(v)
+        card_top, _ = gmx_blocks(card[0])
+        written_rows = {(m.name, k): v for m in card_top.molecule_types()
+                        for k, v in gmx_rows(m).items()}
+        check(all(set(' '.join(r.split()) for r in v)
+                  <= set(written_rows[key]) for key, v in rows.items()),
+              f'(e) {label}: every row formatted from last_predictions is '
+              f'in the written file')
+
+    # (f) warm parametrize on the card, by stage
+    gmx_times(torch, ff, top_path, root / 'warm.top', reps=1)
+    (wall, split), runs = gmx_times(torch, ff, top_path, root / 'warm.top')
+    n_atoms = sum(len(m.atoms) for m in mols.values())
+    line = {
+        'atoms': n_atoms,
+        'moleculetypes': {n: dict(zip(('atoms', 'bonds', 'angles', 'propers',
+                                        'impropers'), v))
+                          for n, v in n_mol.items()},
+        'parametrize_ms': round(wall, 3), 'runs_ms': runs,
+        'split_ms': {k: round(v, 3) for k, v in split.items()},
+        'atoms_per_s': n_atoms / (wall / 1e3),
+        'cli_wall_ms': round(cli_s * 1e3, 3),
+        'cli_focus_wall_ms': round(focus_s * 1e3, 3),
+        'focus': focus, 'focus_components': [
+            len(m.atoms) for m in comps['PROT']],
+        'launches': {k: v['gmx'] for k, v in launches.items()},
+        'card': smi}
+    print(f'(f) warm parametrize of {n_atoms} atoms: median {wall:.2f} ms '
+          f'(runs {runs}); split of the median run (ms) '
+          f'{json.dumps(line["split_ms"])}; {line["atoms_per_s"]:.1f} '
+          f'atoms/s', flush=True)
+    return launches, line
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, 'grappa_tpu_torch')):
         print('chip_smoke.py: run it from a checkout of the repository '
@@ -3180,6 +3762,7 @@ def main() -> int:
     train_step_only = sys.argv[1:] == ['--train-step']
     eval_only = sys.argv[1:] == ['--eval']
     bf16_only = sys.argv[1:] == ['--bf16']
+    gmx_only = sys.argv[1:] == ['--gmx']
     sys.path.insert(0, ROOT)
     import torch
     if not torch.cuda.is_available():
@@ -3226,6 +3809,22 @@ def main() -> int:
         print('eval ' + json.dumps(eval_line), flush=True)
         print('ingest ' + json.dumps(ingest_line), flush=True)
         return 1 if FAILURES else 0
+    if gmx_only:
+        import atexit
+        import shutil
+        from grappa_tpu_torch.models.grappa_model import (
+            get_default_model_config)
+        shutil.rmtree(work, ignore_errors=True)
+        atexit.register(shutil.rmtree, work, True)
+        cfg = get_default_model_config()
+        gmx_fix = gmx_data(torch, work, cfg)
+        phase('2. kernels against their plain versions (phase 11\'s '
+              'shapes)')
+        entries = kernel_phase(torch, gmx_fix[3])
+        _, gmx_line = gmx_phase(torch, cfg, work, smi, gmx_fix)
+        print('kernel_times ' + json.dumps(entries), flush=True)
+        print('gmx ' + json.dumps(gmx_line), flush=True)
+        return 1 if FAILURES else 0
     if trainrun_only:
         data_dir, made, _, test_batches = trainrun_data(torch, work)
         _, line = trainrun_phase(torch, work, data_dir, made, test_batches)
@@ -3262,6 +3861,9 @@ def main() -> int:
     # phase 9's eval and ingest batches
     eval_fix = eval_data(torch, work, cfg)
     workloads.update(eval_batches(torch))
+    # phase 11's forwards (the GROMACS path)
+    gmx_fix = gmx_data(torch, work, cfg)
+    workloads.update(gmx_fix[3])
     if bf16_only:
         entries = {}
         bf16_kernel_phase(torch, workloads, entries)
@@ -3368,6 +3970,9 @@ def main() -> int:
         test_batches, entries, trainrun_line['steady_train_steps_per_s'])
     for name, per_path in bf16_train.items():
         launches.setdefault(name, {}).update(per_path)
+    gmx_launches, gmx_line = gmx_phase(torch, cfg, work, smi, gmx_fix)
+    for name, per_path in gmx_launches.items():
+        launches[name].update(per_path)
 
     if FAILURES:
         print(f'chip_smoke.py: {len(FAILURES)} check(s) failed',
@@ -3435,6 +4040,7 @@ def main() -> int:
     print('trainrun_bf16 ' + json.dumps(trainrun_bf16_line))
     print('eval ' + json.dumps(eval_line))
     print('ingest ' + json.dumps(ingest_line))
+    print('gmx ' + json.dumps(gmx_line))
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -2,12 +2,12 @@
 <command> ...`.
 
 Counterpart of `grappa_tpu.cli` (the reference console scripts grappa_eval
-/ grappa_export / grappa_train, reference: pyproject.toml:22-26): train,
-resume, resume-all, eval, export, release, import-ref and ingest-release.
-Every command that computes takes `--device` and runs on CUDA unless it
-names another (`--device cpu`). `gmx` and `dataset` need the MD-engine
-wrappers and the dataset-creation tools, which the port does not have yet
-(ROADMAP.md §1 items 6-7): `main` answers them as any unknown command.
+/ grappa_export / grappa_gmx / grappa_train, reference:
+pyproject.toml:22-26): train, resume, resume-all, eval, export, gmx,
+release, import-ref and ingest-release. Every command that computes takes
+`--device` and runs on CUDA unless it names another (`--device cpu`).
+`dataset` needs the dataset-creation tools, which the port does not have
+yet (ROADMAP.md §1 item 7): `main` answers it as any unknown command.
 """
 from __future__ import annotations
 
@@ -221,6 +221,53 @@ def cmd_export(argv):
     print(json.dumps({'exported': str(out)}))
 
 
+def cmd_gmx(argv):
+    p = argparse.ArgumentParser(
+        prog='grappa_gmx',
+        description='Parametrize a GROMACS topology file with '
+                    'grappa_tpu_torch.')
+    p.add_argument('-f', '--topology', required=True, help='input .top')
+    p.add_argument('-o', '--output', required=True, help='output .top')
+    p.add_argument('-t', '--tag', default='latest', help='model tag/path')
+    p.add_argument('-c', '--charge-model', default='amber99',
+                   choices=['amber99', 'am1BCC'])
+    p.add_argument('--resolve-includes', action='store_true',
+                   help='inline molecule .itp includes before parametrizing')
+    p.add_argument('-p', '--plot', default=None,
+                   help='write a violin plot of the predicted parameters')
+    p.add_argument('--focus', type=int, nargs='+', default=None,
+                   metavar='NR',
+                   help='partial reparametrization: only rewrite tuples '
+                        'within the model field of view of these atom nrs '
+                        '(the kimmdy radical workflow, file-based)')
+    _device_arg(p)
+    args = p.parse_args(argv)
+    from grappa_tpu_torch.wrappers.gromacs_wrapper import GromacsGrappa
+    ff = GromacsGrappa.from_tag(args.tag, device=args.device)
+    ff.parametrize(args.topology, args.output,
+                   charge_model=args.charge_model,
+                   focus_nrs=set(args.focus) if args.focus else None,
+                   resolve_includes=args.resolve_includes)
+    if args.plot:
+        # plot the very predictions the parametrize run wrote (no second
+        # forward, no second field-of-view derivation: parametrize keeps
+        # them in ff.last_predictions per moleculetype and component)
+        from grappa_tpu_torch.plotting import plot_parameters
+        from grappa_tpu_torch.wrappers.gromacs_wrapper import (
+            filter_parameters)
+        all_params = []
+        for preds in ff.last_predictions.values():
+            for pred, apply_nrs in preds:
+                all_params.append(pred if apply_nrs is None
+                                  else filter_parameters(pred, apply_nrs))
+        plot_parameters(all_params, filename=args.plot,
+                        title=f'grappa_tpu parameters: {args.topology}'
+                              + (f' (focus {sorted(args.focus)})'
+                                 if args.focus else ''))
+    print(json.dumps({'written': args.output,
+                      **({'plot': args.plot} if args.plot else {})}))
+
+
 def cmd_release(argv):
     p = argparse.ArgumentParser(
         prog='grappa_release',
@@ -382,6 +429,7 @@ COMMANDS = {
     'resume-all': cmd_resume_all,
     'eval': cmd_eval,
     'export': cmd_export,
+    'gmx': cmd_gmx,
     'release': cmd_release,
     'import-ref': cmd_import_ref,
     'ingest-release': cmd_ingest_release,

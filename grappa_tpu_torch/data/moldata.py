@@ -6,8 +6,8 @@ interchange through `to_dict` / `from_dict` / `save` / `load`):
 conformational arrays (xyz, energy, gradient), reference targets
 (energy_ref = QM minus classical nonbonded, mean-centred; gradient_ref),
 classical parameters for regularisation, and per-force-field energy /
-gradient dictionaries under prefixed keys. `from_smiles` needs the MD
-engine wrappers and is queued with them (ROADMAP.md).
+gradient dictionaries under prefixed keys. `from_smiles` goes through the
+port's MD-engine wrappers (openff and openmm, imported when it is called).
 """
 from __future__ import annotations
 
@@ -176,3 +176,75 @@ class MolData:
     def load(cls, path: Union[str, Path]) -> 'MolData':
         with np.load(path, allow_pickle=False) as data:
             return cls.from_dict(dict(data))
+
+    @classmethod
+    def from_smiles(cls, mapped_smiles: str, xyz: np.ndarray,
+                    energy: np.ndarray, gradient: Optional[np.ndarray] = None,
+                    partial_charges: Optional[np.ndarray] = None,
+                    forcefield: str = 'openff_unconstrained-2.0.0.offxml',
+                    mol_id: Optional[str] = None,
+                    charge_model: str = 'am1BCC',
+                    allow_nan_params: bool = False) -> 'MolData':
+        """MolData from a mapped SMILES + an openff SMIRNOFF force field
+        (reference: MolData.from_smiles, MolData.py:521-573). The force
+        field provides the interaction tuples, classical parameters,
+        nonbonded reference energies and — when partial_charges is None —
+        the charges. openff-gated; executed via the test doubles.
+        """
+        from grappa_tpu_torch.data.parameters import Parameters
+        from grappa_tpu_torch.wrappers.openff_utils import (
+            get_is_aromatic, get_openmm_system,
+            get_sp_hybridization_encoding)
+        from grappa_tpu_torch.wrappers.openmm_wrapper import (
+            moldata_from_openmm_system)
+
+        system, topology, openff_mol = get_openmm_system(
+            mapped_smiles, openff_forcefield=forcefield,
+            partial_charges=partial_charges)
+        try:
+            md = moldata_from_openmm_system(
+                system, topology, xyz=xyz, energy=energy, gradient=gradient,
+                mol_id=mol_id or mapped_smiles, charge_model=charge_model,
+                ff_name=forcefield)
+        except (RuntimeError, ValueError):
+            # classical parameters unobtainable: NaN placeholders if allowed
+            # (reference MolData.py:541 allow_nan_params semantics)
+            if not allow_nan_params:
+                raise
+            import copy as _copy
+
+            from grappa_tpu_torch.wrappers.openmm_wrapper import (
+                get_energies, molecule_from_openmm,
+                remove_forces_from_system)
+            molecule = molecule_from_openmm(system, topology,
+                                            charge_model=charge_model)
+            had_gradient = gradient is not None
+            gradient = (np.zeros_like(xyz) if gradient is None
+                        else np.asarray(gradient, np.float32))
+            e = np.asarray(energy, np.float32)
+            # only the classical BONDED parameters are unobtainable here;
+            # the nonbonded contribution is still computable from the
+            # already-built system and MUST be subtracted — the bonded
+            # target convention everywhere else (from_arrays,
+            # moldata_from_openmm_system) is QM minus nonbonded
+            nb_system = remove_forces_from_system(
+                _copy.deepcopy(system), keep=('Nonbonded', 'CMMotion'))
+            nb_energy, nb_gradient = get_energies(nb_system, xyz)
+            nb_energy = np.asarray(nb_energy, np.float32)
+            nb_gradient = np.asarray(nb_gradient, np.float32)
+            energy_ref = e - nb_energy
+            md = cls(molecule=molecule, xyz=np.asarray(xyz, np.float32),
+                     energy=e, gradient=gradient,
+                     energy_ref=energy_ref - energy_ref.mean(),
+                     gradient_ref=(gradient - nb_gradient if had_gradient
+                                   else gradient),
+                     mol_id=mol_id or mapped_smiles,
+                     ff_nonbonded_energy={forcefield: nb_energy},
+                     ff_nonbonded_gradient={forcefield: nb_gradient},
+                     classical_parameters=Parameters.get_nan_params(molecule))
+        md.mapped_smiles = mapped_smiles
+        md.molecule.additional_features['sp_hybridization'] = \
+            get_sp_hybridization_encoding(openff_mol)
+        md.molecule.additional_features['is_aromatic'] = \
+            get_is_aromatic(openff_mol)
+        return md

@@ -201,3 +201,100 @@ class Parameters:
         p.improper_phases = np.zeros_like(p.improper_ks)
         return p
 
+
+def assign_torsion_parameters(mol: Molecule, torsions, ks, phases,
+                              periodicities,
+                              allow_skip_improper: bool = False):
+    """Map a flat list of (torsion tuple, k, phase, periodicity) entries —
+    as found in MD-engine outputs — onto the molecule's canonical proper and
+    improper arrays (reference semantics: Parameters.from_lists,
+    Parameters.py:243-424, "the subtlest code in the repo"):
+
+      * negative k folds into a phase shift by pi
+      * propers match up to order reversal; repeated (tuple, periodicity)
+        entries with equal phase ADD their ks (energy is linear in k)
+      * impropers match any of the 4 dihedral-invariant permutations
+        (reversal: +; outer or inner swap: -, only valid when the phase is
+        0 or pi); the sign flips k in the signed convention
+      * entries not matching any canonical tuple raise (or are skipped).
+
+    torsions contain atom ids. Returns (proper_ks, proper_phases,
+    improper_ks, improper_phases) aligned with mol.propers/mol.impropers.
+    """
+    from grappa_tpu_torch import constants as C, topology as topo
+
+    proper_ks = np.zeros((len(mol.propers), C.N_PERIODICITY_PROPER))
+    proper_phases = np.zeros_like(proper_ks)
+    improper_ks = np.zeros((len(mol.impropers), C.N_PERIODICITY_IMPROPER))
+    improper_phases = np.zeros_like(improper_ks)
+
+    proper_lookup = {}
+    for i, t in enumerate(mol.propers):
+        t = tuple(int(x) for x in t)
+        proper_lookup[t] = i
+        proper_lookup[t[::-1]] = i
+    improper_lookup = {}
+    for i, t in enumerate(mol.impropers):
+        t = tuple(int(x) for x in t)
+        for perm, sign in (((0, 1, 2, 3), 1), ((3, 2, 1, 0), 1),
+                           ((0, 2, 1, 3), -1), ((3, 1, 2, 0), -1)):
+            key = tuple(t[j] for j in perm)
+            improper_lookup.setdefault(key, (i, sign))
+
+    nbrs = mol.neighbor_map
+    for torsion, k, phase, per in zip(torsions, ks, phases, periodicities):
+        if k == 0.0:
+            continue
+        if k < 0:  # sign of k <-> phase shift by pi
+            phase = phase + np.pi
+            k = -k
+        # canonicalize into [0, 2pi) with near-2pi snapped to 0, so -pi
+        # (physically identical to +pi) and 2pi-eps vs 0 compare equal in
+        # the duplicate-phase checks below
+        phase = float(np.mod(phase, 2 * np.pi))
+        if phase > 2 * np.pi - 1e-2:
+            phase = 0.0
+        torsion = tuple(int(x) for x in torsion)
+        near_0_or_pi = (np.isclose(phase, 0, atol=1e-2)
+                        or np.isclose(phase, np.pi, atol=1e-2))
+
+        if torsion in proper_lookup:
+            if per > C.N_PERIODICITY_PROPER:
+                raise ValueError(f"periodicity {per} > max for {torsion}")
+            i = proper_lookup[torsion]
+            if proper_ks[i, per - 1] != 0.0:
+                if not np.isclose(phase, proper_phases[i, per - 1], atol=1e-2):
+                    raise ValueError(
+                        f"torsion {torsion} n={per} appears twice with "
+                        f"different phases")
+                proper_ks[i, per - 1] += k     # energy linear in k
+            else:
+                proper_ks[i, per - 1] = k
+                proper_phases[i, per - 1] = phase
+            continue
+
+        hit = improper_lookup.get(torsion)
+        if hit is not None:
+            i, sign = hit
+            if per > C.N_PERIODICITY_IMPROPER:
+                raise ValueError(f"periodicity {per} > max for {torsion}")
+            if sign == -1 and not near_0_or_pi:
+                if allow_skip_improper:
+                    continue
+                raise ValueError(
+                    f"improper {torsion} matches only an antisymmetric "
+                    f"permutation but its phase ({phase}) is not 0/pi")
+            if improper_ks[i, per - 1] != 0.0:
+                raise ValueError(f"improper {torsion} appears twice")
+            # sign == -1 matches via an antisymmetric permutation
+            # (phi -> -phi); for phase in {0, pi} the energy term
+            # cos(n*phi - phase) is even, so (k, phase) carries over as-is
+            improper_ks[i, per - 1] = k
+            improper_phases[i, per - 1] = phase
+            continue
+
+        if allow_skip_improper and topo.improper_center(torsion, nbrs) is not None:
+            continue
+        raise ValueError(
+            f"torsion {torsion} matches no canonical proper/improper tuple")
+    return proper_ks, proper_phases, improper_ks, improper_phases

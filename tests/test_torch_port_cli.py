@@ -216,11 +216,15 @@ def test_eval_refuses_a_set_without_a_split(release_cache):
 
 
 def test_main_answers_unknown_commands(capsys):
-    for cmd in ('gmx', 'dataset', 'no-such-command'):
+    for cmd in ('dataset', 'no-such-command'):
         assert cli.main([cmd]) == 2
         assert 'available' in capsys.readouterr().out
     assert cli.main([]) == 0
     assert 'ingest-release' in capsys.readouterr().out
+    # gmx is a command now: without its required flags argparse exits 2
+    with pytest.raises(SystemExit) as exc:
+        cli.main(['gmx'])
+    assert exc.value.code == 2 and 'gmx' in cli.COMMANDS
 
 
 def _run_config(ds_dir):

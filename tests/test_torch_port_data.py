@@ -96,19 +96,35 @@ def test_collate_puts_the_batch_on_the_card_by_default(monkeypatch):
 def test_import_without_jax():
     """grappa_tpu_torch and every module in it import with jax, flax and
     grappa_tpu blocked, and with yaml blocked: the training run writes and
-    reads its config without pyyaml."""
+    reads its config without pyyaml. The MD engines (openmm, openff,
+    rdkit, kimmdy) and matplotlib are blocked too: the wrappers and the
+    lazy top-level names resolve without them, and an engine's entry point
+    raises a clear ImportError."""
     modules = sorted(
         '.'.join(p.relative_to(ROOT).with_suffix('').parts)
         .replace('.__init__', '')
         for p in (ROOT / 'grappa_tpu_torch').rglob('*.py'))
     code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'flax', 'grappa_tpu', 'yaml'):\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'grappa_tpu', 'yaml',\n"
+            "          'openmm', 'openff', 'rdkit', 'kimmdy',\n"
+            "          'matplotlib'):\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
-            "assert 'grappa_tpu' not in sys.modules or "
-            "sys.modules['grappa_tpu'] is None\n")
+            "import grappa_tpu_torch as g\n"
+            "from grappa_tpu_torch.wrappers import GromacsGrappa\n"
+            "assert g.GromacsGrappa is GromacsGrappa\n"
+            "assert g.MolData.__name__ == 'MolData'\n"
+            "assert g.Dataset.__name__ == 'Dataset'\n"
+            "try:\n"
+            "    g.OpenmmGrappa.parametrize_system(None, None, None)\n"
+            "    raise AssertionError('no ImportError')\n"
+            "except ImportError as e:\n"
+            "    assert 'openmm is not installed' in str(e), e\n"
+            "for m in ('grappa_tpu', 'openmm', 'openff', 'rdkit', 'kimmdy',\n"
+            "          'matplotlib'):\n"
+            "    assert sys.modules.get(m) is None, m\n")
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
