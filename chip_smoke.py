@@ -9,6 +9,7 @@
     python3 chip_smoke.py --eval           # phases 1 and 9 alone
     python3 chip_smoke.py --bf16           # phases 1 and 10 alone
     python3 chip_smoke.py --gmx            # phases 1 and 11 alone
+    python3 chip_smoke.py --gnn-calls      # K1 / K1b bf16 a call, profile
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit, the torch / CUDA versions;
@@ -34,15 +35,13 @@ Phases, each printing its own lines:
      K2m mask dumps (bench batch alone) bit-equal to the plain Philox,
      with times, device times and bounds. Then the
      `block_profile` line: K2 / K2b (float32 and bf16) at the n4
-     training shape (S=4, T=8256, F=hid=512, dropout 0.5), K1 / K1b at the
-     training batch's
-     nodes (N=3376, dropout 0.3) and K3 / K3b (float32 and bf16) at the n4
-     training shape under torch.profiler, each launch of one call with its
-     device ms and share (printed above the line) and the device ms by
-     kernel name,
-     beside one torch.matmul
-     (fp32, TF32 off) of K2's largest product, 33024 x 1536 x 512, a
-     yardstick the port never calls.
+     training shape (S=4, T=8256, F=hid=512, dropout 0.5), K1 / K1b
+     (float32 and bf16) at the training batch's nodes (N=3376, dropout
+     0.3) and K3 / K3b (float32 and bf16) at the n4 training shape under
+     torch.profiler, each launch of one call with its device ms and share
+     (printed above the line) and the device ms by kernel name, beside one
+     torch.matmul (fp32, TF32 off) of K2's largest product, 33024 x 1536 x
+     512, a yardstick the port never calls.
   5. training at the default config: (a) one step on the card against the
      same step on the CPU (plain path), dropout off, 8 molecules x 4
      conformers; (b) ten steps with the config's dropout on the 128 x 32
@@ -152,24 +151,27 @@ Phases, each printing its own lines:
      on the same weights: 7 / 12 / 4 bf16 forward and backward launches a
      step and no float32 one, finite losses, step ms (median of 10),
      peak memory and idle share; gnn_compute_dtype / heads_compute_dtype
-     alone launch only their own stage in bf16; (d) one dropout-free bf16
-     step, card vs CPU (8 x 4): the loss, the gradients and Adam's update
-     in max(BF16_RULE, 1.25 x the card's own spread under a one-ulp
-     weight change) of the bf16 effect for the loss, and for the
-     gradients and the update the median over tensors within 1.25 x the
-     spread's median, every tensor within 1.25 x the widest spread (per
-     tensor the two are draws of one cascade); (e) do_trainrun in bf16 on phase
+     alone launch only their own stage in bf16; (d) dropout-free bf16
+     steps, card vs CPU (8 x 4) in BF16_STEP_DRAWS draws of weights,
+     molecules and one-ulp weight change, in units of each draw's bf16
+     effect: the median loss distance within max(BF16_RULE, 1.25 x the
+     median of the card's own spread under the one-ulp change); for the
+     gradients and the update the median of the draws' medians over
+     tensors within max(BF16_RULE, 1.25 x the same of the spread) and the
+     median of their largest within 1.25 x the median of the widest
+     spread; beside them a witness, the card with K1 / K1b on their plain
+     version; (e) do_trainrun in bf16 on phase
      8's dataset, 2 epochs, then resume_trainrun by one: bf16 launches
      only, finite losses, compute_dtype kept in the stored config and the
      resumed model, model.npz's float32 parameters loaded into a bf16
      model on the card give the run's test metrics (EVAL_RTOL), writer-
      free steps/s beside phase 8's float32 (`trainrun_bf16` line); (d)
-     the built library's SASS: every tc_gemm_kernel of the bf16 policy
-     (K1 / K1b's, all in fused_gnn.cu; the backward's MN-major and split-K
-     ones among them) has HMMA.16816.F32.BF16 and no TF32 HMMA, every
-     float32 one the reverse; every wg_gemm_kernel (K2 / K2b's and K3 /
-     K3b's bf16 products, each file's MN-major and split-K ones among them)
-     a bf16 HGMMA and no HMMA.
+     the built library's SASS: every wg_gemm_kernel (K1 / K1b's, K2 /
+     K2b's and K3 / K3b's bf16 products, each file's MN-major and split-K
+     ones among them) has a bf16 HGMMA and no HMMA; every tc_gemm_kernel
+     (the float32 products) the TF32 HMMA and no bf16 one; no function a
+     bf16 mma.sync (HMMA.16816.F32.BF16) and no name a TcBf16
+     instantiation.
  11. the GROMACS path at the default width (GromacsGrappa.parametrize and
      `cli gmx`, grappa_tpu_torch.wrappers): (a) a .top with the
      protein-like chain (phase 3's molecule, masses of each element,
@@ -230,15 +232,20 @@ the kernels' sums as a `kernel_times` line instead; `--bf16` runs phase
 shapes; a `kernel_times` line and the `gmx` line) and
 `--train-step` phase 5 and 10(c)(c) alone (the float32 and the bf16
 steps, with names a parent checkout shares, so that one copy of this
-script times the steps of both); `--torsion` prints only
-K5's host time by
-part at the propers' shapes (`k5_host` lines) and the energy + dE/dx
+script times the steps of both); `--gnn-calls` prints only the
+`gnn_call` lines, K1 / K1b in bf16 mode one call at a time at N 64, 224,
+1096, 1376, 3376 and 12904 (gnn_calls: back-to-back ms, device ms,
+launches, the host us of a call split into the C entry and the Python
+around it, the C entry's CUDA runtime calls), and `block_profile`, with
+names a parent checkout shares;
+`--torsion` prints only K5's host time by part at the propers' shapes (`k5_host` lines) and the energy + dE/dx
 path's times and kernels (`torsion_path_phase`), with names a parent
 checkout shares, so that one copy of this script times both. Needs one CUDA device; imports nothing of JAX or
 of grappa_tpu.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -347,8 +354,16 @@ BF16_RULE, BF16_MAX = 0.1, 2.0
 # the bf16 effect from the same on the card; a backward kernel's mean
 # error may reach BF16_ORDER x that distance where it exceeds BF16_RULE
 BF16_ORDER = 1.5
-# the bf16 mode's SASS: every tensor-core GEMM instantiated with the bf16
-# policy runs this instruction and no TF32 one (tc_gemm.cuh)
+# phase 10(c)(d): a bf16 step is a chaotic cascade of roundings, so one
+# card-vs-CPU distance and one one-ulp spread are each one draw of it. The
+# check draws both BF16_STEP_DRAWS times, draw k with the weights of
+# perturbed_model seed 2k, molecules 8k..8k+7 and the one-ulp change
+# seeded 5 + k (draw 0 is the single draw the check held alone before),
+# and holds the medians over the draws
+BF16_STEP_DRAWS = 9
+# the SASS: tc_gemm.cuh's float32 products run the TF32 mma.sync; the bf16
+# mma.sync (the engine K1 / K1b's bf16 mode ran on before wg_gemm.cuh) is
+# in no function of the library
 BF16_HMMA, TF32_HMMA = 'HMMA.16816.F32.BF16', 'HMMA.1688.F32.TF32'
 # phase 11: the GROMACS path on a topology of the protein-like chain,
 # a GMX_LIGAND_ATOMS-atom ligand (random_molecule, GMX_LIGAND_SEED),
@@ -358,6 +373,9 @@ BF16_HMMA, TF32_HMMA = 'HMMA.16816.F32.BF16', 'HMMA.1688.F32.TF32'
 # parametrize timed GMX_REPS times
 GMX_LIGAND_ATOMS, GMX_LIGAND_SEED, GMX_WATERS, GMX_IONS = 30, 0, 2000, 10
 GMX_FOCUS_APART, GMX_REPS = 4, 5
+# gnn_calls: bench.py's 512-molecule x 32-conformer batch's padded nodes
+# (the bf16 step of phase 10(c)(c))
+GNN_BIG_N = 12904
 REF_FIELDS = {'n2_k': ('n2', 'k_ref'), 'n2_eq': ('n2', 'eq_ref'),
               'n3_k': ('n3', 'k_ref'), 'n3_eq': ('n3', 'eq_ref'),
               'n4_k': ('n4', 'k_ref'),
@@ -527,10 +545,11 @@ def block_profile(torch, batch, iters=3):
     n4 training shape (S=4, T=8256, F=hid=512, 8 heads, dropout 0.5), K1
     and K1b at the training batch's nodes and neighbour list (F=512, 16
     heads, dropout 0.3), K3 and K3b at the n4 training shape (2
-    permutations, 3 x 256, out 12); K2 / K2b and K3 / K3b also in bf16
-    mode at their shapes (K2.bf16, K2b.bf16, K3.bf16, K3b.bf16: the split
-    between wg_gemm.cuh's products and the LayerNorm, attention, permuted-
-    row, cast and column-sum passes). Beside them one
+    permutations, 3 x 256, out 12); K2 / K2b, K1 / K1b and K3 / K3b also
+    in bf16 mode at their shapes (K2.bf16, K2b.bf16, K1.bf16, K1b.bf16,
+    K3.bf16, K3b.bf16: the split between wg_gemm.cuh's products and the
+    LayerNorm, attention, permuted-row, cast and column-sum passes).
+    Beside them one
     torch.matmul (float32, TF32 off) of K2's largest product, 33024 x 1536
     x 512, as a yardstick the port never calls."""
     from grappa_tpu_torch.models.heads import PERMUTATIONS
@@ -565,6 +584,8 @@ def block_profile(torch, batch, iters=3):
         ((4 * f, f), 'w'), ((4 * f,), 'b'), ((f, 4 * f), 'w'), ((f,), 'b')])
     k1 = lambda a, b, c, *q: fg.fused_gnn_block(a, b, c, mask, q, 16, 0.3,
                                                 True, 17)
+    k1h = lambda a, b, c, *q: fg.fused_gnn_block(
+        a, b, c, mask, q, 16, 0.3, True, 17, mm_dtype=torch.bfloat16)
 
     perms, width, out = PERMUTATIONS['n4'], 256, 12
     layers = [rand_params(torch, gen, [
@@ -580,13 +601,15 @@ def block_profile(torch, batch, iters=3):
 
     dy2 = torch.randn_like(x)
     dy3 = torch.randn((t, out), device='cuda')
+    dy1 = torch.randn_like(feat)
     calls = {'K2': lambda: k2(x, *p2),
              'K2b': backward_of(k2, [x, *p2], dy2),
              'K2.bf16': lambda: k2h(x, *p2),
              'K2b.bf16': backward_of(k2h, [x, *p2], dy2),
              'K1': lambda: k1(feat, nbr, hn, *p1),
-             'K1b': backward_of(k1, [feat, nbr, hn, *p1],
-                                torch.randn_like(feat)),
+             'K1b': backward_of(k1, [feat, nbr, hn, *p1], dy1),
+             'K1.bf16': lambda: k1h(feat, nbr, hn, *p1),
+             'K1b.bf16': backward_of(k1h, [feat, nbr, hn, *p1], dy1),
              'K3': lambda: k3(x, *flat),
              'K3b': backward_of(k3, [x, *flat], dy3),
              'K3.bf16': lambda: k3h(x, *flat),
@@ -636,6 +659,182 @@ def enqueue_ms(torch, fn, calls=200):
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) * 1e3 / calls
+
+
+def tiled_neighbors(torch, batch, n):
+    """The batch's neighbour list (N, D) and mask repeated, each copy's
+    indices offset by the batch's N, and cut to n rows; slots that point
+    past row n are masked."""
+    nb, mk = batch.neighbors, batch.neighbor_mask
+    rows = nb.shape[0]
+    reps = -(-n // rows)
+    nbs = torch.cat([nb + i * rows for i in range(reps)])[:n].clone()
+    mks = torch.cat([mk] * reps)[:n].clone()
+    past = nbs >= n
+    nbs[past] = 0
+    mks[past] = False
+    return nbs, mks
+
+
+def call_us(torch, fn, reps=30):
+    """Median host us of one call of fn(), each started on an idle card
+    (a synchronize before it, outside the clock), so no launch waits for
+    room in the queue."""
+    times = []
+    for _ in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times[2:])) * 1e6
+
+
+def gnn_call_nodes(torch, workloads, train_batch):
+    """gnn_calls' node counts: the training run's test, validation and
+    train batches (N 64, 224, 1376), the small serving batch (1096), the
+    128 x 32 training batch (3376) and bench.py's 512 x 32 batch's N
+    (12904) as the 128-molecule batch's neighbour list repeated."""
+    src = {f'N={b.neighbors.shape[0]} {label}': b for label, b in (
+        ('trainrun test', workloads['trainrun test']),
+        ('trainrun val', workloads['trainrun val']),
+        ('small', workloads['small']),
+        ('trainrun train', workloads['trainrun train']),
+        ('train', train_batch))}
+    nodes = {k: (b.neighbors, b.neighbor_mask) for k, b in src.items()}
+    nodes[f'N={GNN_BIG_N} 512 x 32 (tiled)'] = tiled_neighbors(
+        torch, train_batch, GNN_BIG_N)
+    return nodes
+
+
+def gnn_c_entries(torch, lib, ins, n, d, dims, drop, stream, scale):
+    """K1 / K1b's C entries of kernel library `lib` in bf16 mode on the
+    tensors `ins` (feat, nbr, hn, mask, the 8 parameters, dy), as the
+    wrapper calls them, with scratch of their own: (forward, backward), each
+    a function of no argument returning the entry's code."""
+    f, heads, hid = dims
+    # run from a parent checkout, whose scratch entries take no mm_bf16
+    mode = (1,) if len(lib.grappa_fused_gnn_scratch.argtypes) == 4 else ()
+    feat, nbr, hn, mask, *p1, dy = ins
+    fwd_scratch = torch.empty(lib.grappa_fused_gnn_scratch(
+        n, f, hid, *mode), dtype=torch.float32, device='cuda')
+    y = torch.empty((n, f), device='cuda')
+    fwd_args = ([t.data_ptr() for t in (feat, nbr, hn, mask, *p1)]
+                + [*drop, fwd_scratch.data_ptr(), y.data_ptr(), n, f, hid, d,
+                   heads, scale, 1, stream])
+    bwd_scratch = torch.empty(lib.grappa_fused_gnn_bwd_scratch(
+        n, f, hid, *mode), dtype=torch.float32, device='cuda')
+    grads = [torch.empty_like(t) for t in (feat, nbr, feat, *p1)]
+    wr, _, g2, _, w1, _, w2, _ = p1
+    bwd_args = ([t.data_ptr() for t in (feat, nbr, mask, wr, g2, w1, w2, dy)]
+                + [*drop, fwd_scratch.data_ptr(), bwd_scratch.data_ptr()]
+                + [g.data_ptr() for g in grads]
+                + [n, f, hid, d, heads, scale, 1, stream])
+    keep = (fwd_scratch, y, bwd_scratch, grads)
+    return (lambda: (keep, lib.grappa_fused_gnn_fwd(*fwd_args))[1],
+            lambda: (keep, lib.grappa_fused_gnn_bwd(*bwd_args))[1])
+
+
+def runtime_api_us(torch, fn, iters=20):
+    """Host us a call of fn() spends in each CUDA runtime call it makes
+    (torch.profiler's CUDA runtime events, summed by name); None when the
+    profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if (e.name.startswith('cuda') and 'Synchronize' not in e.name
+                and not str(getattr(e, 'device_type', '')).endswith('CUDA')):
+            out[e.name] = out.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / iters
+    return out or None
+
+
+def gnn_calls(torch, nodes, reps=60):
+    """K1 and K1b in bf16 mode one call at a time at each node count of
+    `nodes` (label -> (neighbour list (N, D), its mask)), default width
+    (F = 512, 16 heads, hid 2048, dropout 0.3): `ms` (CUDA events over 20
+    calls back to back: the device's or the host's pace, whichever is
+    slower), `device_ms` (torch.profiler: the call's kernels) and its
+    `launches`, `host_us` (call_us of the op: fused_gnn_block, or
+    torch.autograd.grad through it) split into `c_us` (the C entry called
+    directly through ctypes, its argument marshalling included) and
+    `python_us` (the rest: checks, torch.empty, data_ptr, autograd), and
+    `runtime_us`: the C entry's host us in each CUDA runtime call
+    (runtime_api_us); for the backward `autograd_us`, call_us of
+    torch.autograd.grad through a Function that launches nothing in its
+    backward on the same leaves (autograd's own share of python_us: the
+    hand-over to the card's autograd thread and back). Prints one
+    `gnn_call` line a shape; returns {label: {'fwd': ..., 'bwd': ...}}."""
+    from grappa_tpu_torch.ops import _cuda, philox
+    from grappa_tpu_torch.ops import fused_gnn as fg
+
+    class PassThrough(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *xs):
+            ctx.n = len(xs)
+            return xs[0] * 1.0
+
+        @staticmethod
+        def backward(ctx, dy):
+            return (dy,) + (None,) * (ctx.n - 1)
+
+    gen = torch.Generator().manual_seed(97531)
+    f, heads, hid, rate, seed = 512, 16, 2048, 0.3, 17
+    lib, bf16 = _cuda.lib(), torch.bfloat16
+    out = {}
+    for label, (nb, nmask) in nodes.items():
+        n, d = nb.shape
+        feat = torch.randn((n, f), generator=gen).cuda()
+        hn = torch.randn((n, f), generator=gen).cuda()
+        nbr = feat[nb.t()].contiguous()
+        mask = nmask.t().float().contiguous()
+        p1 = rand_params(torch, gen, [
+            ((f, f), 'w'), ((f,), 'b'), ((f,), 'g'), ((f,), 'b'),
+            ((hid, f), 'w'), ((hid,), 'b'), ((f, hid), 'w'), ((f,), 'b')])
+        leaves = [q.detach().clone().requires_grad_(True)
+                  for q in (feat, nbr, hn, *p1)]
+        fwd = lambda: fg.fused_gnn_block(feat, nbr, hn, mask, p1, heads,
+                                         rate, True, seed, mm_dtype=bf16)
+        y = fg.fused_gnn_block(leaves[0], leaves[1], leaves[2], mask,
+                               leaves[3:], heads, rate, True, seed,
+                               mm_dtype=bf16)
+        dy = torch.randn((n, f), generator=gen).cuda()
+        bwd = lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
+        y0 = PassThrough.apply(*leaves)
+        engine = lambda: torch.autograd.grad(y0, leaves, dy,
+                                             retain_graph=True,
+                                             allow_unused=True)
+        # the C entries alone, on the same tensors, as the wrapper calls them
+        c_args = ([feat, nbr, hn, mask, *p1, dy], n, d, (f, heads, hid),
+                  philox.kernel_args(seed, rate), _cuda.stream_of(feat),
+                  _cuda.head_scale(f // heads))
+        c_fwd, c_bwd = gnn_c_entries(torch, lib, *c_args)
+        for fn, name in ((c_fwd, 'fwd'), (c_bwd, 'bwd')):
+            _cuda.check(fn(), f'grappa_fused_gnn_{name}')
+        torch.cuda.synchronize()
+        line = {'n': n, 'slots': d, 'real_slots': int(nmask.sum())}
+        for part, op, c_entry in (('fwd', fwd, c_fwd), ('bwd', bwd, c_bwd)):
+            events = device_events(torch, op, 3) or []
+            host, c_us = call_us(torch, op, reps), call_us(torch, c_entry,
+                                                           reps)
+            line[part] = {
+                'ms': timed(torch, op, iters=50), 'device_ms': (
+                    sum(ms for _, ms in events) / 3 if events else None),
+                'launches': len(events) // 3 if events else None,
+                'host_us': host, 'c_us': c_us, 'python_us': host - c_us,
+                'runtime_us': runtime_api_us(torch, c_entry)}
+        line['bwd']['autograd_us'] = call_us(torch, engine, reps)
+        print(f'gnn_call {label} ' + json.dumps(line), flush=True)
+        out[label] = line
+    return out
 
 
 def bound(flops, nbytes, peak=PEAK_FP32_FLOPS):
@@ -907,6 +1106,9 @@ def training_cases(torch, batches):
     from grappa_tpu_torch.ops import fused_symmetriser as fs
     from grappa_tpu_torch.ops import philox
     gen = torch.Generator().manual_seed(4321)
+    # K2b's and K3b's dy, drawn on the card from a generator of their own
+    # so that every other input stays what `gen` gives it
+    dy_gen = torch.Generator(device='cuda').manual_seed(4321)
     f, heads, hid, hid2, width = 512, 16, 2048, 512, 256
     sym_out = {'n2': 2, 'n3': 2, 'n4': 12, 'n4_improper': 6}
     on = lambda ts, a: tuple(t.to(a.device) for t in ts)
@@ -957,7 +1159,7 @@ def training_cases(torch, batches):
             yield dict(
                 name='fused_transformer_block', label=f'{label} S={s} T={t} '
                 f'dropout {rate2}', inputs=[x, *p2],
-                dy=torch.randn_like(x),
+                dy=torch.randn(x.shape, generator=dy_gen, device='cuda'),
                 kernel=lambda dt, seed2=seed2: lambda a, *q: (
                     fb.fused_transformer_block(a, q, 8, rate2, True, seed2,
                                                mm_dtype=dt)),
@@ -981,7 +1183,7 @@ def training_cases(torch, batches):
             yield dict(
                 name='fused_symmetriser', label=f'{label} S={s} T={t} '
                 f'perms={len(perms)}', inputs=[x, *flat],
-                dy=torch.randn((t, out), device='cuda'),
+                dy=torch.randn((t, out), generator=dy_gen, device='cuda'),
                 kernel=lambda dt, perms=perms: lambda a, *q: (
                     fs.fused_symmetriser(a, split(q), perms, dt)),
                 plain=lambda dt, perms=perms: lambda a, *q: (
@@ -1823,28 +2025,29 @@ def compare_bf16(torch, entries, name, label, kernel, plain, flops, nbytes,
 
 def bf16_sass(torch):
     """Phase 10(d): every tensor-core GEMM kernel of the built library runs
-    its policy's instruction: the bf16 policy's instantiations (K1 and
-    K1b's bf16 products, forward and backward: the dX products' MN-major W
-    and the split-K dW products' two MN-major operands among them), all in
-    fused_gnn.cu, BF16_HMMA and no TF32 mma, the float32 ones TF32_HMMA
-    and no bf16 mma; and every instantiation of wg_gemm.cuh's kernel (K2 /
-    K2b's and K3 / K3b's bf16 products, each file's MN-major and split-K
-    ones among them) a bf16 warpgroup mma (HGMMA ... BF16) and no mma.sync
-    (HMMA)."""
+    its engine's instruction. Every instantiation of wg_gemm.cuh's kernel
+    (the bf16 products of K1 / K1b, K2 / K2b and K3 / K3b; each file's
+    MN-major and split-K ones among them) has a bf16 warpgroup mma (HGMMA
+    ... BF16) and no mma.sync (HMMA); every tc_gemm_kernel (the float32
+    products) TF32_HMMA and no bf16 mma; no function of the library holds
+    a bf16 mma.sync (BF16_HMMA) and no name a TcBf16 instantiation: the
+    mma.sync bf16 engine is gone."""
     from grappa_tpu_torch.ops import _cuda
-    kinds = {'TcBf16': [], 'TcTf32x3': []}
-    wg = []
+    tc, wg, bf16_mma = [], [], []
     for name, ops in sass_functions(_cuda.build()).items():
-        for policy in kinds:
-            if 'tc_gemm_kernel' in name and policy in name:
-                kinds[policy].append((name, sorted(
-                    {op for op in ops if op.startswith('HMMA')})))
+        if 'tc_gemm_kernel' in name:
+            tc.append((name, sorted(
+                {op for op in ops if op.startswith('HMMA')})))
         if 'wg_gemm_kernel' in name:
             wg.append((name, sorted(
                 {op for op in ops if op.startswith(('HGMMA', 'HMMA'))})))
-    # an anonymous namespace's mangled name carries its file's name
+        if 'TcBf16' in name or BF16_HMMA in ops:
+            bf16_mma.append(name)
+    # an anonymous namespace's mangled name carries its file's name; the
+    # layouts are the kernel's bool template arguments (mangled Lb0E: an
+    # MN-major operand); the split-K partial store is the Partial epilogue
     per_file = {src: [(name, h) for name, h in wg if f'{src}_cu' in name]
-                for src in ('fused_block', 'fused_symmetriser')}
+                for src in ('fused_gnn', 'fused_block', 'fused_symmetriser')}
     counts = {src: (len(found), sum('Lb0E' in name for name, _ in found),
                     sum('Partial' in name for name, _ in found))
               for src, found in per_file.items()}
@@ -1856,24 +2059,17 @@ def bf16_sass(torch):
           f'instantiations, with an MN-major operand, split-K: {counts}), '
           f'each with a bf16 HGMMA and no HMMA (their opcodes: '
           f'{sorted({op for _, h in wg for op in h})})')
-    elsewhere = [name for name, _ in kinds['TcBf16']
-                 if 'fused_gnn_cu' not in name]
-    check(not elsewhere, f'SASS: no TcBf16 instantiation outside '
-                         f'fused_gnn.cu ({len(elsewhere)} found)')
-    for policy, want, other in (('TcBf16', BF16_HMMA, TF32_HMMA),
-                                ('TcTf32x3', TF32_HMMA, BF16_HMMA)):
-        found = kinds[policy]
-        # the layouts are the kernel's bool template arguments (mangled
-        # Lb0E: an MN-major operand); the split-K partial store is the
-        # Partial epilogue
-        mn = sum('Lb0E' in name for name, _ in found)
-        split = sum('Partial' in name for name, _ in found)
-        check(bool(found) and mn > 0 and split > 0
-              and all(want in h and other not in h for _, h in found),
-              f'SASS: {len(found)} tc_gemm_kernel instantiations of '
-              f'{policy} ({mn} with an MN-major operand, {split} split-K), '
-              f'each with {want} and without {other} (their HMMA opcodes: '
-              f'{sorted({op for _, h in found for op in h})})')
+    check(not bf16_mma, f'SASS: no TcBf16 instantiation and no '
+                        f'{BF16_HMMA} in any function ({len(bf16_mma)} '
+                        f'found: {bf16_mma[:3]})')
+    mn = sum('Lb0E' in name for name, _ in tc)
+    split = sum('Partial' in name for name, _ in tc)
+    check(bool(tc) and mn > 0 and split > 0
+          and all(TF32_HMMA in h and BF16_HMMA not in h for _, h in tc),
+          f'SASS: {len(tc)} tc_gemm_kernel instantiations (float32: {mn} '
+          f'with an MN-major operand, {split} split-K), each with '
+          f'{TF32_HMMA} and without {BF16_HMMA} (their HMMA opcodes: '
+          f'{sorted({op for _, h in tc for op in h})})')
 
 
 def bf16_kernel_phase(torch, workloads, entries):
@@ -2337,27 +2533,49 @@ def bf16_step_phase(torch, cfg, graphs, batch):
     return launches
 
 
-def update_ratio(card, card_ulp, cpu16, cpu32):
-    """(mean |card - cpu16| / mean |cpu16 - cpu32|, the same of
-    |card_ulp - card|: the card's own spread), None where bf16 leaves the
-    value as it is."""
+def effect_distance(a, b, cpu16, cpu32):
+    """mean |a - b| / mean |cpu16 - cpu32| (the bf16 effect), None where
+    bf16 leaves the value as it is."""
     eff = float((cpu16 - cpu32).abs().mean())
     scale = float(cpu32.abs().mean())
     if eff <= 1e-7 * max(scale, 1e-30):
         return None
-    return (float((card - cpu16).abs().mean()) / eff,
-            float((card_ulp - card).abs().mean()) / eff)
+    return float((a - b).abs().mean()) / eff
+
+
+@contextlib.contextmanager
+def plain_gnn_blocks():
+    """The model's GNN blocks through K1's plain version on their own
+    device (dropout off), so K1 / K1b launch nothing on the card."""
+    from grappa_tpu_torch.models import gnn
+    from grappa_tpu_torch.ops.fused_gnn import reference_gnn_block
+    fused = gnn.fused_gnn_block
+
+    def plain(feat, nbr, hn, mask, params, n_heads, rate, training, seed,
+              mm_dtype):
+        assert rate == 0.0 or not training
+        return reference_gnn_block(feat, nbr, hn, mask, params, n_heads,
+                                   None, mm_dtype)
+    gnn.fused_gnn_block = plain
+    try:
+        yield
+    finally:
+        gnn.fused_gnn_block = fused
 
 
 def bf16_card_cpu_phase(torch, cfg, graphs):
-    """Phase 10(c)(d): one dropout-free bf16 step at full width on the
-    card and on the CPU (fused: the plain bf16 versions), 8 molecules x 4
-    conformers, measured in units of the bf16 effect (the CPU's bf16
-    against its float32) beside the card's own spread under a one-ulp
-    weight change: the loss within max(BF16_RULE, 1.25 x its spread);
-    the gradients and Adam's update, the median over tensors within
-    max(BF16_RULE, 1.25 x the spread's median) and every tensor within
-    1.25 x the widest spread."""
+    """Phase 10(c)(d): dropout-free bf16 steps at full width on the card
+    and on the CPU (fused: the plain bf16 versions), 8 molecules x 4
+    conformers, in BF16_STEP_DRAWS draws (module note), measured in units
+    of each draw's bf16 effect (the CPU's bf16 against its float32) beside
+    the card's own spread under a one-ulp weight change: over the draws,
+    the median loss distance within max(BF16_RULE, 1.25 x the spread's
+    median); for the gradients and Adam's update, the median of the draws'
+    medians over tensors within max(BF16_RULE, 1.25 x the same of the
+    spread) and the median of the draws' largest tensor distance within
+    1.25 x the median of their widest spread. The witness (printed, not
+    held): the card with K1 / K1b on their plain version
+    (plain_gnn_blocks) against the CPU in the same units."""
     from grappa_tpu_torch.data.graph_batch import collate
     from grappa_tpu_torch.data.loader import bucketed_pad_spec
     from grappa_tpu_torch.models.grappa_model import make_model
@@ -2366,17 +2584,10 @@ def bf16_card_cpu_phase(torch, cfg, graphs):
           'config, dropout off')
     no_drop = dict(cfg, gnn_dropout_attention=0.0, parameter_dropout=0.0,
                    gnn_dropout_final=0.0, gnn_dropout_initial=0.0)
-    few = graphs[:8]
-    pad = bucketed_pad_spec(few, 4)
-    batches = {d: collate(few, pad, 4, device=d) for d in ('cpu', 'cuda')}
-    state = perturbed_model(torch, make_model, no_drop).state_dict()
-    gen = torch.Generator().manual_seed(5)
-    ulp_state = {k: torch.nextafter(v, torch.where(
-        torch.rand(v.shape, generator=gen) < 0.5, -np.inf, np.inf))
-        if v.is_floating_point() else v for k, v in state.items()}
     fused = dict(fused_gnn=True, fused_heads=True)
+    bf16 = dict(compute_dtype='bfloat16')
 
-    def run(over, sd, device):
+    def run(over, sd, batches, device):
         model = make_model(dict(no_drop, **over))
         model.load_state_dict(sd)
         model.to(device)
@@ -2391,42 +2602,75 @@ def bf16_card_cpu_phase(torch, cfg, graphs):
                 {k: (params[k].detach() - before[k]).cpu()
                  for k in params}, time.time() - t0)
 
-    bf16 = dict(compute_dtype='bfloat16')
-    card = run(bf16, state, 'cuda')
-    ulp = run(bf16, ulp_state, 'cuda')
-    cpu16 = run(dict(bf16, **fused), state, 'cpu')
-    cpu32 = run(fused, state, 'cpu')
-    eff = abs(cpu16[0] - cpu32[0])
-    loss_r = (abs(card[0] - cpu16[0]) / eff, abs(ulp[0] - card[0]) / eff)
-    check(loss_r[0] <= max(BF16_RULE, 1.25 * loss_r[1]),
-          f'(d) loss card {card[0]:.6e}, CPU {cpu16[0]:.6e} (float32 '
-          f'{cpu32[0]:.6e}): card vs CPU / bf16 effect {loss_r[0]:.3e}, the '
-          f'card\'s own spread {loss_r[1]:.3e}; CPU bf16 step {cpu16[3]:.1f} '
-          f's')
-    # per tensor, card vs CPU and the card's own spread are two draws of
-    # one cascade (as bf16 predictions part, phase 10(b)): one tensor's
-    # draw may exceed its own spread's; held are the distribution (the
-    # median over tensors) and every tensor against the widest spread
-    for what, idx in (('gradient', 1), ('Adam update', 2)):
-        ratios = {k: update_ratio(card[idx][k], ulp[idx][k], cpu16[idx][k],
-                                  cpu32[idx][k]) for k in card[idx]}
-        moved = {k: r for k, r in ratios.items() if r is not None}
-        rs = np.array([r for r, _ in moved.values()])
-        fl = np.array([f for _, f in moved.values()])
-        tol = max(BF16_RULE, 1.25 * fl.max())
-        worst = max(moved, key=lambda k: moved[k][0])
-        check(np.median(rs) <= max(BF16_RULE, 1.25 * np.median(fl))
-              and rs.max() <= tol
-              and all(bool(torch.isfinite(card[idx][k]).all())
-                      for k in card[idx]),
-              f'(d) every {what} ({len(moved)} of {len(ratios)} moved by '
-              f'bf16): card vs CPU / bf16 effect median {np.median(rs):.3e} '
-              f'(tol max({BF16_RULE}, 1.25 x the card\'s own spread\'s '
-              f'median {np.median(fl):.3e})), max {rs.max():.3e} ({worst}; '
-              f'tol {tol:.3e}: 1.25 x the widest spread); '
-              f'{int((rs > 1.25 * fl).sum())} tensors past 1.25 x their own '
-              f'spread; quartiles card {np.percentile(rs, [25, 75])}, '
-              f'spread {np.percentile(fl, [25, 75])}')
+    # per draw: loss (card, spread, witness); per tensor kind: (median
+    # and max over tensors of card vs CPU, the same of the spread, of the
+    # witness), and whether the card's values are finite
+    loss, kinds = [], {'gradient': [], 'Adam update': []}
+    for k in range(BF16_STEP_DRAWS):
+        few = graphs[8 * k:8 * k + 8]
+        pad = bucketed_pad_spec(few, 4)
+        batches = {d: collate(few, pad, 4, device=d) for d in ('cpu', 'cuda')}
+        state = perturbed_model(torch, make_model, no_drop,
+                                seed=2 * k).state_dict()
+        gen = torch.Generator().manual_seed(5 + k)
+        ulp_state = {n: torch.nextafter(v, torch.where(
+            torch.rand(v.shape, generator=gen) < 0.5, -np.inf, np.inf))
+            if v.is_floating_point() else v for n, v in state.items()}
+        card = run(bf16, state, batches, 'cuda')
+        ulp = run(bf16, ulp_state, batches, 'cuda')
+        with plain_gnn_blocks():
+            wit = run(bf16, state, batches, 'cuda')
+        cpu16 = run(dict(bf16, **fused), state, batches, 'cpu')
+        cpu32 = run(fused, state, batches, 'cpu')
+        eff = abs(cpu16[0] - cpu32[0])
+        loss.append((abs(card[0] - cpu16[0]) / eff,
+                     abs(ulp[0] - card[0]) / eff,
+                     abs(wit[0] - cpu16[0]) / eff))
+        for what, idx in (('gradient', 1), ('Adam update', 2)):
+            r, f, w = (np.array([x for x in (
+                effect_distance(a[idx][n], b[idx][n], cpu16[idx][n],
+                                cpu32[idx][n]) for n in card[idx])
+                if x is not None])
+                for a, b in ((card, cpu16), (ulp, card), (wit, cpu16)))
+            kinds[what].append((
+                np.median(r), r.max(), np.median(f), f.max(), np.median(w),
+                w.max(), all(bool(torch.isfinite(v).all())
+                             for v in card[idx].values())))
+        print(f'(d) draw {k} (weights seed {2 * k}, molecules {8 * k}-'
+              f'{8 * k + 7}, one-ulp seed {5 + k}): loss card '
+              f'{card[0]:.6e}, CPU {cpu16[0]:.6e} (float32 {cpu32[0]:.6e}), '
+              f'K1 plain on the card {wit[0]:.6e}; card vs CPU / bf16 effect '
+              f'{loss[-1][0]:.3e}, spread {loss[-1][1]:.3e}, witness '
+              f'{loss[-1][2]:.3e}; gradients median / max over tensors: '
+              f'card {kinds["gradient"][-1][0]:.3e} / '
+              f'{kinds["gradient"][-1][1]:.3e}, spread '
+              f'{kinds["gradient"][-1][2]:.3e} / '
+              f'{kinds["gradient"][-1][3]:.3e}, witness '
+              f'{kinds["gradient"][-1][4]:.3e} / '
+              f'{kinds["gradient"][-1][5]:.3e}; CPU bf16 step '
+              f'{cpu16[3]:.1f} s', flush=True)
+    d, s, w = (np.median([x[i] for x in loss]) for i in range(3))
+    check(d <= max(BF16_RULE, 1.25 * s),
+          f'(d) loss over {BF16_STEP_DRAWS} draws: card vs CPU / bf16 '
+          f'effect median {d:.3e} (tol max({BF16_RULE}, 1.25 x the card\'s '
+          f'own spread\'s median {s:.3e})); witness (K1 / K1b plain on the '
+          f'card) median {w:.3e}; draw 0 (the single draw held alone '
+          f'before) {loss[0][0]:.3e} against 1.25 x its spread '
+          f'{loss[0][1]:.3e}')
+    for what, rows in kinds.items():
+        med = [np.median([x[i] for x in rows]) for i in range(6)]
+        tol = max(BF16_RULE, 1.25 * med[2])
+        check(med[0] <= tol and med[1] <= 1.25 * med[3]
+              and all(x[6] for x in rows),
+              f'(d) every {what} over {BF16_STEP_DRAWS} draws: card vs CPU '
+              f'/ bf16 effect, median over draws of the median over tensors '
+              f'{med[0]:.3e} (tol {tol:.3e}: max({BF16_RULE}, 1.25 x the '
+              f'spread\'s {med[2]:.3e})), of the max over tensors '
+              f'{med[1]:.3e} (tol {1.25 * med[3]:.3e}: 1.25 x the widest '
+              f'spread\'s {med[3]:.3e}); witness {med[4]:.3e} / '
+              f'{med[5]:.3e}; draw 0: {rows[0][0]:.3e} / {rows[0][1]:.3e} '
+              f'against 1.25 x its spread {1.25 * rows[0][2]:.3e} / '
+              f'{1.25 * rows[0][3]:.3e}')
 
 
 def bf16_trainrun_phase(torch, work, data_dir, test_batches, f32_steady):
@@ -3001,7 +3245,6 @@ def eval_batches(torch):
 def eval_phase(torch, work, cfg, smi, fixture, run_dir=None):
     """Phase 9 on the fixture of `eval_data`. Returns the eval path's K1-K3
     launches and the `eval` and `ingest` lines' fields."""
-    import contextlib
     import copy
     import io
     from pathlib import Path
@@ -3550,7 +3793,6 @@ def gmx_times(torch, ff, top_path, out_path, reps=GMX_REPS):
 def gmx_phase(torch, cfg, work, smi, data):
     """Phase 11 on `gmx_data`'s topology. Returns the K1-K3 launches of
     the path and the `gmx` line's fields."""
-    import contextlib
     import io
     from grappa_tpu_torch import cli
     from grappa_tpu_torch.models.grappa_model import field_of_view, make_model
@@ -3762,6 +4004,7 @@ def main() -> int:
     train_step_only = sys.argv[1:] == ['--train-step']
     eval_only = sys.argv[1:] == ['--eval']
     bf16_only = sys.argv[1:] == ['--bf16']
+    gnn_calls_only = sys.argv[1:] == ['--gnn-calls']
     gmx_only = sys.argv[1:] == ['--gmx']
     sys.path.insert(0, ROOT)
     import torch
@@ -3858,6 +4101,13 @@ def main() -> int:
     # the training run's (phase 8) train, validation and test batches
     data_dir, made, run_batches, test_batches = trainrun_data(torch, work)
     workloads.update({f'trainrun {k}': v for k, v in run_batches.items()})
+    if gnn_calls_only:
+        graphs = training_batches(torch)
+        train_batch = collate(graphs, bucketed_pad_spec(graphs, TRAIN_CONFS),
+                              TRAIN_CONFS, device='cuda')
+        gnn_calls(torch, gnn_call_nodes(torch, workloads, train_batch))
+        block_profile(torch, train_batch)
+        return 1 if FAILURES else 0
     # phase 9's eval and ingest batches
     eval_fix = eval_data(torch, work, cfg)
     workloads.update(eval_batches(torch))
@@ -3975,6 +4225,10 @@ def main() -> int:
         launches[name].update(per_path)
 
     if FAILURES:
+        # standard error's tail is what a caller that keeps only the end of
+        # the output sees: name each failed check there
+        for what in FAILURES:
+            print(f'FAIL {what[:400]}', file=sys.stderr)
         print(f'chip_smoke.py: {len(FAILURES)} check(s) failed',
               file=sys.stderr)
         return 1
@@ -4018,10 +4272,7 @@ def main() -> int:
             name=name, route='cuda', source=csrc + source,
             replaces=tpu + replaces,
             status=('bf16 mode on wgmma (wg_gemm.cuh)'
-                    if name.startswith(('fused_transformer_block.bf16',
-                                        'fused_symmetriser.bf16'))
-                    else 'bf16 mode ported'
-                    if name.endswith(('.bf16', '_bwd')) else 'ported'),
+                    if name.endswith(('.bf16', '.bf16_bwd')) else 'ported'),
             launches=sum(per_path.values()), launches_per_path=per_path,
             max_abs_err=e['max_abs_err'], ms=e['ms'],
             plain_ms=e['plain_ms'], bound_ms=b_ms, bound_by=b_by,

@@ -1,12 +1,12 @@
 // A float32 GEMM on the H100's tensor cores: mma.sync products fed by a
-// cp.async ring of shared-memory stages, in one of two arithmetic policies
-// (a template parameter: each compiles to its own kernel). Every product of
-// the port's kernels (K1-K3 forward, K1b-K3b backward) runs on it. It
-// computes epi(z, m, n, sum_k A(m, k) B(n, k)) over blockIdx.z's slice of
-// the reduction, operands given as common.cuh's views Mat and Tr<Mat>, and
-// any epilogue of common.cuh's contract (Out, EluGradOut, Partial, ...).
+// cp.async ring of shared-memory stages. Every float32 product of the
+// port's kernels (K1-K3 forward, K1b-K3b backward) runs on it; their bf16
+// products run on wg_gemm.cuh. It computes epi(z, m, n, sum_k A(m, k)
+// B(n, k)) over blockIdx.z's slice of the reduction, operands given as
+// common.cuh's views Mat and Tr<Mat>, and any epilogue of common.cuh's
+// contract (Out, EluGradOut, Partial, ...).
 //
-// Arithmetic, TcTf32x3 (float32, the default). Each operand element is
+// Arithmetic, 3xTF32. Each operand element is
 // split as a = big + small with big = cvt.rna.tf32(a) and small =
 // cvt.rna.tf32(a - big); the products small*big, big*small and big*big are
 // summed in float32 by mma.sync.m16n8k8 (TF32 inputs, float32 accumulator).
@@ -18,34 +18,6 @@
 // and most backward products read an MN-major operand (the dX products read
 // W transposed, the dW products both operands); mma.sync fragments are
 // loaded by each thread, so one engine serves every layout.
-//
-// Arithmetic, TcBf16 (the JAX kernels' mm_dtype=bfloat16: both operands of
-// each product cast to bf16, the products summed in float32, the output
-// float32; K1-K3 and K1b-K3b in bf16 mode, so the backward's dX products
-// read W MN-major and its split-K dW products both operands MN-major, an
-// incoming gradient rounded like any operand, as JAX's _dot_tn / _dot_nt). Each pair of float32 operands is rounded to nearest even by
-// cvt.rn.bf16x2.f32 (XLA's astype(bfloat16) rounding) as a warp builds its
-// fragments, and each 16-deep step is one
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (SASS
-// HMMA.16816.F32.BF16; chip_smoke.py checks the built library for it):
-// two a 32-deep stage, against 12 TF32 mmas for 3xTF32. The bf16 products
-// are exact in float32, so the result is a float32 sum of the rounded
-// operands' products, as XLA's bf16 dot with a float32 result. The stages
-// stay float32 (the caller's operands are float32; only the fragments are
-// bf16), so the ring, tiles and epilogues are the float32 policy's.
-// Fragments of m16n8k16 (PTX ISA; g = lane / 4, t = lane % 4): A is four
-// .b32 registers of bf16x2, holding (row g, k 2t and 2t+1), (g + 8, the
-// same k), (g, 2t+8 and 2t+9), (g + 8, 2t+8 and 2t+9); B two, (k 2t and
-// 2t+1, col g), (2t+8 and 2t+9, g); the lower half of a register holds the
-// lower k. Read literally, a pair is two neighbouring floats of a K-major
-// row, and with rows of 36 floats a warp's float2 reads of 4 rows x 4
-// pairs hit each bank pair twice (rows g and g + 1 start 4 banks apart):
-// 2-way conflicts. The mma sums over its 16 k in any order, so A and B take
-// the same permutation of the stage's k instead: fragment k 2t, 2t+1,
-// 2t+8, 2t+9 hold stage k t, t+4, t+8, t+12. Every shared read is then a
-// scalar read of the TF32 path's pattern (8 rows x 4 consecutive k, or 4 k
-// x 8 rows), free of bank conflicts in both layouts, 16 a warp tile of A
-// and 8 of B a stage, as many as the TF32 path's.
 //
 // Loads. Each block tile's A (BM x 32) and B (BN x 32) slices are copied by
 // cp.async into a ring of STAGES shared-memory stages, so STAGES - 1 copies
@@ -152,27 +124,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// The arithmetic policies (see the header note).
-struct TcTf32x3 {};
-struct TcBf16 {};
-
-// {lo, hi} rounded to nearest even as bf16x2 (lo in the lower half).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-
-// c += a b over one m16n8k16 tile of bf16 operands, float32 accumulator
-// (fragments in the header note; c as mma_tf32's).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // ---------------------------------------------------------------- tiles
 constexpr int kTcBK = 32;   // reduction depth of one stage
 
@@ -254,8 +205,7 @@ __device__ __forceinline__ void tc_load(float* s, const TcOperand& op, int r0,
 
 // One 32-deep stage's products of a warp's tiles into part, 3xTF32.
 template <class T, class SA, class SB>
-__device__ __forceinline__ void tc_stage(TcTf32x3, const float* as,
-                                         const float* bs,
+__device__ __forceinline__ void tc_stage(const float* as, const float* bs,
                                          float (&part)[T::MI][T::NI][4],
                                          int wm0, int wn0, int g, int t) {
 #pragma unroll
@@ -291,39 +241,7 @@ __device__ __forceinline__ void tc_stage(TcTf32x3, const float* as,
   }
 }
 
-// The same in bf16: two m16n8k16 steps, fragment k 2t, 2t+1, 2t+8, 2t+9
-// taken from stage k t, t+4, t+8, t+12 (the header note).
-template <class T, class SA, class SB>
-__device__ __forceinline__ void tc_stage(TcBf16, const float* as,
-                                         const float* bs,
-                                         float (&part)[T::MI][T::NI][4],
-                                         int wm0, int wn0, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < kTcBK; kk += 16) {
-    uint32_t a[T::MI][4], b[T::NI][2];
-#pragma unroll
-    for (int i = 0; i < T::MI; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = wm0 + i * 16 + g + (c & 1) * 8;
-        const int k = kk + t + (c >> 1) * 8;
-        a[i][c] = pack_bf16(as[SA::at(r, k)], as[SA::at(r, k + 4)]);
-      }
-#pragma unroll
-    for (int j = 0; j < T::NI; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int r = wn0 + j * 8 + g, k = kk + t + c * 8;
-        b[j][c] = pack_bf16(bs[SB::at(r, k)], bs[SB::at(r, k + 4)]);
-      }
-#pragma unroll
-    for (int i = 0; i < T::MI; ++i)
-#pragma unroll
-      for (int j = 0; j < T::NI; ++j) mma_bf16(part[i][j], a[i], b[j]);
-  }
-}
-
-template <class T, bool AK, bool BK, class Epi, class P>
+template <class T, bool AK, bool BK, class Epi>
 __global__ void __launch_bounds__(kThreads, 1)
 tc_gemm_kernel(TcOperand A, TcOperand B, Epi epi, int M, int N, int K,
                int k_chunk) {
@@ -381,7 +299,7 @@ tc_gemm_kernel(TcOperand A, TcOperand B, Epi epi, int M, int N, int K,
       for (int j = 0; j < T::NI; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) part[i][j][c] = 0.f;
-    tc_stage<T, SA, SB>(P{}, as, bs, part, wm0, wn0, g, t);
+    tc_stage<T, SA, SB>(as, bs, part, wm0, wn0, g, t);
 #pragma unroll
     for (int i = 0; i < T::MI; ++i)
 #pragma unroll
@@ -419,12 +337,12 @@ tc_gemm_kernel(TcOperand A, TcOperand B, Epi epi, int M, int N, int K,
   }
 }
 
-template <class T, class P, class AL, class BL, class Epi>
+template <class T, class AL, class BL, class Epi>
 int tc_launch_tile(const AL& a, const BL& b, const Epi& epi, int M, int N,
                    int K, int splits, int k_chunk, cudaStream_t st) {
   constexpr bool AK = TcView<AL>::kKMajor, BK = TcView<BL>::kKMajor;
   constexpr int bytes = tc_smem_bytes<T, AK, BK>();
-  auto kernel = tc_gemm_kernel<T, AK, BK, Epi, P>;
+  auto kernel = tc_gemm_kernel<T, AK, BK, Epi>;
   RETURN_IF_ERR((int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
   dim3 grid(cdiv(M, T::BM), cdiv(N, T::BN), splits);
@@ -436,25 +354,24 @@ int tc_launch_tile(const AL& a, const BL& b, const Epi& epi, int M, int N,
 // 128 x 128 tiles when they alone give at least one block per SM of the
 // H100 (132), else 64 x 64 tiles. With splits > 1, k_chunk is a multiple of
 // kTcBK (so every slice starts 16-byte aligned).
-template <class P = TcTf32x3, class AL, class BL, class Epi>
+template <class AL, class BL, class Epi>
 int tc_launch(const AL& a, const BL& b, const Epi& epi, int M, int N, int K,
               int splits, int k_chunk, cudaStream_t st) {
   if (M == 0 || N == 0) return (int)cudaGetLastError();
   if ((long long)cdiv(M, TcBig::BM) * cdiv(N, TcBig::BN) * splits >= 132)
-    return tc_launch_tile<TcBig, P>(a, b, epi, M, N, K, splits, k_chunk, st);
-  return tc_launch_tile<TcSmall, P>(a, b, epi, M, N, K, splits, k_chunk,
-                                     st);
+    return tc_launch_tile<TcBig>(a, b, epi, M, N, K, splits, k_chunk, st);
+  return tc_launch_tile<TcSmall>(a, b, epi, M, N, K, splits, k_chunk, st);
 }
 
 // epi(A B^T) over the whole of K in one pass.
-template <class P = TcTf32x3, class AL, class BL, class Epi>
+template <class AL, class BL, class Epi>
 int tc_gemm(const AL& a, const BL& b, const Epi& epi, int M, int N, int K,
             cudaStream_t st) {
-  return tc_launch<P>(a, b, epi, M, N, K, 1, K > 0 ? K : 1, st);
+  return tc_launch(a, b, epi, M, N, K, 1, K > 0 ? K : 1, st);
 }
 
 // The forward form: C = epilogue(A @ W^T) with W (N, K) row-major.
-template <class P = TcTf32x3, class AL>
+template <class AL>
 int tc_gemm(const AL& a, const float* W, int ldw, const float* bias,
             const float* R, int ldr, float* C, int ldc, int M, int N, int K,
             bool act_elu, cudaStream_t st,
@@ -465,7 +382,7 @@ int tc_gemm(const AL& a, const float* W, int ldw, const float* bias,
   o.drop = drop;
   o.R = R;
   o.ldr = ldr;
-  return tc_gemm<P>(a, Mat{W, ldw}, o, M, N, K, st);
+  return tc_gemm(a, Mat{W, ldw}, o, M, N, K, st);
 }
 
 // Slices of the reduction for a weight gradient: as many as fill two waves
@@ -483,17 +400,16 @@ inline int tc_wgrad_splits(int M, int N, int K) {
 
 // dW[m, n] = sum_k A(m, k) B(n, k) over a long k (the rows of a batch):
 // the slices of k run in parallel into `partial` (kMaxSplits x M x N floats
-// at most) and sum_slices adds them in slice order. In either policy the
-// partial products and their sum are float32, in the same fixed order.
-template <class P = TcTf32x3, class AL, class BL>
+// at most) and sum_slices adds them in slice order, in float32.
+template <class AL, class BL>
 int tc_gemm_wgrad(const AL& a, const BL& b, float* dW, int M, int N, int K,
                   float* partial, cudaStream_t st) {
   const int s = tc_wgrad_splits(M, N, K);
-  if (s == 1) return tc_gemm<P>(a, b, out_to(dW, N), M, N, K, st);
+  if (s == 1) return tc_gemm(a, b, out_to(dW, N), M, N, K, st);
   const int chunk = cdiv(cdiv(K, s), kTcBK) * kTcBK;
   const int used = cdiv(K, chunk);
-  RETURN_IF_ERR(tc_launch<P>(a, b, Partial{partial, M, N}, M, N, K, used,
-                             chunk, st));
+  RETURN_IF_ERR(tc_launch(a, b, Partial{partial, M, N}, M, N, K, used, chunk,
+                          st));
   return sum_slices(partial, dW, used, (long long)M * N, st);
 }
 

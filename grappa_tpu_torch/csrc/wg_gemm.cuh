@@ -1,9 +1,10 @@
 // A bf16 GEMM on the H100's warpgroup tensor cores: TMA copies bf16 tiles
 // into a ring of 128-byte-swizzled shared-memory stages and warpgroups run
-// wgmma.mma_async on them. It serves the bf16 mode of K2 and K2b
-// (fused_block.cu), replacing the products of
-// grappa_tpu/ops/fused_block.py::_fused_fwd (:379) and _fused_bwd (:421)
-// with mm_dtype=bfloat16: the forward's four, the backward's eight. It
+// wgmma.mma_async on them. It serves the bf16 mode of every kernel with
+// products: K2 / K2b (fused_block.cu), K3 / K3b (fused_symmetriser.cu) and
+// K1 / K1b (fused_gnn.cu), replacing the products of their Pallas kernels
+// with mm_dtype=bfloat16 (grappa_tpu/ops/fused_block.py::_fused_fwd (:379)
+// and _fused_bwd (:421): the forward's four, the backward's eight). It
 // computes epi(z, m, n, sum_k A(m, k) B(n, k)) over blockIdx.z's slice of
 // the reduction, for operands given as bf16 views (MatH, Tr<MatH>) and any
 // epilogue of common.cuh's contract (Out, Partial, ...; EluOutH and
@@ -31,7 +32,7 @@
 // Bound: K2's four products are 3.1 MFLOP a row (F = hid = 512) and K2b's
 // eight 6.3 MFLOP, against ~4 KB a row of input and output, so both are
 // bound by operations: 3.2 and 6.4 ns a row at the 989 TFLOP/s bf16 peak.
-// Only wgmma reaches that rate; mma.sync (tc_gemm.cuh's TcBf16) cannot.
+// Only wgmma reaches that rate; mma.sync cannot.
 //
 // Design, for that bound:
 // - Operands are bf16 in device memory, half the bytes of float32 stages,

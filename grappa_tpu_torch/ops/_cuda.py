@@ -37,10 +37,10 @@ _DROP = [_U, _U, _F, _I]      # seed, keep threshold, keep scale, on
 # C entry points: name -> (restype, argtypes); pointers and the stream are
 # c_void_p so ctypes never cuts a 64-bit address to an int
 _SIGNATURES = {
-    'grappa_fused_gnn_scratch': (_LL, [_I, _I, _I]),
+    'grappa_fused_gnn_scratch': (_LL, [_I] * 4),
     'grappa_fused_gnn_fwd': (_I, [_P] * 12 + _DROP + [_P] * 2 + [_I] * 5
                              + [_F, _I, _P]),
-    'grappa_fused_gnn_bwd_scratch': (_LL, [_I, _I, _I]),
+    'grappa_fused_gnn_bwd_scratch': (_LL, [_I] * 4),
     'grappa_fused_gnn_bwd': (_I, [_P] * 8 + _DROP + [_P] * 13 + [_I] * 5
                              + [_F, _I, _P]),
     'grappa_fused_block_scratch': (_LL, [_I] * 5),

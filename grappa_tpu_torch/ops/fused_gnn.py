@@ -15,10 +15,11 @@ package leaves them to XLA.
 
 On CUDA tensors `fused_gnn_block` launches the hand-written kernels in
 `csrc/fused_gnn.cu`, both running their products on the tensor cores
-(`csrc/tc_gemm.cuh`): the forward, whose scratch of intermediates autograd
-keeps, and in the backward a kernel chain that reads them and returns
-dfeat, dnbr, dhn and the eight parameter gradients (the source notes give
-the card's bound and the design). On CPU tensors it runs
+(`csrc/tc_gemm.cuh` in float32, `csrc/wg_gemm.cuh`'s wgmma in bf16 mode):
+the forward, whose scratch of intermediates autograd keeps, and in the
+backward a kernel chain that reads them and returns dfeat, dnbr, dhn and
+the eight parameter gradients (the source notes give the card's bound and
+the design). On CPU tensors it runs
 `reference_gnn_block`, the plain PyTorch version, and autograd
 differentiates it.
 `fused_gnn_block.launches` and `fused_gnn_block.bwd_launches` count
@@ -32,8 +33,8 @@ both operands to bf16 and sum in float32; the scores, softmax and message
 sum stay float32. The backward's six products round both operands too,
 the incoming gradient's descendants included (the JAX op's _dot_tn /
 _dot_nt); its softmax, LayerNorm and attention backward stay float32. On
-the card both are the kernels' bf16 mode (bf16 tensor-core products,
-`csrc/tc_gemm.cuh`). On the CPU the plain version rounds the same
+the card both are the kernels' bf16 mode (bf16 `wgmma` products fed by
+TMA, `csrc/wg_gemm.cuh`). On the CPU the plain version rounds the same
 operands and autograd differentiates it through `_cuda.mm_linear`, whose
 bf16 product rounds its backward's operands alike.
 
@@ -125,8 +126,9 @@ class _GnnBlockKernel(torch.autograd.Function):
     def forward(ctx, feat, nbr, hn, mask, n_heads, drop, bf16, *params):
         (d, n, f), hid = nbr.shape, params[4].shape[0]
         lib = _cuda.lib()
-        scratch = torch.empty(lib.grappa_fused_gnn_scratch(n, f, hid),
-                              dtype=torch.float32, device=feat.device)
+        scratch = torch.empty(
+            lib.grappa_fused_gnn_scratch(n, f, hid, int(bf16)),
+            dtype=torch.float32, device=feat.device)
         y = torch.empty((n, f), dtype=torch.float32, device=feat.device)
         ptrs = [t.data_ptr() for t in (feat, nbr, hn, mask, *params)]
         rc = lib.grappa_fused_gnn_fwd(
@@ -152,8 +154,9 @@ class _GnnBlockKernel(torch.autograd.Function):
         dy = _cuda.grad_output(dy, feat, 'fused_gnn_block')
         (d, n, f), hid = nbr.shape, w1.shape[0]
         lib = _cuda.lib()
-        scratch = torch.empty(lib.grappa_fused_gnn_bwd_scratch(n, f, hid),
-                              dtype=torch.float32, device=feat.device)
+        scratch = torch.empty(
+            lib.grappa_fused_gnn_bwd_scratch(n, f, hid, int(ctx.bf16)),
+            dtype=torch.float32, device=feat.device)
         # dfeat, dnbr, dhn (hn has feat's shape) and the parameters'
         grads = [torch.empty_like(t) for t in (feat, nbr, feat, *params)]
         rc = lib.grappa_fused_gnn_bwd(

@@ -71,9 +71,8 @@ def main() -> int:
     for name in new:
         print(f'only in the change: {name}')
     print(f'{same} shared kernels identical, {differ} differ; {len(new)} '
-          f'only in the change ({sum("TcBf16" in n for n in new)} of them '
-          f'TcBf16 and {sum("wg_gemm_kernel" in n for n in new)} '
-          f'wg_gemm_kernel instantiations)')
+          f'only in the change ({sum("wg_gemm_kernel" in n for n in new)} '
+          f'of them wg_gemm_kernel instantiations)')
     return 1 if differ else 0
 
 

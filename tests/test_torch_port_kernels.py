@@ -216,7 +216,7 @@ def test_small_model_fused_matches_eager_on_card(cuda):
 
 
 # ---------------------------------------------------------------- bf16 mode
-# mm_dtype=torch.bfloat16 (bf16 mma.sync products) against the plain version
+# mm_dtype=torch.bfloat16 (bf16 wgmma products) against the plain version
 # in bf16 mode on the same inputs: mean |kernel - plain_bf16| <= 0.1 x mean
 # |plain_bf16 - plain_f32| (the bf16 effect). The two round the same
 # operands and differ only where a float32 intermediate summed in another
@@ -246,8 +246,21 @@ def _bf16_launch(op, call):
     return y
 
 
+# besides the serving and training nodes, wg_gemm.cuh's edges at the
+# default width: N = 64 (a grid below one wave: 64-row tiles), 4097 (the
+# split-K slices end ragged) and 12904 (bench.py's 512 x 32 batch); F = 18,
+# whose bf16 rows pad to 8 elements; head widths dh = 64, 96 (two and four
+# values of a slot row a lane in the bf16 attention passes) and 256 (rows
+# read again, the float32 attention backward) at the training run's N
+# (at N = 40, dh = 256 the backward of either engine, mma.sync or wgmma,
+# sits past the rule: an open gap, ROADMAP.md §3)
+GNN_BF16_EDGES = [(64, 512, 16, 8), (4097, 512, 16, 8), (12904, 512, 16, 8),
+                  (50, 256, 4, 6), (33, 384, 4, 3), (1376, 512, 2, 8)]
+
+
 @pytest.mark.parametrize('n,f,heads,d', [
-    (50, 64, 4, 6), (1376, 512, 16, 8), (3377, 512, 16, 8), (45, 18, 2, 5)])
+    (50, 64, 4, 6), (1376, 512, 16, 8), (3377, 512, 16, 8),
+    (45, 18, 2, 5)] + GNN_BF16_EDGES)
 def test_gnn_kernel_bf16_matches_plain(cuda, n, f, heads, d):
     args, p = _gnn_case(cuda, n, f, d)
     op = tfg.fused_gnn_block
@@ -362,9 +375,11 @@ def _bf16_backward(op, kernel, plain, inputs, dy):
 # the split-K slices), F = 18 (4-byte copies); dropout in bf16 mode on two
 @pytest.mark.parametrize('n,f,heads,d,rate', [
     (50, 64, 4, 6, 0.0), (1376, 512, 16, 8, 0.3), (3377, 512, 16, 8, 0.0),
-    (45, 18, 2, 5, 0.3)])
+    (45, 18, 2, 5, 0.3)] + [
+        case + (rate,) for case, rate in zip(GNN_BF16_EDGES,
+                                             (0.3, 0.0, 0.3, 0.3, 0.0, 0.3))])
 def test_gnn_backward_bf16_matches_plain(cuda, n, f, heads, d, rate):
-    """K1b in bf16 mode: the six products on the bf16 tensor cores, W read
+    """K1b in bf16 mode: the six products on wg_gemm.cuh's wgmma, W read
     MN-major by the dX products and both operands by the split-K dW
     products."""
     (feat, nbr, hn, mask), p = _gnn_case(cuda, n, f, d)
@@ -543,13 +558,15 @@ def test_backward_kernels_are_deterministic(cuda):
     """No atomics: two runs of each backward, and of the K1 / K3 forwards,
     give the same bits."""
     runs = []
-    for n, f, heads in ((700, 128, 8), (3376, 512, 16)):
-        # the second: the training batch's node count, whose dW products
-        # split K
+    for n, f, heads, dt in ((700, 128, 8, None), (3376, 512, 16, None),
+                            (3376, 512, 16, torch.bfloat16)):
+        # the training batch's node count, whose dW products split K, in
+        # float32 and in bf16 mode (wg_gemm.cuh's split-K slices)
         (feat, nbr, hn, mask), p = _gnn_case(cuda, n, f, 8)
         dy = torch.randn_like(feat)
         fn = lambda a, b, c, *q: tfg.fused_gnn_block(a, b, c, mask, q, heads,
-                                                     0.3, True, 5)
+                                                     0.3, True, 5,
+                                                     mm_dtype=dt)
         outs = [_grads(fn, [feat, nbr, hn, *p], dy) for _ in range(2)]
         runs += [(outs[0][0], outs[1][0])]
         runs += list(zip(*[g for _, g in outs]))
@@ -581,6 +598,21 @@ def test_backward_kernels_are_deterministic(cuda):
         runs_s += list(zip(*[g for _, g in outs]))
     for ga, gb in runs + runs_b + runs_s:
         assert torch.equal(ga, gb)
+
+
+def test_gnn_bf16_follows_an_in_place_weight_update(cuda):
+    """K1 bf16 casts its weights on every call (into the call's scratch):
+    an in-place update of them between two calls moves the output to the
+    plain version's on the new weights."""
+    args, p = _gnn_case(cuda, 1376, 512, 8)
+    bf16 = torch.bfloat16
+    for scale in (1.0, -1.5):
+        with torch.no_grad():
+            for w in (p[0], p[4], p[6]):
+                w.mul_(scale)
+        _assert_bf16(tfg.fused_gnn_block(*args, p, 16, mm_dtype=bf16),
+                     tfg.reference_gnn_block(*args, p, 16, mm_dtype=bf16),
+                     tfg.reference_gnn_block(*args, p, 16))
 
 
 # ---------------------------------------------------------------- masks
