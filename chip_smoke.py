@@ -9,6 +9,7 @@
     python3 chip_smoke.py --eval           # phases 1 and 9 alone
     python3 chip_smoke.py --bf16           # phases 1 and 10 alone
     python3 chip_smoke.py --gmx            # phases 1 and 11 alone
+    python3 chip_smoke.py --data           # phases 1 and 12 alone
     python3 chip_smoke.py --gnn-calls      # K1 / K1b bf16 a call, profile
 
 Phases, each printing its own lines:
@@ -145,7 +146,11 @@ Phases, each printing its own lines:
      BF16_ORDER x the plain bf16 version's own distance on the CPU), max
      <= BF16_MAX x the effect's max, per gradient; the bf16 kernel's, the
      plain version's and the float32 kernel's backward ms and the bf16
-     bound; (c) make_train_step with compute_dtype='bfloat16' and the
+     bound; then readings (no checks) of K1b bf16 at 40 rows (F 512, D
+     8), head width 128 and 256, on tests/test_torch_port_kernels.py's
+     inputs for seeds 0-5 against the same rule, with the attention
+     pass's bf16 flips (gnn_gap_readings); (c) make_train_step with
+     compute_dtype='bfloat16' and the
      config's dropout on the 128 x 32 batch and bench.py's 512 x 32 peak
      config (build_big_batch's molecules), in turns with the float32 step
      on the same weights: 7 / 12 / 4 bf16 forward and backward launches a
@@ -199,16 +204,47 @@ Phases, each printing its own lines:
      events, its host time beside), row formatting + write and the rest;
      the `gmx` line (with the card's name and power limit and the atoms
      parametrized a second).
+ 12. the data tools, the sweep, the plots and the minimiser: (a) a
+     folder/<mol>/moldata.npz tree of DATA_MOLS make_dataset molecules
+     (phase 8's conformers and atoms) through `python -m
+     grappa_tpu_torch.cli dataset from-moldata-dirs` and
+     `add-charge-model`, build_espaloma_split and `split-export`, and
+     convert_espaloma_dir / assemble_dataset_dir on archive records of
+     DATA_RECORDS' SMILES written with the port's parser: counts by
+     partition, every id in one partition, the am1BCC one-hot, a second
+     run (in process) byte for byte equal, each step's wall ms (the
+     `dataset_tools` line); (b) run_sweep(method='bayes', n_init=2, 4
+     trials, max_epochs=2) over SWEEP_SPEC at the default width on (a)'s
+     dataset and split: per trial the params, early-stopping loss,
+     epochs, steps, wall ms, steps/s and its split (loader wait, steps,
+     validation, checkpoint writes, test evaluation, the rest); K1-K3 /
+     K1b-K3b launched 7 / 12 / 4 times the trials' forwards and steps,
+     peak memory; the same call again skips every trial, launches
+     nothing and leaves best.json and trials.jsonl as they were (the
+     `sweep` line); (c) a random sweep over SWEEP_PARITY_SPEC (2 trials,
+     2 epochs, 8 molecules x 4 conformers, dropout off, default width)
+     on the card and on the CPU: the same params, each trial's loss at
+     TRAINRUN_RTOL (`sweep_parity`); (d) eval_model.plot_arrays (one
+     forward a molecule) on phase 9's first tag's 128 molecules, card vs
+     CPU: parameters at MODEL_RTOL / MODEL_ATOL, centred energies within
+     MODEL_ATOL + MODEL_RTOL x the molecule's max |E|, dE/dx within
+     FORCE_RTOL x its max, 7 / 12 / 4 launches a molecule, molecules/s
+     (`eval_plots`); (e) minimize_geometry(method='bucketed') on the
+     card against 'torch' on the CPU on MIN_MOLS molecules of
+     tests/test_energy.py:138-171's kind: the energy at each minimum
+     within max(0.02 |E|, 0.5), ms a molecule, make_dataset(learnable)
+     with each (`minimizer`). Every line carries the card's name and
+     power limit.
 
 The `trainrun {...}`, `trainrun_bf16 {...}`, `eval {...}`, `ingest
-{...}` and `gmx {...}` lines come before
+{...}`, `gmx {...}` and phase 12's five lines come before
 the last three lines, which are a
 JSON object describing the kernels, the card's name and power limit, and
 {"ok": true, "device": {...}}. In the kernels'
 line, `launches` sums the main paths (the two predict paths and the ten
 training steps, phase 8's training run and phase 9's eval and ingest
-paths and phase 11's gmx path for K1-K3; phase 6's four
-paths for K5 and K5b;
+paths, phase 11's gmx path and phase 12's sweep and plots for K1-K3 and
+the sweep for K1b-K3b; phase 6's four paths for K5 and K5b;
 `launches_per_path` gives each), and `ms`, `plain_ms`, `bound_ms`,
 `gflop` and `mbytes` sum one call at each shape of each path; K1-K3 and
 K1b-K3b also give `bound_tc_ms` (3 x their FLOPs at the 495 TFLOP/s TF32
@@ -373,9 +409,31 @@ BF16_HMMA, TF32_HMMA = 'HMMA.16816.F32.BF16', 'HMMA.1688.F32.TF32'
 # parametrize timed GMX_REPS times
 GMX_LIGAND_ATOMS, GMX_LIGAND_SEED, GMX_WATERS, GMX_IONS = 30, 0, 2000, 10
 GMX_FOCUS_APART, GMX_REPS = 4, 5
+# phase 10(c)(a)'s readings of K1b at 40 rows (gnn_gap_readings)
+GAP_N, GAP_SEEDS = 40, 6
 # gnn_calls: bench.py's 512-molecule x 32-conformer batch's padded nodes
 # (the bf16 step of phase 10(c)(c))
 GNN_BIG_N = 12904
+# phase 12: the data tools on a moldata tree of DATA_MOLS make_dataset
+# molecules at phase 8's conformers and atoms, under a name add-charge-model
+# infers am1BCC from; the espaloma split takes the last DATA_TEST ids as
+# test and the DATA_TEST before them as validation; the pipeline converts
+# archive records of these mapped SMILES (and a merged duplicate)
+DATA_TAG, DATA_MOLS, DATA_TEST = 'spice-sweep', 48, 5
+DATA_RECORDS = {
+    'ds_a': ['[C:1](=[O:2])([N:3]([H:5])[H:6])[H:4]',
+             '[c:1]1([H:7])[c:2]([H:8])[c:3]([H:9])[c:4]([H:10])'
+             '[c:5]([H:11])[c:6]1[H:12]'],
+    'ds_b': ['[C:1]([H:4])([H:5])([H:6])[C:2]([H:7])([H:8])[O:3][H:9]']}
+# the sweep at the default width, and its card-vs-CPU check at phase 8(b)'s
+# setting (a learning rate near its 1.5e-5, batches of a few molecules)
+SWEEP_SPEC = {'lit_model_config.lr': ('log_uniform', 1e-5, 1e-3),
+              'data_config.train_batch_size': ('choice', [16, 32])}
+SWEEP_PARITY_SPEC = {'lit_model_config.lr': ('log_uniform', 1e-5, 2e-5),
+                     'data_config.train_batch_size': ('choice', [2, 3])}
+# the minimiser: make_dataset(learnable=True, seed=MIN_SEED) of MIN_MOLS
+# molecules of tests/test_energy.py:138-171's elements and sizes
+MIN_MOLS, MIN_SEED = 16, 977
 REF_FIELDS = {'n2_k': ('n2', 'k_ref'), 'n2_eq': ('n2', 'eq_ref'),
               'n3_k': ('n3', 'k_ref'), 'n3_eq': ('n3', 'eq_ref'),
               'n4_k': ('n4', 'k_ref'),
@@ -2413,12 +2471,105 @@ def compare_grad_bf16(torch, entries, case):
     entries[name]['f32_ms'] = entries[name].get('f32_ms', 0.0) + f32_ms
 
 
+def gnn_gap_readings(torch):
+    """K1b bf16 at GAP_N = 40 rows (F 512, D 8) with head width 128 (4
+    heads) and 256 (2 heads, whose attention passes take the float32
+    kernels' rows, as bf16 mode does above dh 128), dropout off, on
+    tests/test_torch_port_kernels.py's `_gnn_case` inputs for seeds 0 to
+    GAP_SEEDS - 1 (seed 0 is that file's; dy from seed 7): each gradient's
+    mean error against the card's plain bf16 version in units of the bf16
+    effect, beside the CPU's plain bf16 distance, under 10(c)(a)'s rule
+    max(BF16_RULE, BF16_ORDER x that distance). Readings, not checks: at
+    40 rows one bf16 rounding that a float32 sum in another order flips
+    moves a row's LayerNorm, 1/37 of every mean, and the CPU's distance
+    is one draw of such flips (ROADMAP §3). Beside each, the attention
+    pass alone (identity head_reducer, no FF): how many elements of
+    bf16(attn0) the kernel and the CPU's plain version round otherwise
+    than the card's plain version. Prints a line a case and the count
+    outside the rule by head width."""
+    from grappa_tpu_torch.ops import fused_gnn as fg
+    n, f, d = GAP_N, 512, 8
+    outside = {128: 0, 256: 0}
+    for seed in range(GAP_SEEDS):
+        gen = torch.Generator().manual_seed(seed)
+        feat = torch.randn((n, f), generator=gen)
+        neighbors = torch.randint(0, n, (n, d), generator=gen)
+        neighbors[0, 0] = 0
+        mask = (torch.rand((d, n), generator=gen) > 0.3).float()
+        mask[0, 0] = 0.0
+        mask[:, -3:] = 0.0
+        nbr = feat[neighbors.t()].contiguous()
+        hn = torch.randn((n, f), generator=gen)
+        p = [q.cpu() for q in rand_params(torch, gen, [
+            ((f, f), 'w'), ((f,), 'b'), ((f,), 'g'), ((f,), 'b'),
+            ((4 * f, f), 'w'), ((4 * f,), 'b'), ((f, 4 * f), 'w'),
+            ((f,), 'b')])]
+        dy = torch.randn((n, f), generator=torch.Generator().manual_seed(7))
+        inputs = [feat, nbr, hn, *p]
+        for heads in (4, 2):
+            def grads(kernel, dt, device):
+                leaves = [t.to(device).requires_grad_(True) for t in inputs]
+                m = mask.to(device)
+                y = (fg.fused_gnn_block(*leaves[:3], m, leaves[3:], heads,
+                                        mm_dtype=dt) if kernel else
+                     fg.reference_gnn_block(*leaves[:3], m, leaves[3:],
+                                            heads, None, dt))
+                return [g.double().cpu() for g in torch.autograd.grad(
+                    y, leaves, dy.to(device))]
+            k16 = grads(True, torch.bfloat16, 'cuda')
+            p16 = grads(False, torch.bfloat16, 'cuda')
+            p32 = grads(False, None, 'cuda')
+            c16 = grads(False, torch.bfloat16, 'cpu')
+            rows = []
+            for i, (a, b, c, e) in enumerate(zip(k16, p16, p32, c16)):
+                eff = float((b - c).abs().mean())
+                rows.append((float((a - b).abs().mean()) / eff,
+                             float((e - b).abs().mean()) / eff, i))
+            over = [r for r in rows if r[0] > max(BF16_RULE,
+                                                  BF16_ORDER * r[1])]
+            worst = max(rows, key=lambda r: r[0] / max(BF16_RULE,
+                                                       BF16_ORDER * r[1]))
+            outside[f // heads] += bool(over)
+            # the attention pass alone: with wr = I, br = 0 and the FF
+            # zeroed, y = LN(bf16(attn0)); elements past 1e-4 from the
+            # card's plain version are attn0's bf16 flips
+            probe = [torch.eye(f), torch.zeros(f), torch.ones(f),
+                     torch.zeros(f), torch.zeros(4 * f, f),
+                     torch.zeros(4 * f), torch.zeros(f, 4 * f),
+                     torch.zeros(f)]
+            with torch.no_grad():
+                ys = [fn(feat.to(dv), nbr.to(dv), torch.zeros_like(hn).to(
+                    dv), mask.to(dv), [q.to(dv) for q in probe], heads,
+                    **kw).cpu() for fn, dv, kw in (
+                        (fg.fused_gnn_block, 'cuda',
+                         {'mm_dtype': torch.bfloat16}),
+                        (fg.reference_gnn_block, 'cuda',
+                         {'mm_dtype': torch.bfloat16}),
+                        (fg.reference_gnn_block, 'cpu',
+                         {'mm_dtype': torch.bfloat16}))]
+            flips = [int(((y - ys[1]).abs() > 1e-4).sum())
+                     for y in (ys[0], ys[2])]
+            print(f'gap K1b bf16 N={n} seed {seed} heads {heads} (dh '
+                  f'{f // heads}): worst gradient {worst[2]} mean err / '
+                  f'effect {worst[0]:.4f}, the CPU\'s plain bf16 '
+                  f'{worst[1]:.4f}; {len(over)} of {len(rows)} gradients '
+                  f'outside max({BF16_RULE}, {BF16_ORDER} x the CPU\'s) '
+                  f'(a reading, not a check); attn0 bf16 flips against '
+                  f'the card\'s plain version: kernel {flips[0]}, CPU '
+                  f'plain {flips[1]} of {n * f}', flush=True)
+    print(f'gap K1b bf16 N={n}: cases with a gradient outside 10(c)(a)\'s '
+          f'rule, of {GAP_SEEDS} seeds: dh 128 {outside[128]}, dh 256 '
+          f'{outside[256]}', flush=True)
+
+
 def bf16_training_kernel_phase(torch, batches, entries):
-    """Phase 10(c)(a): K1b-K3b in bf16 mode at phase 4's shapes."""
+    """Phase 10(c)(a): K1b-K3b in bf16 mode at phase 4's shapes, then the
+    readings of K1b at 40 rows (`gnn_gap_readings`)."""
     phase('10(c)(a). K1b-K3b in bf16 mode against autograd through their '
           'plain bf16 versions (phase 4\'s shapes)')
     for case in training_cases(torch, batches):
         compare_grad_bf16(torch, entries, case)
+    gnn_gap_readings(torch)
 
 
 def step_runs(torch, step, batch, w, gen, n):
@@ -3139,6 +3290,24 @@ def trainrun_phase(torch, work, data_dir, made, test_batches):
     return {name: n for name, n in got.items()}, line
 
 
+def eval_tag_dataset(i):
+    """Phase 9's dataset under EVAL_TAGS[i]: EVAL_MOLS make_dataset
+    molecules at phase 8's conformers and atoms, with a stand-in classical
+    force field that misses the reference by seeded noise."""
+    from grappa_tpu_torch.data.dataset import Dataset
+    from grappa_tpu_torch.data.synthetic import make_dataset
+    tag = EVAL_TAGS[i]
+    mds = make_dataset(n_mols=EVAL_MOLS, n_confs=TRAINRUN_CONFS, seed=10 + i,
+                       ds_name=tag, atom_range=TRAINRUN_ATOMS)
+    rng = np.random.default_rng(i)
+    for m in mds:
+        m.ff_energy['reference_ff'] = (m.energy_ref + rng.normal(
+            0, 2.0, m.energy_ref.shape)).astype(np.float32)
+        m.ff_gradient['reference_ff'] = (m.gradient_ref + rng.normal(
+            0, 3.0, m.gradient_ref.shape)).astype(np.float32)
+    return Dataset.from_moldata(mds, tag)
+
+
 def eval_fixture(torch, cache, cfg):
     """Phase 9(a): a release's layout under `cache`: the default model with
     seeded non-zero weights as models/grappa-1.2.pth (the reference's
@@ -3150,9 +3319,7 @@ def eval_fixture(torch, cache, cfg):
     import shutil
     import zipfile
     from pathlib import Path
-    from grappa_tpu_torch.data.dataset import (Dataset, calc_split_ids,
-                                               save_split)
-    from grappa_tpu_torch.data.synthetic import make_dataset
+    from grappa_tpu_torch.data.dataset import calc_split_ids, save_split
     from grappa_tpu_torch.models.grappa_model import make_model
     from grappa_tpu_torch.train.export import build_model_dict, save_model_dict
     cache = Path(cache)
@@ -3162,17 +3329,7 @@ def eval_fixture(torch, cache, cfg):
                     model_path)
     ids = {}
     for i, tag in enumerate(EVAL_TAGS):
-        mds = make_dataset(n_mols=EVAL_MOLS, n_confs=TRAINRUN_CONFS,
-                           seed=10 + i, ds_name=tag,
-                           atom_range=TRAINRUN_ATOMS)
-        rng = np.random.default_rng(i)
-        for m in mds:
-            # a force field that misses the reference by seeded noise
-            m.ff_energy['reference_ff'] = (m.energy_ref + rng.normal(
-                0, 2.0, m.energy_ref.shape)).astype(np.float32)
-            m.ff_gradient['reference_ff'] = (m.gradient_ref + rng.normal(
-                0, 3.0, m.gradient_ref.shape)).astype(np.float32)
-        ds = Dataset.from_moldata(mds, tag)
+        ds = eval_tag_dataset(i)
         ids[tag] = ds.mol_ids
         if i < len(EVAL_TAGS) - 1:
             ds.save(cache / 'datasets' / tag)
@@ -3993,6 +4150,492 @@ def gmx_phase(torch, cfg, work, smi, data):
     return launches, line
 
 
+def sweep_base_config(default_config, data_dir, splitpath):
+    """Phase 12(b)'s base config: default_config() at the default width
+    (its dropout) trained from `data_dir` with phase 8's settings (test
+    molecules one at a time, a checkpoint every epoch) on the split in
+    `splitpath`."""
+    cfg = trainrun_config(default_config, data_dir)
+    cfg['data_config']['splitpath'] = splitpath
+    return cfg
+
+
+def espaloma_records(work):
+    """A few archive records (tests/test_espaloma_pipeline.py's layout)
+    written with the port's own SMILES parser under <work>/raw/<ds>/, and
+    one espaloma-merged duplicate under <work>/dup/0/<ds>/."""
+    from pathlib import Path
+    from grappa_tpu_torch.data.smiles import parse_mapped_smiles
+    root = Path(work)
+    for ds, smiles in DATA_RECORDS.items():
+        (root / 'raw' / ds).mkdir(parents=True, exist_ok=True)
+        for i, smi in enumerate(smiles):
+            z, _, _ = parse_mapped_smiles(smi)
+            rng = np.random.default_rng(100 + i)
+            n, c = len(z), 4
+            f32 = lambda *shape: rng.normal(size=shape).astype(np.float32)
+            np.savez(root / 'raw' / ds / f'mol{i}.npz', mapped_smiles=np.array(
+                [smi]), smiles=np.array([smi.replace(':', 'x')]),
+                atomic_numbers=z, am1bcc_elf_charges=0.3 * f32(n),
+                xyz=f32(c, n, 3), energy_qm=f32(c),
+                gradient_qm=f32(c, n, 3), energy_ref=f32(c),
+                gradient_ref=f32(c, n, 3), **{
+                    'energy_gaff-2.11': f32(c),
+                    'gradient_gaff-2.11': f32(c, n, 3)})
+    dup = root / 'dup' / '0' / 'ds_a'
+    dup.mkdir(parents=True, exist_ok=True)
+    first = sorted((root / 'raw' / 'ds_b').iterdir())[0]
+    (dup / 'mol_dup.npz').write_bytes(first.read_bytes())
+
+
+def data_tools_run(tree, out, subprocess_first):
+    """Phase 12(a)'s tools once, from the moldata tree `tree` into `out`:
+    `dataset from-moldata-dirs` (through `python -m grappa_tpu_torch.cli`
+    when `subprocess_first`), `add-charge-model`, the espaloma split and
+    `split-export` (in process: cli.main), then the espaloma pipeline on
+    the records `espaloma_records` writes. Returns ({step: wall ms}, the
+    split, the commands' outputs)."""
+    import io
+    from pathlib import Path
+    from grappa_tpu_torch import cli
+    from grappa_tpu_torch.data import espaloma_pipeline as ep
+    from grappa_tpu_torch.data.dataset import Dataset
+    from grappa_tpu_torch.espaloma_split import (build_espaloma_split,
+                                                 save_espaloma_split)
+    out = Path(out)
+    ms, answers = {}, {}
+
+    def run(step, argv):
+        t0 = time.perf_counter()
+        if subprocess_first and not answers:
+            proc = subprocess.run(
+                [sys.executable, '-m', 'grappa_tpu_torch.cli'] + argv,
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            check(proc.returncode == 0,
+                  f'(a) {step}: `python -m grappa_tpu_torch.cli '
+                  f'{" ".join(argv[:2])}` returns {proc.returncode} '
+                  f'{proc.stderr[-300:]}')
+            text = proc.stdout
+        else:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli.main(argv)
+            text = buf.getvalue()
+        ms[step] = (time.perf_counter() - t0) * 1e3
+        answers[step] = json.loads(text.strip().splitlines()[-1])
+
+    data = out / DATA_TAG
+    run('from-moldata-dirs', ['dataset', 'from-moldata-dirs', '-s',
+                              str(tree), '-t', str(data), '-c', 'amber99'])
+    run('add-charge-model', ['dataset', 'add-charge-model', '-d', str(data)])
+    t0 = time.perf_counter()
+    ids = Dataset.load(data).mol_ids
+    split = build_espaloma_split(ids, ids[-DATA_TEST:],
+                                 ids[-2 * DATA_TEST:-DATA_TEST])
+    save_espaloma_split(split, out / 'espaloma_split.json')
+    ms['espaloma_split'] = (time.perf_counter() - t0) * 1e3
+    run('split-export', ['dataset', 'split-export', '-d', str(data),
+                         '--split', str(out / 'espaloma_split.json'), '-t',
+                         str(out / 'published')])
+    t0 = time.perf_counter()
+    espaloma_records(out)
+    answers['unmerge'] = ep.unmerge_duplicates(out / 'dup', out / 'raw')
+    for ds in DATA_RECORDS:
+        answers[f'to-moldata {ds}'] = ep.convert_espaloma_dir(
+            out / 'raw' / ds, out / 'moldata' / ds)
+        ep.assemble_dataset_dir(out / 'moldata' / ds, out / 'ds' / ds,
+                                ds_name=ds)
+    ms['espaloma_pipeline'] = (time.perf_counter() - t0) * 1e3
+    return ms, split, answers
+
+
+def data_tools_phase(work, smi):
+    """Phase 12(a). Returns the dataset directory, its split file and the
+    `dataset_tools` line's fields."""
+    from pathlib import Path
+    from grappa_tpu_torch.data.dataset import Dataset
+    from grappa_tpu_torch.data.dataset_creation import charge_model_one_hot
+    from grappa_tpu_torch.data.moldata import MolData
+    from grappa_tpu_torch.data.synthetic import make_dataset
+    phase('12(a). the data tools: cli dataset, the espaloma split and '
+          'pipeline')
+    root = Path(work) / 'data_tools'
+    t0 = time.perf_counter()
+    tree = root / 'tree'
+    for md in make_dataset(n_mols=DATA_MOLS, n_confs=TRAINRUN_CONFS,
+                           seed=7, ds_name=DATA_TAG,
+                           atom_range=TRAINRUN_ATOMS):
+        (tree / md.mol_id).mkdir(parents=True)
+        md.save(tree / md.mol_id / 'moldata.npz')
+    made_ms = (time.perf_counter() - t0) * 1e3
+    runs = [data_tools_run(tree, root / f'run{k}', k == 0) for k in range(2)]
+    (ms, split, answers), (ms2, split2, answers2) = runs
+    data = root / 'run0' / DATA_TAG
+    ds = Dataset.load(data)
+    cm = [np.array_equal(
+        md.molecule.additional_features.get('charge_model'),
+        charge_model_one_hot('am1BCC', len(md.molecule.atoms)))
+        for md in ds.entries]
+    written = answers['from-moldata-dirs']['written']
+    updated = answers['add-charge-model']['updated']
+    check(len(ds) == written == updated == DATA_MOLS and all(cm),
+          f'(a) from-moldata-dirs wrote {written} of {DATA_MOLS} molecules '
+          f'x {TRAINRUN_CONFS} conformers; add-charge-model (am1BCC, '
+          f'inferred from {DATA_TAG!r}) updated {updated}, {sum(cm)} carry '
+          f'its one-hot')
+    where = {}
+    for f in sorted((root / 'run0' / 'published').glob('*/*/*.npz')):
+        where.setdefault(MolData.load(f).mol_id, []).append(f.parts[-3])
+    counts = {k: answers['split-export'][k] for k in ('train', 'val', 'test')}
+    want = {k: len(v) for k, v in split.items()}
+    check(counts == want and sorted(where) == sorted(ds.mol_ids)
+          and all(len(v) == 1 and v[0] in split and k in split[v[0]]
+                  for k, v in where.items()),
+          f'(a) espaloma split {want} and split-export {counts}: every id '
+          f'in exactly one partition, the one the split names')
+    conv = [answers[f'to-moldata {d}'] for d in DATA_RECORDS]
+    n_rec = sum(len(v) for v in DATA_RECORDS.values()) + 1
+    pipe = (Dataset.load(root / 'run0' / 'ds' / 'ds_a')
+            + Dataset.load(root / 'run0' / 'ds' / 'ds_b'))
+    check(answers['unmerge'] == {'copied': 1, 'already_there': 0}
+          and sum(c['success'] for c in conv) == n_rec
+          and sum(c['errors'] for c in conv) == 0 and len(pipe) == n_rec,
+          f'(a) espaloma pipeline: unmerge {answers["unmerge"]}, to-moldata '
+          f'{conv}, {len(pipe)} molecules in the assembled datasets')
+    files = sorted(p.relative_to(root / 'run0')
+                   for p in (root / 'run0').rglob('*') if p.is_file())
+    same = files == sorted(p.relative_to(root / 'run1')
+                           for p in (root / 'run1').rglob('*')
+                           if p.is_file())
+    differ = [str(f) for f in files if (root / 'run0' / f).read_bytes()
+              != (root / 'run1' / f).read_bytes()]
+    check(same and not differ and split == split2,
+          f'(a) a second run (in process) writes the same {len(files)} '
+          f'files byte for byte: {"yes" if same and not differ else differ}')
+    line = {'card': smi, 'molecules': DATA_MOLS,
+            'conformers': TRAINRUN_CONFS, 'tree_made_ms': made_ms,
+            'step_ms': ms, 'step_ms_in_process': ms2, 'split': want,
+            'files': len(files)}
+    print(f'(a) wall ms: tree {made_ms:.1f}; first run (from-moldata-dirs '
+          f'through python -m) ' + ', '.join(f'{k} {v:.1f}'
+                                             for k, v in ms.items())
+          + '; second run, in process ' + ', '.join(
+              f'{k} {v:.1f}' for k, v in ms2.items()), flush=True)
+    return data, root / 'run0' / 'espaloma_split.json', line
+
+
+def sweep_counts(counters):
+    return {c.__name__: (c.launches, c.bwd_launches) for c in counters}
+
+
+def sweep_phase(torch, work, smi, data_dir, splitpath):
+    """Phase 12(b): run_sweep at the default width on (a)'s dataset, then
+    the same call again (every trial skipped). Returns the sweep's
+    launches and the `sweep` line's fields."""
+    import copy
+    from pathlib import Path
+    from grappa_tpu_torch.ops.fused_block import fused_transformer_block
+    from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
+    from grappa_tpu_torch.ops.fused_symmetriser import fused_symmetriser
+    from grappa_tpu_torch.train import run as run_mod
+    from grappa_tpu_torch.train.config import default_config
+    from grappa_tpu_torch.train.sweep import run_sweep
+    phase('12(b). run_sweep at the default width (bayes, 4 trials x 2 '
+          'epochs)')
+    config = sweep_base_config(default_config, str(data_dir), str(splitpath))
+    sweep_dir = Path(work) / 'sweep'
+    trials = []
+    do_trainrun = run_mod.do_trainrun
+
+    def recorded(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = do_trainrun(*args, **kwargs)
+        torch.cuda.synchronize()
+        trials.append((out, time.perf_counter() - t0))
+        return out
+
+    counters = (fused_gnn_block, fused_transformer_block, fused_symmetriser)
+    kw = dict(sweep_dir=str(sweep_dir), seed=0, max_epochs=2,
+              method='bayes', n_init=2)
+    run_mod.do_trainrun = recorded
+    try:
+        for c in counters:
+            c.launches = c.bwd_launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        best = run_sweep(copy.deepcopy(config), SWEEP_SPEC, 4, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = sweep_counts(counters)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        best_json = (sweep_dir / 'best.json').read_bytes()
+        log = (sweep_dir / 'trials.jsonl').read_bytes()
+        for c in counters:
+            c.launches = c.bwd_launches = 0
+        t1 = time.perf_counter()
+        again = run_sweep(copy.deepcopy(config), SWEEP_SPEC, 4, **kw)
+        resume_ms = (time.perf_counter() - t1) * 1e3
+        resumed = sweep_counts(counters)
+    finally:
+        run_mod.do_trainrun = do_trainrun
+    records = [json.loads(x) for x in log.decode().splitlines()]
+    rows, forwards, steps = [], 0, 0
+    for rec, (out, secs) in zip(records, trials):
+        tr = out['trainer']
+        split = json.loads((Path(out['run_dir']) / 'split.json').read_text())
+        n_steps = tr.global_step
+        n_fwd = (n_steps + tr.epoch * len(tr.val_loader)
+                 + len(split['test']) + 1)
+        forwards, steps = forwards + n_fwd, steps + n_steps
+        t = tr.timings
+        parts = {'loader_wait': sum(t['loader_wait_s']),
+                 'steps': sum(t['step_s']) + sum(t['fetch_s']),
+                 'train': sum(t['train_s']), 'validation': sum(t['val_s']),
+                 'ckpt_blocking': sum(t['ckpt_blocking_s']),
+                 'ckpt_async': sum(t['ckpt_async_s']),
+                 'test_eval': out['test_eval_s'] or 0.0}
+        parts['rest'] = secs - (parts['train'] + parts['validation']
+                                + parts['ckpt_blocking'] + parts['test_eval'])
+        rows.append({'trial': rec['trial'], 'params': rec['params'],
+                     'early_stopping_loss': rec.get('early_stopping_loss'),
+                     'epochs': rec.get('epochs'), 'steps': n_steps,
+                     'forwards': n_fwd, 'wall_ms': secs * 1e3,
+                     'steps_per_s': n_steps / max(parts['train'], 1e-9),
+                     'split_ms': {k: v * 1e3 for k, v in parts.items()}})
+        print(f'(b) trial {rec["trial"]}: params {rec["params"]}, '
+              f'early_stopping_loss {rec.get("early_stopping_loss")}, '
+              f'{rec.get("epochs")} epochs, {n_steps} steps, {n_fwd} '
+              f'forwards, wall {secs * 1e3:.1f} ms, '
+              f'{rows[-1]["steps_per_s"]:.3f} steps/s; ms: ' + ', '.join(
+                  f'{k} {v * 1e3:.1f}' for k, v in parts.items()),
+              flush=True)
+    want = {'fused_gnn_block': (7 * forwards, 7 * steps),
+            'fused_transformer_block': (12 * forwards, 12 * steps),
+            'fused_symmetriser': (4 * forwards, 4 * steps)}
+    finite = all(r.get('early_stopping_loss') is not None
+                 and np.isfinite(r['early_stopping_loss']) for r in records)
+    check(len(records) == len(trials) == 4 and finite and got == want
+          and steps > 0,
+          f'(b) 4 trials recorded with finite losses; launches (forward, '
+          f'backward) {got} for {forwards} forwards and {steps} steps (want '
+          f'{want}); peak {peak:.3f} GiB; best {best}')
+    check(resumed == {c.__name__: (0, 0) for c in counters}
+          and (sweep_dir / 'best.json').read_bytes() == best_json
+          and (sweep_dir / 'trials.jsonl').read_bytes() == log
+          and len(trials) == 4,
+          f'(b) the same call again skips every trial in {resume_ms:.1f} ms:'
+          f' launches {resumed}, best.json and trials.jsonl unchanged, '
+          f'best {again}')
+    line = {'card': smi, 'trials': rows, 'wall_ms': wall * 1e3,
+            'resume_ms': resume_ms, 'peak_gib': peak, 'launches': got,
+            'best': best}
+    return got, line
+
+
+def sweep_parity_phase(torch, work, smi):
+    """Phase 12(c): the same random sweep on the card and on the CPU."""
+    import copy
+    from pathlib import Path
+    from grappa_tpu_torch.data.dataset import Dataset
+    from grappa_tpu_torch.data.synthetic import make_dataset
+    from grappa_tpu_torch.train.config import default_config
+    from grappa_tpu_torch.train.sweep import run_sweep
+    phase('12(c). run_sweep card vs CPU (random, 2 trials, dropout off)')
+    small = Path(work) / 'data' / 'sweep_small'
+    Dataset.from_moldata(make_dataset(n_mols=8, n_confs=4, seed=0,
+                                      atom_range=TRAINRUN_ATOMS)).save(small)
+    cfg = trainrun_config(default_config, str(small))
+    cfg['model_config'].update(gnn_dropout_attention=0.0,
+                               parameter_dropout=0.0, gnn_dropout_final=0.0,
+                               gnn_dropout_initial=0.0)
+    res = {}
+    for dev in ('cuda', 'cpu'):
+        t0 = time.perf_counter()
+        run_sweep(copy.deepcopy(cfg), SWEEP_PARITY_SPEC, 2,
+                  sweep_dir=str(Path(work) / f'sweep_{dev}'), seed=1,
+                  max_epochs=2, method='random', device=dev)
+        res[dev] = ([json.loads(x) for x in (Path(work) / f'sweep_{dev}' /
+                     'trials.jsonl').read_text().splitlines()],
+                    time.perf_counter() - t0)
+    (card, card_s), (cpu, cpu_s) = res['cuda'], res['cpu']
+    rel = [abs(a['early_stopping_loss'] - b['early_stopping_loss'])
+           / abs(b['early_stopping_loss']) for a, b in zip(card, cpu)
+           if a.get('early_stopping_loss') and b.get('early_stopping_loss')]
+    check(len(card) == len(cpu) == 2 == len(rel)
+          and [a['params'] for a in card] == [b['params'] for b in cpu]
+          and max(rel) <= TRAINRUN_RTOL,
+          f'(c) params {[a["params"] for a in card]} on both; '
+          f'early_stopping_loss card '
+          f'{[a.get("early_stopping_loss") for a in card]} vs CPU '
+          f'{[b.get("early_stopping_loss") for b in cpu]} (worst rel '
+          f'{max(rel, default=float("inf")):.2e}, tol {TRAINRUN_RTOL}); '
+          f'card {card_s:.1f} s, CPU {cpu_s:.1f} s')
+    return {'card': smi, 'params': [a['params'] for a in card],
+            'card_losses': [a.get('early_stopping_loss') for a in card],
+            'cpu_losses': [b.get('early_stopping_loss') for b in cpu],
+            'worst_rel': max(rel, default=None), 'card_s': card_s,
+            'cpu_s': cpu_s}
+
+
+def eval_plots_phase(torch, cfg, smi, ds, model):
+    """Phase 12(d): the plots' device part (eval_model.plot_arrays) on the
+    card and on the CPU. Returns its launches and the `eval_plots` line's
+    fields."""
+    from grappa_tpu_torch.ops.fused_block import fused_transformer_block
+    from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
+    from grappa_tpu_torch.ops.fused_symmetriser import fused_symmetriser
+    from grappa_tpu_torch.train.eval_model import plot_arrays
+    phase(f'12(d). the scatter plots\' device part, {len(ds)} molecules')
+    counters = (fused_gnn_block, fused_transformer_block, fused_symmetriser)
+    plot_arrays(model, type(ds)(ds.entries[:1], ds.ds_names[:1]), 'cuda')
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = plot_arrays(model, ds, 'cuda')
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    got = {c.__name__: c.launches for c in counters}
+    t0 = time.perf_counter()
+    cpu = plot_arrays(model, ds, 'cpu')
+    cpu_s = time.perf_counter() - t0
+    n = len(ds)
+    want = {'fused_gnn_block': 7 * n, 'fused_transformer_block': 12 * n,
+            'fused_symmetriser': 4 * n}
+    check(got == want, f'(d) launches {got} for {n} molecules (want {want})')
+    (name, a), = card.items()
+    b = cpu[name]
+    compare_outputs(f'(d) {n} molecules\' predicted parameters, card vs CPU,',
+                    stack(a['pred']), stack(b['pred']))
+    e_err = g_err = 0.0
+    ok = True
+    for ea, eb, ga, gb in zip(a['e_pred'], b['e_pred'], a['g_pred'],
+                              b['g_pred']):
+        ea, eb, ga, gb = (np.asarray(x, np.float64) for x in (ea, eb, ga, gb))
+        e_tol = MODEL_ATOL + MODEL_RTOL * float(np.abs(eb).max())
+        g_tol = FORCE_RTOL * float(np.abs(gb).max())
+        ok &= bool(np.isfinite(ea).all() and np.isfinite(ga).all())
+        ok &= float(np.abs(ea - eb).max()) <= e_tol
+        ok &= float(np.abs(ga - gb).max()) <= g_tol
+        e_err = max(e_err, float(np.abs(ea - eb).max()) / e_tol)
+        g_err = max(g_err, float(np.abs(ga - gb).max()) / g_tol)
+    check(ok and len(a['e_pred']) == n,
+          f'(d) centred energies and dE/dx, card vs CPU: worst error / '
+          f'tolerance {e_err:.3f} (energies: {MODEL_ATOL} + {MODEL_RTOL} x '
+          f'the molecule\'s max |E|) and {g_err:.3f} (dE/dx: {FORCE_RTOL} x '
+          f'its max |dE/dx|); card {n / card_s:.2f} molecules/s, CPU '
+          f'{n / cpu_s:.2f} molecules/s')
+    line = {'card': smi, 'molecules': n, 'card_s': card_s, 'cpu_s': cpu_s,
+            'card_molecules_per_s': n / card_s,
+            'cpu_molecules_per_s': n / cpu_s, 'launches': got,
+            'energy_err_over_tol': e_err, 'gradient_err_over_tol': g_err}
+    return got, line
+
+
+def minimizer_phase(torch, smi):
+    """Phase 12(e): make_dataset(learnable=True) of MIN_MOLS molecules of
+    tests/test_energy.py:138-171's elements and sizes, its minimisations
+    through the bucketed path on the card and then through the 'torch'
+    path on the CPU (GRAPPA_TPU_MINIMIZER), each minimisation recorded:
+    the bonded energy at each bucketed minimum within max(0.02 |E|, 0.5)
+    of the 'torch' one, ms a molecule, make_dataset's wall with each."""
+    from grappa_tpu_torch.data import synthetic as syn
+    phase(f'12(e). minimize_geometry: \'bucketed\' on the card vs \'torch\' '
+          f'on the CPU, make_dataset of {MIN_MOLS} molecules with each')
+    minimize = syn.minimize_geometry
+    runs = {}
+
+    def recorded(mol, params, xyz0, *args, **kwargs):
+        t0 = time.perf_counter()
+        x = minimize(mol, params, xyz0, *args, **kwargs)
+        runs[method].append((mol, params, x, time.perf_counter() - t0))
+        return x
+
+    kw = dict(n_mols=MIN_MOLS, n_confs=8, seed=MIN_SEED, learnable=True,
+              elements=[1, 1, 6, 6, 7, 8], atom_range=(12, 20))
+    syn.minimize_geometry = recorded
+    made = {}
+    try:
+        for method in ('bucketed', 'torch'):
+            os.environ['GRAPPA_TPU_MINIMIZER'] = method
+            runs[method] = []
+            if method == 'bucketed':      # warm: the card's first graph
+                syn.make_dataset(**dict(kw, n_mols=1, seed=MIN_SEED + 1))
+                runs[method] = []
+            t0 = time.perf_counter()
+            syn.make_dataset(**kw)
+            made[method] = (time.perf_counter() - t0) * 1e3
+    finally:
+        syn.minimize_geometry = minimize
+        os.environ.pop('GRAPPA_TPU_MINIMIZER', None)
+    worst, ok = 0.0, len(runs['bucketed']) == len(runs['torch']) == MIN_MOLS
+    for (mol, params, xb, _), (_, _, xt, _) in zip(runs['bucketed'],
+                                                   runs['torch']):
+        eb = float(syn.torch_bonded_energy(mol, params, xb[None])[0][0])
+        et = float(syn.torch_bonded_energy(mol, params, xt[None])[0][0])
+        tol = max(0.02 * abs(et), 0.5)
+        ok &= bool(np.isfinite(xb).all()) and abs(eb - et) < tol
+        worst = max(worst, abs(eb - et) / tol)
+    ms = {k: float(np.median([r[3] for r in v])) * 1e3
+          for k, v in runs.items()}
+    atoms = [len(r[0].atoms) for r in runs['torch']]
+    check(ok, f'(e) {MIN_MOLS} molecules ({min(atoms)}-{max(atoms)} atoms): '
+              f'bonded energy at the bucketed float32 minimum (card) within '
+              f'max(0.02 |E|, 0.5) of the torch float64 one (CPU), worst '
+              f'|dE| / tol {worst:.3f}; median ms a molecule: bucketed '
+              f'{ms["bucketed"]:.1f}, torch {ms["torch"]:.1f}; '
+              f'make_dataset ms: bucketed {made["bucketed"]:.1f}, torch '
+              f'{made["torch"]:.1f}')
+    return {'card': smi, 'molecules': MIN_MOLS, 'ms_per_molecule': ms,
+            'ms_all': {k: [r[3] * 1e3 for r in v] for k, v in runs.items()},
+            'worst_energy_over_tol': worst, 'make_dataset_ms': made}
+
+
+def data_phase(torch, cfg, work, smi, eval_ds=None, eval_model=None):
+    """Phase 12. `eval_ds` / `eval_model`: phase 9's first tag's dataset
+    and model (made here when not given). Returns {kernel: {path:
+    launches}} and the five lines' fields."""
+    from grappa_tpu_torch.models.grappa_model import make_model
+    t0 = time.perf_counter()
+    data_dir, splitpath, tools = data_tools_phase(work, smi)
+    t1 = time.perf_counter()
+    sweep_got, sweep = sweep_phase(torch, work, smi, data_dir, splitpath)
+    t2 = time.perf_counter()
+    parity = sweep_parity_phase(torch, work, smi)
+    t3 = time.perf_counter()
+    if eval_ds is None:
+        eval_ds = eval_tag_dataset(0)
+        eval_model = perturbed_model(torch, make_model, cfg, seed=9)
+    t4 = time.perf_counter()
+    plots_got, plots = eval_plots_phase(torch, cfg, smi, eval_ds, eval_model)
+    t5 = time.perf_counter()
+    minimizer = minimizer_phase(torch, smi)
+    t6 = time.perf_counter()
+    for line, a, b in ((tools, t0, t1), (sweep, t1, t2), (parity, t2, t3),
+                       (plots, t4, t5), (minimizer, t5, t6)):
+        line['phase_s'] = b - a
+    launches = {}
+    for name, (nf, nb) in sweep_got.items():
+        launches.setdefault(name, {})['sweep'] = nf
+        launches.setdefault(f'{name}.backward', {})['sweep'] = nb
+        launches[name]['eval_plots'] = plots_got[name]
+    lines = {'dataset_tools': tools, 'sweep': sweep, 'sweep_parity': parity,
+             'eval_plots': plots, 'minimizer': minimizer}
+    return launches, lines
+
+
+def report_failures() -> int:
+    """1 after naming each failed check on standard error (the tail a
+    caller that keeps only the end of the output sees), else 0."""
+    for what in FAILURES:
+        print(f'FAIL {what[:400]}', file=sys.stderr)
+    if FAILURES:
+        print(f'chip_smoke.py: {len(FAILURES)} check(s) failed',
+              file=sys.stderr)
+    return 1 if FAILURES else 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, 'grappa_tpu_torch')):
         print('chip_smoke.py: run it from a checkout of the repository '
@@ -4006,6 +4649,7 @@ def main() -> int:
     bf16_only = sys.argv[1:] == ['--bf16']
     gnn_calls_only = sys.argv[1:] == ['--gnn-calls']
     gmx_only = sys.argv[1:] == ['--gmx']
+    data_only = sys.argv[1:] == ['--data']
     sys.path.insert(0, ROOT)
     import torch
     if not torch.cuda.is_available():
@@ -4068,6 +4712,17 @@ def main() -> int:
         print('kernel_times ' + json.dumps(entries), flush=True)
         print('gmx ' + json.dumps(gmx_line), flush=True)
         return 1 if FAILURES else 0
+    if data_only:
+        import atexit
+        import shutil
+        from grappa_tpu_torch.models.grappa_model import (
+            get_default_model_config)
+        shutil.rmtree(work, ignore_errors=True)
+        atexit.register(shutil.rmtree, work, True)
+        _, lines = data_phase(torch, get_default_model_config(), work, smi)
+        for name, line in lines.items():
+            print(f'{name} ' + json.dumps(line), flush=True)
+        return report_failures()
     if trainrun_only:
         data_dir, made, _, test_batches = trainrun_data(torch, work)
         _, line = trainrun_phase(torch, work, data_dir, made, test_batches)
@@ -4223,15 +4878,16 @@ def main() -> int:
     gmx_launches, gmx_line = gmx_phase(torch, cfg, work, smi, gmx_fix)
     for name, per_path in gmx_launches.items():
         launches[name].update(per_path)
+    from grappa_tpu_torch.data.dataset import Dataset
+    data_launches, data_lines = data_phase(
+        torch, cfg, work, smi, Dataset.load(
+            os.path.join(work, 'cache', 'datasets', EVAL_TAGS[0])),
+        eval_fix[1])
+    for name, per_path in data_launches.items():
+        launches.setdefault(name, {}).update(per_path)
 
     if FAILURES:
-        # standard error's tail is what a caller that keeps only the end of
-        # the output sees: name each failed check there
-        for what in FAILURES:
-            print(f'FAIL {what[:400]}', file=sys.stderr)
-        print(f'chip_smoke.py: {len(FAILURES)} check(s) failed',
-              file=sys.stderr)
-        return 1
+        return report_failures()
 
     csrc, tpu = 'grappa_tpu_torch/csrc/', 'grappa_tpu/ops/'
     sources = {
@@ -4292,6 +4948,8 @@ def main() -> int:
     print('eval ' + json.dumps(eval_line))
     print('ingest ' + json.dumps(ingest_line))
     print('gmx ' + json.dumps(gmx_line))
+    for name, line in data_lines.items():
+        print(f'{name} ' + json.dumps(line))
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -4,10 +4,10 @@
 Counterpart of `grappa_tpu.cli` (the reference console scripts grappa_eval
 / grappa_export / grappa_gmx / grappa_train, reference:
 pyproject.toml:22-26): train, resume, resume-all, eval, export, gmx,
-release, import-ref and ingest-release. Every command that computes takes
-`--device` and runs on CUDA unless it names another (`--device cpu`).
-`dataset` needs the dataset-creation tools, which the port does not have
-yet (ROADMAP.md §1 item 7): `main` answers it as any unknown command.
+release, dataset, import-ref and ingest-release. Every command that
+computes takes `--device` and runs on CUDA unless it names another
+(`--device cpu`); `export`, `release` and `dataset` (numpy and files)
+compute nothing on a device.
 """
 from __future__ import annotations
 
@@ -126,7 +126,8 @@ def cmd_eval(argv):
     p.add_argument('--n-bootstrap', type=int, default=1000)
     p.add_argument('-o', '--output', default=None, help='results json path')
     p.add_argument('--plots', default=None, metavar='DIR',
-                   help='scatter plots (not ported yet: raises)')
+                   help='write parameter and prediction scatter plots '
+                        '(needs matplotlib)')
     p.add_argument('--no-write', action='store_true',
                    help="don't write results back into the model file")
     _device_arg(p)
@@ -290,6 +291,92 @@ def cmd_release(argv):
                       'release': args.release_tag}))
 
 
+def cmd_dataset(argv):
+    p = argparse.ArgumentParser(
+        prog='grappa_dataset',
+        description='Dataset-creation tools (reference dataset_creation/ '
+                    'counterparts): stamp charge-model features, convert '
+                    'MolData trees, build peptide datasets from PDB npz '
+                    'archives.')
+    sub = p.add_subparsers(dest='action', required=True)
+
+    pa = sub.add_parser('add-charge-model',
+                        help='stamp the charge-model one-hot onto a saved '
+                             'dataset directory (in place)')
+    pa.add_argument('-d', '--dataset-dir', required=True)
+    pa.add_argument('-c', '--charge-model', default=None,
+                    choices=[None, 'am1BCC', 'amber99'],
+                    help='default: infer from the directory name')
+    pa.add_argument('--keep-existing', action='store_true')
+
+    pm = sub.add_parser('from-moldata-dirs',
+                        help='folder/<mol>/moldata.npz tree (radical data '
+                             'layout) -> flat MolData npz dataset')
+    pm.add_argument('-s', '--source', required=True)
+    pm.add_argument('-t', '--target', required=True)
+    pm.add_argument('-c', '--charge-model', default='amber99')
+    pm.add_argument('--openmm-ff', default=None,
+                    help='recompute classical energies with this force '
+                         'field (e.g. amber99sbildn or amber99sbildn*)')
+    pm.add_argument('--skip', nargs='+', default=[])
+
+    ps = sub.add_parser('split-export',
+                        help='save the train/val/test partitions of a '
+                             'dataset collection as separate npz dirs for '
+                             'publication (reference split_datasets_for_'
+                             'publication.py)')
+    ps.add_argument('-d', '--dataset-dirs', nargs='+', required=True)
+    ps.add_argument('--split', required=True,
+                    help='split json ({train,val,test} -> mol ids)')
+    ps.add_argument('-t', '--target', required=True)
+    ps.add_argument('--pure-train', nargs='+', default=[])
+    ps.add_argument('--pure-val', nargs='+', default=[])
+    ps.add_argument('--pure-test', nargs='+', default=[])
+    ps.add_argument('--no-charge-model-stamp', action='store_true')
+
+    pp = sub.add_parser('from-pdb-npz',
+                        help='spice-style per-molecule npz files -> MolData '
+                             'dataset (openmm force-field typing)')
+    pp.add_argument('-s', '--source', required=True)
+    pp.add_argument('-t', '--target', required=True)
+    pp.add_argument('-f', '--forcefield', default='amber99sbildn*')
+    pp.add_argument('--skip-residues', nargs='+', default=[])
+    pp.add_argument('--no-params', action='store_true',
+                    help='store NaN classical parameters (param loss off)')
+
+    args = p.parse_args(argv)
+    from grappa_tpu_torch.data import dataset_creation as dc
+    if args.action == 'add-charge-model':
+        n = dc.add_charge_model_feature(args.dataset_dir, args.charge_model,
+                                        overwrite=not args.keep_existing)
+        print(json.dumps({'updated': n}))
+    elif args.action == 'from-moldata-dirs':
+        ff = None
+        if args.openmm_ff:
+            from grappa_tpu_torch.wrappers.star_forcefield import (
+                get_openmm_forcefield)
+            ff = get_openmm_forcefield(args.openmm_ff)
+        n = dc.moldata_dirs_to_dataset(
+            args.source, args.target, charge_model=args.charge_model,
+            openmm_forcefield=ff,
+            forcefield_name=(args.openmm_ff or 'openmm_ff').rstrip('*'),
+            skip=args.skip)
+        print(json.dumps({'written': n, 'target': args.target}))
+    elif args.action == 'split-export':
+        counts = dc.split_export(
+            args.dataset_dirs, args.split, args.target,
+            pure_train_dirs=args.pure_train, pure_val_dirs=args.pure_val,
+            pure_test_dirs=args.pure_test,
+            stamp_charge_model=not args.no_charge_model_stamp)
+        print(json.dumps({**counts, 'target': args.target}))
+    else:
+        stats = dc.peptide_dataset_from_pdb_npz(
+            args.source, args.target, forcefield=args.forcefield,
+            skip_residues=args.skip_residues,
+            with_params=not args.no_params)
+        print(json.dumps({**stats, 'target': args.target}))
+
+
 def _audit_checkpoint(path):
     """Key-for-key audit of a checkpoint file against the reference key
     contract, then the tolerant import. Returns (report, model, config)."""
@@ -431,6 +518,7 @@ COMMANDS = {
     'export': cmd_export,
     'gmx': cmd_gmx,
     'release': cmd_release,
+    'dataset': cmd_dataset,
     'import-ref': cmd_import_ref,
     'ingest-release': cmd_ingest_release,
 }

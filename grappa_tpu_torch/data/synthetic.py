@@ -6,12 +6,14 @@ rings, sp2-like improper centres), plausible classical parameters,
 conformers embedded in 3D, and ground-truth bonded energies / gradients
 from an independent float64 PyTorch implementation of the MM terms (the
 oracle the MM energy is tested against). The same seed gives the same
-arrays as the JAX package. The JAX package's jitted minimizer
-(`method='jax'`) is JAX itself and stays there; `minimize_geometry` is its
-default PyTorch path.
+arrays as the JAX package. `minimize_geometry` has the JAX package's two
+paths: 'torch' (the default, float64 on the CPU, step for step the JAX
+package's) and 'bucketed' (the JAX package's 'jax': a padded Adam loop,
+here on a torch device, CUDA by default).
 """
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -199,11 +201,29 @@ def embed_conformers(mol: Molecule, n_confs: int, seed: int = 0,
 
 
 def minimize_geometry(mol: Molecule, params: Parameters, xyz0: np.ndarray,
-                      n_steps: int = 300, lr: float = 5e-3) -> np.ndarray:
+                      n_steps: int = 300, lr: float = 5e-3,
+                      method: Optional[str] = None, device=None,
+                      dtype: torch.dtype = torch.float32) -> np.ndarray:
     """Relax one conformer (n_atoms, 3) to a local minimum of the given
-    parameters with Adam in float64, so synthetic conformers sample around
-    a true force-field minimum as MD / QM ensembles do. The JAX package's
-    default ('torch') path, step for step."""
+    parameters with Adam, so synthetic conformers sample around a true
+    force-field minimum as MD / QM ensembles do.
+
+    method: 'torch' (the default; float64 on the CPU, the JAX package's
+    default path step for step, which regenerating the committed datasets
+    byte for byte requires) or 'bucketed' ('jax', the JAX package's name
+    for it): atoms padded to a multiple of 8 and tuples to a multiple of
+    32, on `device` (CUDA unless the caller asks for another) in `dtype`
+    (float32, or float64 when asked). Same energy and Adam semantics on
+    another float path: an equivalent minimum, not a bit-identical one.
+    Unset, it is the GRAPPA_TPU_MINIMIZER environment variable's value.
+    `device` and `dtype` apply to 'bucketed' alone."""
+    method = method or os.environ.get('GRAPPA_TPU_MINIMIZER', 'torch')
+    if method in ('bucketed', 'jax'):
+        return _minimize_geometry_bucketed(mol, params, xyz0, n_steps, lr,
+                                           device, dtype)
+    if method != 'torch':
+        raise ValueError(f"minimize_geometry: method must be 'torch', "
+                         f"'bucketed' or 'jax', got {method!r}")
     x = torch.tensor(xyz0[None], dtype=torch.float64, requires_grad=True)
     opt = torch.optim.Adam([x], lr=lr)
     static = _torch_graph_static(mol, params)
@@ -213,6 +233,161 @@ def minimize_geometry(mol: Molecule, params: Parameters, xyz0: np.ndarray,
         energy.sum().backward()
         opt.step()
     return x.detach().numpy()[0].astype(np.float32)
+
+
+def _round_up(x: int, mult: int, minimum: int) -> int:
+    return max(minimum, ((x + mult - 1) // mult) * mult)
+
+
+def _bucketed_terms(mol: Molecule, params: Parameters, device,
+                    dtype: torch.dtype):
+    """The padded tuples and parameters of the bucketed minimizer, as the
+    JAX package pads them: tuples to a multiple of 32, the padded rows
+    indexing real, distinct atoms (0, 1, 2, 3: the geometry stays
+    non-degenerate and differentiable) with k = 0, NaN parameters as 0; a
+    torsion term without tuples or periodicities is left out."""
+    idx = mol.tuple_indices()
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+
+    def pad_term(arr, count_pad, fill_row):
+        out = np.tile(np.asarray(fill_row, np.int64), (count_pad, 1))
+        if len(arr):
+            out[:len(arr)] = arr
+        return torch.as_tensor(out, device=device)
+
+    def pad_param(a, count_pad, n_per=None):
+        shape = (count_pad,) if n_per is None else (count_pad, n_per)
+        out = np.zeros(shape, np_dtype)
+        if a is not None and len(a):
+            out[:len(a)] = np.nan_to_num(np.asarray(a, np_dtype))
+        return torch.as_tensor(out, device=device)
+
+    terms = {}
+    for term, k, eq, fill in (('n2', params.bond_k, params.bond_eq, [0, 1]),
+                              ('n3', params.angle_k, params.angle_eq,
+                               [0, 1, 2])):
+        t_pad = _round_up(len(idx[term]), 32, 32)
+        terms[term] = (pad_term(idx[term], t_pad, fill),
+                       pad_param(k, t_pad), pad_param(eq, t_pad))
+    for term, ks, phases in (
+            ('n4', params.proper_ks, params.proper_phases),
+            ('n4_improper', params.improper_ks, params.improper_phases)):
+        count = len(idx[term])
+        n_per = (np.asarray(ks).shape[1]
+                 if count and ks is not None and len(ks) else 0)
+        if n_per == 0:
+            continue
+        t_pad = _round_up(count, 32, 32)
+        terms[term] = (pad_term(idx[term], t_pad, [0, 1, 2, 3]),
+                       pad_param(ks, t_pad, n_per),
+                       pad_param(phases, t_pad, n_per))
+    return terms
+
+
+def _bucketed_energy(x: torch.Tensor, terms) -> torch.Tensor:
+    """The bonded energy of padded coordinates x (n_pad, 3): harmonic bonds
+    and angles, cos(n phi - phase) torsions (the JAX package's
+    `_jax_minimizer_fn` energy)."""
+    idx, k, eq = terms['n2']
+    p = x[idx]
+    r = torch.linalg.norm(p[:, 0] - p[:, 1], dim=-1)
+    e = (0.5 * k * (r - eq) ** 2).sum()
+    idx, k, eq = terms['n3']
+    p = x[idx]
+    u = p[:, 0] - p[:, 1]
+    v = p[:, 2] - p[:, 1]
+    cos = (u * v).sum(-1) / (torch.linalg.norm(u, dim=-1)
+                             * torch.linalg.norm(v, dim=-1))
+    theta = torch.arccos(cos.clamp(-1 + 1e-9, 1 - 1e-9))
+    e = e + (0.5 * k * (theta - eq) ** 2).sum()
+    for term in ('n4', 'n4_improper'):
+        if term not in terms:
+            continue
+        idx, ks, phs = terms[term]
+        pos = x[idx]
+        b1 = pos[:, 1] - pos[:, 0]
+        b2 = pos[:, 2] - pos[:, 1]
+        b3 = pos[:, 3] - pos[:, 2]
+        c1 = torch.cross(b1, b2, dim=-1)
+        c2 = torch.cross(b2, b3, dim=-1)
+        m1 = torch.cross(c1, b2 / torch.linalg.norm(b2, dim=-1,
+                                                    keepdim=True), dim=-1)
+        phi = torch.atan2((m1 * c2).sum(-1), (c1 * c2).sum(-1))
+        for n in range(1, ks.shape[1] + 1):
+            e = e + (ks[:, n - 1] * torch.cos(n * phi - phs[:, n - 1])).sum()
+    return e
+
+
+_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def _adam_step(x, m, v, t, terms, corrections, lr: float):
+    """One Adam step of the bucketed minimizer, in place: x -= lr mhat /
+    (sqrt(vhat) + eps) with the bias corrections of step t (a device
+    tensor, incremented here). Nothing reads a value back to the host, so
+    a CUDA graph can replay it."""
+    x.requires_grad_(True)
+    g, = torch.autograd.grad(_bucketed_energy(x, terms), x)
+    with torch.no_grad():
+        m.mul_(_ADAM_B1).add_(g, alpha=1 - _ADAM_B1)
+        v.mul_(_ADAM_B2).addcmul_(g, g, value=1 - _ADAM_B2)
+        bc1, bc2 = (torch.index_select(c, 0, t) for c in corrections)
+        x.sub_(lr * (m / bc1) / (torch.sqrt(v / bc2) + _ADAM_EPS))
+        t.add_(1)
+
+
+def _minimize_geometry_bucketed(mol: Molecule, params: Parameters,
+                                xyz0: np.ndarray, n_steps: int, lr: float,
+                                device, dtype: torch.dtype) -> np.ndarray:
+    """Adam on the padded energy with torch-Adam's update (bias-corrected
+    moments, eps outside the root), as the JAX package's
+    `_minimize_geometry_jax` runs it. Padded atoms sit at the origin, in no
+    tuple: their gradient is 0 and they do not move. On a card one step is
+    captured as a CUDA graph and replayed: a step is many small kernels,
+    whose launches from Python would pace the loop."""
+    from grappa_tpu_torch.utils import resolve_device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f'minimize_geometry: dtype must be float32 or '
+                         f'float64, got {dtype}')
+    device = resolve_device(device)
+    n = xyz0.shape[0]
+    terms = _bucketed_terms(mol, params, device, dtype)
+    x0 = torch.zeros((_round_up(n, 8, 8), 3), dtype=dtype, device=device)
+    x0[:n] = torch.as_tensor(np.asarray(xyz0), dtype=dtype, device=device)
+    steps = np.arange(1, n_steps + 1, dtype=np.float64)
+    corrections = [torch.as_tensor(1 - b ** steps, dtype=dtype, device=device)
+                   for b in (_ADAM_B1, _ADAM_B2)]
+    x = x0.clone()
+    m, v = torch.zeros_like(x), torch.zeros_like(x)
+    t = torch.zeros(1, dtype=torch.long, device=device)
+    state = (x, m, v, t, terms, corrections, lr)
+    if device.type != 'cuda' or n_steps < 2:
+        for _ in range(n_steps):
+            _adam_step(*state)
+        return x.detach()[:n].cpu().numpy().astype(np.float32)
+    # a capture needs one step run before it on a side stream; then the
+    # state starts over and the captured step replays n_steps times
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        _adam_step(*state)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad():
+        x.copy_(x0)
+        m.zero_()
+        v.zero_()
+        t.zero_()
+    with torch.cuda.graph(graph):
+        _adam_step(*state)
+    with torch.no_grad():
+        x.copy_(x0)
+        m.zero_()
+        v.zero_()
+        t.zero_()
+    for _ in range(n_steps):
+        graph.replay()
+    return x.detach()[:n].cpu().numpy().astype(np.float32)
 
 
 # ----------------------------------------------------------------------

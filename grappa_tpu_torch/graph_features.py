@@ -109,3 +109,28 @@ def ring_encoding(bonds: Sequence[Tuple[int, int]], n_atoms: int) -> np.ndarray:
                     enc[i, size - MIN_RING_SIZE + 1] = 1.0
     return enc
 
+
+def laplacian_positional_encoding(
+        bonds: Sequence[Tuple[int, int]], n_atoms: int, k: int = 5
+) -> np.ndarray:
+    """First k non-trivial eigenvectors of the normalized graph Laplacian as
+    per-atom positional features (n_atoms, k). Optional feature, off by
+    default — parity with the reference's unused laplacian PE
+    (reference: src/grappa/utils/dgl_utils.py:175-207)."""
+    adj = np.zeros((n_atoms, n_atoms), dtype=np.float64)
+    for a, b in bonds:
+        adj[a, b] = adj[b, a] = 1.0
+    deg = adj.sum(axis=1)
+    with np.errstate(divide='ignore'):
+        dinv = np.where(deg > 0, deg ** -0.5, 0.0)
+    lap = np.eye(n_atoms) - dinv[:, None] * adj * dinv[None, :]
+    eigvals, eigvecs = np.linalg.eigh(lap)
+    order = np.argsort(eigvals)
+    # drop the trivial (constant) eigenvector, take the next k
+    vecs = eigvecs[:, order[1:k + 1]]
+    if vecs.shape[1] < k:
+        vecs = np.pad(vecs, ((0, 0), (0, k - vecs.shape[1])))
+    # fix sign convention for determinism
+    signs = np.sign(vecs.sum(axis=0))
+    signs[signs == 0] = 1.0
+    return (vecs * signs).astype(np.float32)

@@ -311,12 +311,29 @@ def _compiled(fn, *args):
 
 def _jitter(params, key=42):
     """tests/test_model.py:246-255's jitter: the zero-initialised residual
-    branches carry signal, so a dtype change there shows."""
+    branches carry signal, so a dtype change there shows. Each leaf gets
+    0.05 x jax.random.normal(its key, its shape); the draws of one shape
+    are made in one vmapped call (the same bits as a call a leaf, for one
+    compile a shape instead of one a leaf) and added in numpy float32 (the
+    same rounding as JAX's eager add)."""
     leaves, treedef = jax.tree.flatten(params)
     keys = jax.random.split(jax.random.key(key), len(leaves))
+    groups = {}
+    for i, leaf in enumerate(leaves):
+        groups.setdefault((leaf.shape, np.dtype(leaf.dtype)), []).append(i)
+
+    def draw(keys):
+        out = [None] * len(leaves)
+        for (shape, dtype), idx in groups.items():
+            noise = jax.vmap(lambda k: jax.random.normal(k, shape, dtype))(
+                keys[np.asarray(idx)])
+            for j, i in enumerate(idx):
+                out[i] = noise[j]
+        return out
+
     return jax.tree.unflatten(treedef, [
-        leaf + 0.05 * jax.random.normal(k, leaf.shape, leaf.dtype)
-        for leaf, k in zip(leaves, keys)])
+        jnp.asarray(np.asarray(leaf) + leaf.dtype.type(0.05) * np.asarray(n))
+        for leaf, n in zip(leaves, jax.jit(draw)(keys))])
 
 
 class _Model:

@@ -216,15 +216,43 @@ def test_eval_refuses_a_set_without_a_split(release_cache):
 
 
 def test_main_answers_unknown_commands(capsys):
-    for cmd in ('dataset', 'no-such-command'):
-        assert cli.main([cmd]) == 2
-        assert 'available' in capsys.readouterr().out
+    assert cli.main(['no-such-command']) == 2
+    assert 'available' in capsys.readouterr().out
     assert cli.main([]) == 0
     assert 'ingest-release' in capsys.readouterr().out
     # gmx is a command now: without its required flags argparse exits 2
     with pytest.raises(SystemExit) as exc:
         cli.main(['gmx'])
     assert exc.value.code == 2 and 'gmx' in cli.COMMANDS
+
+
+def test_dataset_command(tmp_path, capsys):
+    """`dataset` is a command with the JAX package's four actions: each
+    without its required flags exits 2 from argparse, as the JAX package's
+    does; `add-charge-model` on a saved dataset answers as the JAX
+    package's (tests/test_torch_port_datatools.py holds every action
+    against it file for file)."""
+    assert 'dataset' in cli.COMMANDS
+    for argv in (['dataset'], ['dataset', 'add-charge-model'],
+                 ['dataset', 'from-moldata-dirs', '-s', 'x'],
+                 ['dataset', 'split-export', '-d', 'x'],
+                 ['dataset', 'from-pdb-npz', '-t', 'x'],
+                 ['dataset', 'no-such-action']):
+        for main in (jcli.main, cli.main):
+            with pytest.raises(SystemExit) as exc:
+                main(argv)
+            assert exc.value.code == 2, argv
+    capsys.readouterr()
+    outs = []
+    for name, main in (('jax', jcli.main), ('port', cli.main)):
+        path = tmp_path / name / 'AA_radical'
+        JaxDataset.from_moldata([make_moldata(seed=7, n_confs=2)],
+                                'syn').save(path)
+        assert main(['dataset', 'add-charge-model', '-d', str(path)]) == 0
+        outs.append(capsys.readouterr().out)
+        assert (path / 'mol_000000.npz').read_bytes() == (
+            tmp_path / 'jax' / 'AA_radical' / 'mol_000000.npz').read_bytes()
+    assert outs[0] == outs[1] == '{"updated": 1}\n'
 
 
 def _run_config(ds_dir):

@@ -144,14 +144,16 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     files = sorted((ROOT / 'grappa_tpu_torch').rglob('*.py'))
     files += [ROOT / 'chip_smoke.py', ROOT / 'sass_compare.py']
     assert len(files) > 20
-    # the training run's, the evaluation's and the command line's modules
-    # are among them
+    # the training run's, the evaluation's, the command line's and the
+    # data tools' and sweep's modules are among them
     port = ROOT / 'grappa_tpu_torch'
     for name in ('native.py', 'zoo.py', 'data/dataset.py', 'data/loader.py',
                  'train/config.py', 'train/logging.py', 'train/trainer.py',
                  'train/export.py', 'train/eval_model.py', 'train/run.py',
                  'cli.py', 'published.py', 'train/report.py',
-                 'train/torch_compat.py'):
+                 'train/torch_compat.py', 'espaloma_split.py',
+                 'data/dataset_creation.py', 'data/espaloma_pipeline.py',
+                 'train/sweep.py'):
         assert port / name in files, name
     banned = {'jax', 'jaxlib', 'flax', 'optax', 'grappa_tpu'}
     for path in files:

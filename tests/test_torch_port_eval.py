@@ -149,13 +149,125 @@ def test_report_and_parity_equal(data, models):
     assert tpublished.PARITY_RTOL == jpublished.PARITY_RTOL
 
 
+def _jax_plot_arrays(jm, jp, jds):
+    """What the JAX package's plotters draw, from its model: each
+    molecule's forward padded to multiples of 32 (its prediction plots'
+    padding, grappa_tpu/train/eval_model.py:211-226), the parameters
+    sliced out of it by its Parameters.from_prediction, the centred
+    energies and dE/dx."""
+    from grappa_tpu.data.graph_batch import PadSpec
+    from grappa_tpu.data.parameters import Parameters as JaxParameters
+    from grappa_tpu.models import mm_energy
+
+    @jax.jit
+    def step(p, b):
+        pred = jm.apply(p, b)
+        return pred, mm_energy.energy_and_gradient(b, pred)
+
+    out = {}
+    for entry, name in zip(jds.entries, jds.ds_names):
+        g = JaxMolGraph.from_moldata(entry)
+        c, n = entry.xyz.shape[:2]
+        batch = jax_collate([g], pad=PadSpec.for_graphs(
+            [g], c, node_mult=32, tuple_mult=32))
+        pred, (energy, gradient) = step(jp, batch)
+        mol = entry.molecule
+        counts = {'n2': len(mol.bonds), 'n3': len(mol.angles),
+                  'n4': len(mol.propers), 'n4_improper': len(mol.impropers)}
+        sliced = {k: np.asarray(v)[:counts['n4_improper' if k.startswith(
+            'n4_improper') else k.rsplit('_', 1)[0]]] for k, v in pred.items()}
+        e = np.asarray(energy)[0, :c]
+        d = out.setdefault(name, {'pred': [], 'e_pred': [], 'g_pred': []})
+        d['pred'].append(JaxParameters.from_prediction(
+            mol, sliced, check_eq_values=False))
+        d['e_pred'].append(e - e.mean())
+        d['g_pred'].append(np.asarray(gradient)[:n, :c].transpose(
+            1, 0, 2).ravel())
+    return out
+
+
+def _params_close(got, want):
+    """Predicted parameters at the predict tolerance (rtol 1e-4, atol 1e-5
+    in grappa units); torsion ks that the hard cutoff (|k| > 1e-4) zeroes
+    on one side only are left out."""
+    for key in ('bond_k', 'bond_eq', 'angle_k', 'angle_eq', 'proper_ks',
+                'proper_phases', 'improper_ks', 'improper_phases'):
+        a = np.asarray(getattr(got, key), np.float64)
+        b = np.asarray(getattr(want, key), np.float64)
+        assert a.shape == b.shape, key
+        keep = np.ones(a.shape, bool)
+        if key.endswith('ks'):
+            keep = (np.abs(a) > 2e-4) == (np.abs(b) > 2e-4)
+        elif key.endswith('phases'):
+            keep = ((np.abs(np.asarray(getattr(got, key[:-6] + 'ks')))
+                     > 2e-4) & (np.abs(np.asarray(getattr(
+                         want, key[:-6] + 'ks'))) > 2e-4))
+        np.testing.assert_allclose(a[keep], b[keep], rtol=1e-4, atol=1e-5,
+                                   err_msg=key)
+
+
 def test_plots_and_device(data, models, tmp_path, monkeypatch):
-    """plot_dir is not ported: it raises and names the roadmap item; the
-    default device is the card, never the CPU by itself."""
-    _, ds = data
-    _, model = models
-    with pytest.raises(NotImplementedError, match='item 7'):
-        teval.eval_model(model, ds, plot_dir=tmp_path, device='cpu')
+    """eval_model(plot_dir=...) writes the JAX package's plot files
+    (tests/test_orchestration.py:74-92) beside the same metrics; the
+    plots' device part (plot_arrays) gives the JAX model's parameters at
+    the predict tolerance and its centred energies and dE/dx at RTOL, with
+    the QM and classical references equal; without matplotlib the plots raise
+    an ImportError naming it before any work; the default device is the
+    card, never the CPU by itself."""
+    import sys
+    # two molecules of one dataset (3 and 4 conformers): the JAX forward
+    # compiles for each molecule, and each dataset's drawing takes seconds
+    keep = (0, 1)
+    jds, ds = ((type(d)([d.entries[i] for i in keep],
+                        [d.ds_names[i] for i in keep]) for d in data))
+    (jm, jp), model = models
+    want = jeval.eval_model(jm, jp, jds, n_bootstrap=N_BOOT,
+                            plot_dir=tmp_path / 'jax')
+    got = teval.eval_model(model, ds, n_bootstrap=N_BOOT,
+                           plot_dir=tmp_path / 'port', device='cpu')
+    _close(got['grappa_tpu'], want['grappa_tpu'])
+    names = sorted(p.name for p in (tmp_path / 'jax').iterdir())
+    assert len(names) == 5 and \
+        'spice-dipeptide_prediction_scatter.png' in names
+    assert sorted(p.name for p in (tmp_path / 'port').iterdir()) == names
+    assert [p.rsplit('/', 1)[1] for p in got['plots']] == \
+        [p.rsplit('/', 1)[1] for p in want['plots']]
+    assert all((tmp_path / 'port' / n).stat().st_size > 1000 for n in names)
+
+    arrays = teval.plot_arrays(model, ds, device='cpu')
+    jarrays = _jax_plot_arrays(jm, jp, jds)
+    assert list(arrays) == list(jarrays) == ['spice-dipeptide']
+    for name, d in arrays.items():
+        entries = [e for e, n in zip(jds.entries, jds.ds_names) if n == name]
+        assert sorted(d) == ['e_amber99', 'e_pred', 'e_qm', 'g_amber99',
+                             'g_pred', 'g_qm', 'pred', 'ref']
+        for got_p, want_p in zip(d['pred'], jarrays[name]['pred']):
+            _params_close(got_p, want_p)
+        for key in ('e_pred', 'g_pred'):
+            for a, b in zip(d[key], jarrays[name][key]):
+                assert a.dtype == np.float32 and a.shape == b.shape
+                np.testing.assert_allclose(a, b, rtol=RTOL,
+                                           atol=RTOL * np.abs(b).max())
+        for e, ref, e_qm, g_qm, e_ff in zip(entries, d['ref'], d['e_qm'],
+                                            d['g_qm'], d['e_amber99']):
+            np.testing.assert_array_equal(ref.bond_k,
+                                          e.classical_parameters.bond_k)
+            np.testing.assert_array_equal(
+                e_qm, e.energy_ref - e.energy_ref.mean())
+            np.testing.assert_array_equal(g_qm, e.gradient_ref.ravel())
+            fe = np.asarray(e.ff_energy['amber99'], np.float64)
+            nb = e.ff_nonbonded_energy.get('amber99')
+            if nb is not None:
+                fe = fe - np.asarray(nb, np.float64)
+            np.testing.assert_array_equal(e_ff, fe - fe.mean())
+
+    monkeypatch.setitem(sys.modules, 'matplotlib', None)
+    with pytest.raises(ImportError, match='matplotlib'):
+        teval.eval_model(model, ds, plot_dir=tmp_path / 'none',
+                         device='cpu')
+    assert not (tmp_path / 'none').exists()
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         teval.eval_model(model, ds)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        teval.plot_arrays(model, ds)
