@@ -11,6 +11,7 @@
     python3 chip_smoke.py --gmx            # phases 1 and 11 alone
     python3 chip_smoke.py --data           # phases 1 and 12 alone
     python3 chip_smoke.py --gnn-calls      # K1 / K1b bf16 a call, profile
+    python3 chip_smoke.py --parallel       # phases 1 and 13 alone
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit, the torch / CUDA versions;
@@ -235,16 +236,48 @@ Phases, each printing its own lines:
      within max(0.02 |E|, 0.5), ms a molecule, make_dataset(learnable)
      with each (`minimizer`). Every line carries the card's name and
      power limit.
+ 13. the multi-device layer (grappa_tpu_torch.parallel) on the one card:
+     (a) a mesh of one rank on NCCL: PAR_DP_STEPS data-parallel steps at
+     the 128 x 32 batch with the config's dropout equal make_train_step's
+     parameters bit for bit (deterministic algorithms on: index_add's
+     atomics would part them), 7 / 12 / 4 launches a step each way; (b)
+     PAR_RANKS gloo ranks, processes sharing the card: the DP step on PAR_RANKS
+     shares of that batch (64 x 32 each) against one process's mean of
+     the shares' gradients with the same dropout seeds (loss rtol
+     STEP_LOSS_RTOL, each gradient's relative L2 STEP_GRAD_RL2), every rank
+     holding the same mean, launches counted per rank; (c) a
+     Trainer(mesh=...) epoch of 5 batches (a trailing group of 1): 3
+     steps, finite losses, the same parameters on every rank; the
+     conformer-sharded energy of 8 x 32 against the unsharded one; (d) at
+     SP_ATOMS atoms x 4 conformers the atom-sharded forward, one train
+     step with dropout and SP_MD_STEPS NVE steps with the reference
+     parameters against the unsharded path (rank 0 runs it on the same
+     card) at the CPU tests' tolerances: the step's loss against the
+     float64 loss of the same prediction (rtol SP_LOSS_RTOL); with that
+     loss in float64, each all-reduced gradient of the sharded forward
+     and backward against one process's on the whole batch (relative L2
+     STEP_GRAD_RL2; at this size float32 resolves the loss only to ~1e-3
+     and a float32 step's gradients carry it, PERF.md §6); the updated
+     parameters against the unsharded step's; (e) K1m / K2m with a shard's rows
+     against the unsharded dump's rows bit for bit, K1 / K1b and K2 / K2b
+     with the row offset against their plain versions on those rows. The
+     `parallel` line: step ms, all-reduce ms (and MB) and peak memory for
+     the one-rank mesh and for each gloo rank, the atom-sharded forward,
+     step and MD ms, with the card's name and power limit; two ranks on
+     one card show the arithmetic and the collectives' placement, not a
+     multi-card speed.
 
 The `trainrun {...}`, `trainrun_bf16 {...}`, `eval {...}`, `ingest
-{...}`, `gmx {...}` and phase 12's five lines come before
+{...}`, `gmx {...}`, phase 12's five lines and `parallel {...}` come
+before
 the last three lines, which are a
 JSON object describing the kernels, the card's name and power limit, and
 {"ok": true, "device": {...}}. In the kernels'
 line, `launches` sums the main paths (the two predict paths and the ten
 training steps, phase 8's training run and phase 9's eval and ingest
-paths, phase 11's gmx path and phase 12's sweep and plots for K1-K3 and
-the sweep for K1b-K3b; phase 6's four paths for K5 and K5b;
+paths, phase 11's gmx path, phase 12's sweep and plots and phase 13's
+steps and atom-sharded paths (`parallel`, the ranks' summed) for K1-K3
+and the sweep and phase 13 for K1b-K3b; phase 6's four paths for K5 and K5b;
 `launches_per_path` gives each), and `ms`, `plain_ms`, `bound_ms`,
 `gflop` and `mbytes` sum one call at each shape of each path; K1-K3 and
 K1b-K3b also give `bound_tc_ms` (3 x their FLOPs at the 495 TFLOP/s TF32
@@ -434,6 +467,20 @@ SWEEP_PARITY_SPEC = {'lit_model_config.lr': ('log_uniform', 1e-5, 2e-5),
 # the minimiser: make_dataset(learnable=True, seed=MIN_SEED) of MIN_MOLS
 # molecules of tests/test_energy.py:138-171's elements and sizes
 MIN_MOLS, MIN_SEED = 16, 977
+# phase 13: the multi-device layer on the one card. (a) a mesh of one rank
+# (NCCL), PAR_DP_STEPS DP steps against make_train_step; (b)-(d) PAR_RANKS
+# gloo ranks sharing the card: the DP step on PAR_RANKS shares of the 128 x
+# 32 batch, a Trainer(mesh=...) epoch over PAR_TRAINER_MOLS molecules in
+# batches of 2 (5 batches: a trailing group), the atom-sharded forward,
+# step and SP_MD_STEPS NVE steps at SP_ATOMS atoms, at the CPU tests'
+# tolerances (tests/test_torch_port_parallel.py); a collective that waits
+# PAR_TIMEOUT_S fails its rank, and the ranks are killed after PAR_JOIN_S
+PAR_RANKS, PAR_DP_STEPS, PAR_SEED = 2, 3, 21
+PAR_TRAINER_MOLS, PAR_TRAINER_CONFS = 10, 4
+PAR_TIMEOUT_S, PAR_JOIN_S = 300, 600
+SP_ATOMS, SP_MD_STEPS, SP_MD_DT = 12000, 10, 0.2
+SP_E_TOL, SP_G_TOL, SP_LOSS_RTOL, SP_PARAM_TOL, SP_MD_TOL = (
+    2e-4, 2e-3, 1e-3, 5e-3, 2e-4)
 REF_FIELDS = {'n2_k': ('n2', 'k_ref'), 'n2_eq': ('n2', 'eq_ref'),
               'n3_k': ('n3', 'k_ref'), 'n3_eq': ('n3', 'eq_ref'),
               'n4_k': ('n4', 'k_ref'),
@@ -2703,7 +2750,7 @@ def plain_gnn_blocks():
     fused = gnn.fused_gnn_block
 
     def plain(feat, nbr, hn, mask, params, n_heads, rate, training, seed,
-              mm_dtype):
+              mm_dtype, rows=None):
         assert rate == 0.0 or not training
         return reference_gnn_block(feat, nbr, hn, mask, params, n_heads,
                                    None, mm_dtype)
@@ -4625,6 +4672,590 @@ def data_phase(torch, cfg, work, smi, eval_ds=None, eval_model=None):
     return launches, lines
 
 
+# ---------------------------------------------------------------- phase 13
+def parallel_model(torch, cfg, device='cuda'):
+    """phase 13's weights: perturbed_model's seed 0, on `device`."""
+    from grappa_tpu_torch.models.grappa_model import make_model
+    return perturbed_model(torch, make_model, cfg).to(device)
+
+
+class CaptureAdam:
+    """AdamClip that keeps a copy of the gradients its step is given (the
+    ranks' mean, in a data-parallel step)."""
+
+    def __init__(self, opt):
+        self.opt, self.seen = opt, None
+
+    def step(self, params, grads, lr):
+        if self.seen is None:
+            self.seen = [g.detach().clone() for g in grads]
+        self.opt.step(params, grads, lr)
+
+
+def cuda_ms(torch, fn):
+    """(fn()'s result, its ms by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def counted(torch, fn):
+    """(fn()'s result, {op: (float32 fwd, bf16 fwd, float32 bwd, bf16
+    bwd) launches}) with the counts zeroed just before fn and read just
+    after it."""
+    counters = bf16_counters()
+    zero_counts(counters)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(counters)
+
+
+def max_rel(a, b):
+    """max |a - b| / max |b|."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def params_close(model, want, rtol, atol):
+    """Whether every parameter of `model` lies within atol + rtol |want|
+    of the same-named one of `want`; the worst max |diff|."""
+    worst, ok = 0.0, True
+    for (name, p), q in zip(model.named_parameters(), want.parameters()):
+        err = (p.detach() - q.detach()).abs()
+        ok &= bool((err <= atol + rtol * q.detach().abs()).all())
+        worst = max(worst, float(err.max()))
+    return ok, worst
+
+
+def dp_sub_batches(torch, graphs, world, rank):
+    """Rank `rank`'s share of the 128 x 32 training batch: molecules
+    rank * 128 / W .. (rank + 1) * 128 / W - 1, bucketed padding."""
+    from grappa_tpu_torch.data.graph_batch import collate
+    from grappa_tpu_torch.data.loader import bucketed_pad_spec
+    per = len(graphs) // world
+    mine = graphs[rank * per:(rank + 1) * per]
+    return collate(mine, bucketed_pad_spec(mine, TRAIN_CONFS), TRAIN_CONFS,
+                   device='cuda')
+
+
+def parallel_rank(rank, world, work):
+    """One of phase 13's gloo ranks, all on the one card: (b) the DP step
+    on its share of the 128 x 32 batch, (c) a Trainer(mesh=...) epoch
+    with a trailing group and the conformer-sharded energy, (d) the
+    atom-sharded forward, train step and NVE at 12,000 atoms; rank 0
+    also runs (d)'s unsharded references. Writes its numbers and checks
+    to rank<r>.json (rank 0 the DP step's mean gradients to dp.pt)."""
+    sys.path.insert(0, ROOT)
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from grappa_tpu_torch import md
+    from grappa_tpu_torch.data.dataset import Dataset
+    from grappa_tpu_torch.data.graph_batch import MolGraph, collate
+    from grappa_tpu_torch.data.loader import GraphLoader
+    from grappa_tpu_torch.data.synthetic import make_dataset, make_moldata
+    from grappa_tpu_torch.models.grappa_model import get_default_model_config
+    from grappa_tpu_torch.parallel import dp, sp
+    from grappa_tpu_torch.train.trainer import (Trainer, make_eval_step,
+                                                make_optimizer,
+                                                make_train_step)
+    cfg = get_default_model_config()
+    mesh = dp.make_mesh(world, device='cuda:0',
+                        init_method=f'file://{work}/store', rank=rank,
+                        world_size=world, timeout_s=PAR_TIMEOUT_S)
+    res = {'rank': rank, 'backend': mesh.backend, 'launches': {}}
+    gib = lambda: torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def tally(counts):
+        for name, c in counts.items():
+            res['launches'][name] = res['launches'].get(name, 0) + c[0]
+            res['launches'][f'{name}.backward'] = res['launches'].get(
+                f'{name}.backward', 0) + c[2]
+
+    # (b) the DP step on rank's 64 of the 128 molecules x 32 conformers
+    graphs = training_batches(torch)
+    batch = dp_sub_batches(torch, graphs, world, rank)
+    model = parallel_model(torch, cfg)
+    opt = CaptureAdam(make_optimizer())
+    step = dp.make_dp_train_step(model, opt, mesh)
+    w = loss_weights(torch, batch.num_mols, 'cuda')
+    gen = torch.Generator().manual_seed(PAR_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    ((loss, aux), ms), counts = counted(torch, lambda: cuda_ms(
+        torch, lambda: step(batch, w, TRAIN_LR, gen)))
+    tally(counts)
+    res['dp_first_step_ms'] = ms
+    res['dp_counts'] = counts
+    times = [cuda_ms(torch, lambda: step(batch, w, TRAIN_LR, gen))[1]
+             for _ in range(PAR_DP_STEPS)]
+    res['dp_step_ms'] = float(np.median(times))
+    res['dp_step_ms_all'] = times
+    ar = [cuda_ms(torch, lambda: dp.mean_over_ranks(opt.seen, mesh))[1]
+          for _ in range(3)]
+    res['all_reduce_ms'] = float(np.median(ar))
+    res['all_reduce_mb'] = 4 * sum(g.numel() for g in opt.seen) / 1e6
+    res['dp_peak_gib'] = gib()
+    res['dp_loss'] = float(loss)
+    # every rank holds the same mean gradients and parameters
+    norms = torch.stack([g.double().norm() for g in opt.seen]
+                        + [p.detach().double().norm()
+                           for p in model.parameters()]).float()
+    allnorms = mesh.all_gather(norms[None])
+    res['dp_ranks_equal'] = bool((allnorms == allnorms[0]).all())
+    if rank == 0:
+        torch.save({'loss': float(loss),
+                    'aux': {k: v.cpu() for k, v in aux.items()},
+                    'grads': [g.cpu() for g in opt.seen]},
+                   os.path.join(work, 'dp.pt'))
+    del model, opt, step, batch
+
+    # (c) a Trainer(mesh=...) epoch: 5 batches of 2 over 2 ranks, the
+    # last group a trailing one; the conformer-sharded energy
+    ds = Dataset.from_moldata(make_dataset(n_mols=PAR_TRAINER_MOLS,
+                                           n_confs=PAR_TRAINER_CONFS,
+                                           seed=PAR_SEED), 'syn')
+    loader = GraphLoader(ds, batch_size=2, conf_strategy=PAR_TRAINER_CONFS,
+                         shuffle=True, drop_last=True, seed=0,
+                         device='cuda')
+    model = parallel_model(torch, cfg)
+    trainer = Trainer(model, loader, None,
+                      {'lr': TRAIN_LR, 'start_qm_epochs': 0,
+                       'warmup_steps': 2, 'patience': 0},
+                      {'max_epochs': 1}, out_dir=None, mesh=mesh)
+    (mean_loss, ms), counts = counted(torch, lambda: cuda_ms(
+        torch, trainer.train_epoch))
+    tally(counts)
+    res['trainer'] = dict(losses=trainer.train_losses[0],
+                          steps=trainer.global_step, epoch_ms=ms,
+                          counts=counts)
+    sums = torch.stack([p.detach().double().sum()
+                        for p in model.parameters()]).float()
+    allsums = mesh.all_gather(sums[None])
+    res['trainer']['ranks_equal'] = bool((allsums == allsums[0]).all())
+    conf_batch = collate(graphs[:8], n_confs=TRAIN_CONFS, device='cuda')
+    model.eval()
+    with torch.no_grad():
+        pred = model(conf_batch)
+    e, g = dp.make_conf_sharded_energy_fn(mesh)(conf_batch, pred)
+    from grappa_tpu_torch.models import mm_energy
+    e_ref, g_ref = mm_energy.energy_and_gradient(conf_batch, pred)
+    res['conf'] = dict(
+        energy_ok=bool(((e - e_ref).abs() <= MODEL_ATOL
+                        + MODEL_RTOL * e_ref.abs()).all()),
+        energy_err=float((e - e_ref).abs().max()),
+        grad_rel=max_rel(g, g_ref))
+    del model, trainer, loader, conf_batch
+    torch.cuda.empty_cache()
+
+    # (d) atom-sharded: 12,000 atoms x 4 conformers
+    mdata = make_moldata(seed=0, n_confs=FUSION_CONFS, n_atoms=SP_ATOMS)
+    graph = MolGraph.from_moldata(mdata)
+    whole = collate([graph], pad=sp.atom_sharded_pad_spec(
+        [graph], FUSION_CONFS, mesh), device='cuda')
+    sharded = sp.shard_batch_by_atoms(whole, mesh)
+    model = parallel_model(torch, cfg)
+    fwd = sp.make_atom_sharded_forward(model, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    ((energy, grad), ms), counts = counted(torch, lambda: cuda_ms(
+        torch, lambda: fwd(sharded)))
+    tally(counts)
+    res['sp_forward'] = dict(ms=ms, counts=counts, warm_ms=cuda_ms(
+        torch, lambda: fwd(sharded))[1])
+    grad_all = mesh.all_gather(grad)
+    sp_model = parallel_model(torch, cfg)
+    sp_opt = CaptureAdam(make_optimizer())
+    sp_step = sp.make_atom_sharded_train_step(sp_model, sp_opt, mesh)
+    wts = loss_weights(torch, 1, 'cuda')
+    ((sp_loss, sp_aux), ms), counts = counted(torch, lambda: cuda_ms(
+        torch, lambda: sp_step(sharded, wts, TRAIN_LR,
+                               torch.Generator().manual_seed(PAR_SEED))))
+    tally(counts)
+    res['sp_step'] = dict(ms=ms, counts=counts, loss=float(sp_loss),
+                          peak_gib=gib())
+    params = ref_params(torch, sharded)
+    masses = md.masses_from_molecules([mdata.molecule],
+                                      whole.xyz.shape[0], device='cuda')
+    traj, ms = cuda_ms(torch, lambda: md.simulate(
+        sharded, params, masses, dt_fs=SP_MD_DT, n_steps=SP_MD_STEPS))
+    res['sp_md'] = dict(ms_a_step=ms / SP_MD_STEPS)
+    xyz_all = mesh.all_gather(traj['xyz'])
+    # the sharded gradients of the first step's loss in float64 (every
+    # rank: the forward's and backward's collectives), the ranks' mean
+    loss64_sh, grads64_sh = float64_loss_gradients(torch, cfg, sharded, wts)
+    grads64_sh = dp.mean_over_ranks(grads64_sh, mesh)
+    if rank == 0:
+        # the unsharded path on the same card, the others waiting
+        e_ref, g_ref = make_eval_step(model)(whole)
+        ref_model = parallel_model(torch, cfg)
+        ref_opt = CaptureAdam(make_optimizer())
+        ref_loss, _ = make_train_step(ref_model, ref_opt)(
+            whole, wts, TRAIN_LR, torch.Generator().manual_seed(PAR_SEED))
+        md_ref = md.simulate(whole, ref_params(torch, whole), masses,
+                             dt_fs=SP_MD_DT, n_steps=SP_MD_STEPS)
+        loss64, grads64 = float64_loss_gradients(torch, cfg, whole, wts)
+        names = [n for n, _ in sp_model.named_parameters()]
+        rl2 = lambda a, b: float((a.double() - b.double()).norm()) / max(
+            float(b.double().norm()), 1e-30)
+        sharded_rl2 = [rl2(a, b) for a, b in zip(grads64_sh, grads64)]
+        step_rl2 = [rl2(a, b) for a, b in zip(sp_opt.seen, grads64)]
+        ref_rl2 = [rl2(a, b) for a, b in zip(ref_opt.seen, grads64)]
+        worst = int(np.argmax(sharded_rl2))
+        flat = lambda gs: torch.cat([g.reshape(-1).double() for g in gs])
+        p_ok, p_err = params_close(sp_model, ref_model, SP_PARAM_TOL,
+                                   SP_PARAM_TOL)
+        res['sp_ref'] = dict(
+            energy_ok=bool(((energy - e_ref).abs() <= SP_E_TOL
+                            + SP_E_TOL * e_ref.abs()).all()),
+            energy_err=float((energy - e_ref).abs().max()),
+            grad_ok=bool(((grad_all - g_ref).abs() <= SP_G_TOL
+                          + SP_G_TOL * g_ref.abs()).all()),
+            grad_err=float((grad_all - g_ref).abs().max()),
+            loss=float(ref_loss), loss64=loss64, loss64_sh=loss64_sh,
+            grad_rl2=sharded_rl2[worst], grad_worst=names[worst],
+            grad_n=len(names),
+            grad_rl2_all=rl2(flat(grads64_sh), flat(grads64)),
+            step_grad_rl2=max(step_rl2),
+            step_grad_rl2_all=rl2(flat(sp_opt.seen), flat(grads64)),
+            step_grad_over=int(sum(x > STEP_GRAD_RL2 for x in step_rl2)),
+            ref_grad_rl2=max(ref_rl2),
+            ref_grad_rl2_all=rl2(flat(ref_opt.seen), flat(grads64)),
+            ref_grad_over=int(sum(x > STEP_GRAD_RL2 for x in ref_rl2)),
+            loss_rel=abs(float(sp_loss) - float(ref_loss))
+            / abs(float(ref_loss)),
+            gradient_mse=float(sp_aux['gradient_mse'][0]),
+            params_ok=p_ok, params_err=p_err,
+            md_ok=bool(((traj['potential'] - md_ref['potential']).abs()
+                        <= SP_MD_TOL + SP_MD_TOL
+                        * md_ref['potential'].abs()).all()
+                       and ((xyz_all - md_ref['xyz']).abs() <= SP_MD_TOL
+                            + SP_MD_TOL * md_ref['xyz'].abs()).all()),
+            md_potential_err=float((traj['potential']
+                                    - md_ref['potential']).abs().max()),
+            md_xyz_err=float((xyz_all - md_ref['xyz']).abs().max()))
+    mesh.barrier()
+    res['peak_gib'] = gib()
+    with open(os.path.join(work, f'rank{rank}.json'), 'w') as f:
+        json.dump(res, f)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+def float64_loss_gradients(torch, cfg, batch, weights):
+    """The loss of the first step's prediction (phase 13's weights, the
+    training-mode forward with PAR_SEED's dropout seeds) in float64 from
+    the float32 parameters on, and its gradients (float32, the model's
+    backward as in a step): a step's gradients with the loss resolved
+    past float32 (the centred energies of a molecule whose total is ~1e7
+    carry a few units of rounding). On a rank's shard every rank calls it
+    and the gradients are the rank's part."""
+    from grappa_tpu_torch.train.loss import LossWeights, molwise_loss
+    model = parallel_model(torch, cfg).train()
+    pred = model(batch, torch.Generator().manual_seed(PAR_SEED))
+    up = lambda t: t.double() if t.is_floating_point() else t
+    loss, _ = molwise_loss(batch._map(up), {k: v.double()
+                                            for k, v in pred.items()},
+                           LossWeights(*(up(torch.as_tensor(x, device='cuda'))
+                                         for x in weights)))
+    params = list(model.parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return float(loss), [torch.zeros_like(p) if g is None else g.float()
+                         for p, g in zip(params, grads)]
+
+
+def offset_kernel_checks(torch):
+    """13(e): K1m / K2m with a shard's rows against the unsharded dump's
+    rows, bit for bit, and K1 / K1b, K2 / K2b with the row offset against
+    their plain versions on the unsharded masks' rows, at the halves of
+    the 128 x 32 batch's nodes (N 3376) and n4 tuples (S 4, T 8256)."""
+    from grappa_tpu_torch.ops import fused_block as fb
+    from grappa_tpu_torch.ops import fused_gnn as fg
+    from grappa_tpu_torch.ops import philox
+    gen = torch.Generator().manual_seed(77)
+    f, heads, hid, d = 512, 16, 2048, 8
+    for op, full_shape, rate, seed in ((fg, (3376, f), 0.3, 17),
+                                       (fb, (4, 8256, f), 0.5, 101)):
+        total = full_shape[-2]
+        first, n = total // 2, total // 2
+        shape = (*full_shape[:-2], n, f)
+        want = op.dropout_masks(seed, full_shape, rate, device='cuda')
+        got = op.dropout_masks(seed, shape, rate, device='cuda',
+                               rows=(first, total))
+        same = all(torch.equal(a, b[..., first:first + n, :])
+                   for a, b in zip(got, want))
+        check(same, f'(e) {op.__name__.split(".")[-1]}.dropout_masks rows '
+                    f'{first}..{total - 1} of {total}, shape {shape}: '
+                    f'bit-equal to the unsharded dump\'s rows')
+        masks = [m[..., first:first + n, :] for m in want]
+        if op is fg:
+            mask = (torch.rand((d, n), generator=gen) < 0.8).float()
+            mask[0] = 1.0
+            mask = mask.cuda()
+            p1 = rand_params(torch, gen, [
+                ((f, f), 'w'), ((f,), 'b'), ((f,), 'g'), ((f,), 'b'),
+                ((hid, f), 'w'), ((hid,), 'b'), ((f, hid), 'w'),
+                ((f,), 'b')])
+            inputs = [torch.randn((n, f), generator=gen).cuda(),
+                      torch.randn((d, n, f), generator=gen).cuda(),
+                      torch.randn((n, f), generator=gen).cuda(), *p1]
+            kernel = lambda a, b, c, *q: fg.fused_gnn_block(
+                a, b, c, mask, q, heads, rate, True, seed,
+                rows=(first, total))
+            plain = lambda a, b, c, *q: fg.reference_gnn_block(
+                a, b, c, mask, q, heads, masks)
+            name, dy = 'fused_gnn_block', torch.randn(
+                (n, f), generator=gen).cuda()
+        else:
+            p2 = rand_params(torch, gen, [
+                ((f,), 'g'), ((f,), 'b'), ((3 * f, f), 'w'),
+                ((3 * f,), 'b'), ((f, f), 'w'), ((f,), 'b'), ((f,), 'g'),
+                ((f,), 'b'), ((f, f), 'w'), ((f,), 'b'), ((f, f), 'w'),
+                ((f,), 'b')])
+            inputs = [torch.randn(shape, generator=gen).cuda(), *p2]
+            kernel = lambda a, *q: fb.fused_transformer_block(
+                a, q, 8, rate, True, seed, rows=(first, total))
+            plain = lambda a, *q: fb.reference_block(a, q, 8, masks)
+            name, dy = 'fused_transformer_block', torch.randn(
+                shape, generator=gen).cuda()
+        label = f'rows {first}..{total - 1} of {total}, dropout {rate}'
+        compare_out(torch, {}, name, label, lambda: kernel(*inputs),
+                    lambda: plain(*inputs), 0.0, 0.0, on_path=False)
+        compare_grad(torch, {}, f'{name}.backward', label, kernel, plain,
+                     inputs, dy, 0.0, 0.0, record=False)
+
+
+def parallel_phase(torch, smi):
+    """Phase 13 (module doc). Returns ({kernel name: launches on phase
+    13's paths}, the `parallel` line)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from grappa_tpu_torch.models.grappa_model import get_default_model_config
+    from grappa_tpu_torch.ops import philox
+    from grappa_tpu_torch.parallel import dp
+    from grappa_tpu_torch.train.trainer import (loss_gradients,
+                                                make_optimizer,
+                                                make_train_step)
+    phase('13. the multi-device layer on the one card')
+    torch.cuda.empty_cache()     # the ranks share the card with this process
+    cfg = get_default_model_config()
+    line = {'card': smi}
+    launches = {}
+
+    # (a) a mesh of one rank on NCCL: 3 DP steps = make_train_step's
+    graphs = training_batches(torch)
+    batch = dp_sub_batches(torch, graphs, 1, 0)
+    w = loss_weights(torch, batch.num_mols, 'cuda')
+    mesh = dp.make_mesh(1)
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        a, b = parallel_model(torch, cfg), parallel_model(torch, cfg)
+        sa = make_train_step(a, make_optimizer())
+        sb = dp.make_dp_train_step(b, make_optimizer(), mesh)
+        ga = torch.Generator().manual_seed(PAR_SEED)
+        gb = torch.Generator().manual_seed(PAR_SEED)
+        ms_a, ms_b, same_loss = [], [], True
+        for _ in range(PAR_DP_STEPS):
+            (la, _), t = cuda_ms(torch, lambda: sa(batch, w, TRAIN_LR, ga))
+            ms_a.append(t)
+            ((lb, _), t), counts = counted(torch, lambda: cuda_ms(
+                torch, lambda: sb(batch, w, TRAIN_LR, gb)))
+            ms_b.append(t)
+            same_loss &= torch.equal(la, lb)
+            for name, c in counts.items():
+                launches[name] = launches.get(name, 0) + c[0]
+                launches[f'{name}.backward'] = launches.get(
+                    f'{name}.backward', 0) + c[2]
+        same = all(torch.equal(p, q) for p, q in zip(a.parameters(),
+                                                      b.parameters()))
+        worst = max(float((p - q).detach().abs().max())
+                    for p, q in zip(a.parameters(), b.parameters()))
+        flat = torch.cat([p.detach().reshape(-1) for p in b.parameters()])
+        ar = [cuda_ms(torch, lambda: mesh.all_reduce_(flat))[1]
+              for _ in range(3)]
+        check(mesh.backend == 'nccl' and same and same_loss,
+              f'(a) world size 1 on {mesh.backend}: {PAR_DP_STEPS} DP steps '
+              f'at 128 x 32 with dropout equal make_train_step\'s, losses '
+              f'{same_loss}, parameters bit for bit {same} (max |diff| '
+              f'{worst:.3e}; deterministic algorithms on)')
+        want = want_counts(False, False, PAR_DP_STEPS, PAR_DP_STEPS)
+        check(all(launches[n] == want[n][0]
+                  and launches[f'{n}.backward'] == want[n][2]
+                  for n in want),
+              f'(a) launches of the {PAR_DP_STEPS} DP steps {launches}')
+        line['nccl_world_1'] = dict(
+            step_ms=float(np.median(ms_b)), make_train_step_ms=float(
+                np.median(ms_a)), all_reduce_ms=float(np.median(ar)),
+            all_reduce_mb=flat.numel() * 4 / 1e6,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del a, b, sa, sb, flat
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (b)-(d): two gloo ranks sharing the card
+    os.makedirs(os.path.join(ROOT, 'runs'), exist_ok=True)
+    work = tempfile.mkdtemp(prefix='parallel_', dir=os.path.join(
+        ROOT, 'runs'))
+    t0 = time.time()
+    try:
+        ctx = mp.start_processes(parallel_rank, args=(PAR_RANKS, work),
+                                 nprocs=PAR_RANKS, join=False,
+                                 start_method='spawn')
+        deadline = time.time() + PAR_JOIN_S
+        try:
+            while not ctx.join(timeout=2):
+                if time.time() > deadline:
+                    raise TimeoutError(f'the ranks ran past {PAR_JOIN_S} s')
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = []
+        for r in range(PAR_RANKS):
+            with open(os.path.join(work, f'rank{r}.json')) as f:
+                ranks.append(json.load(f))
+        dp_out = torch.load(os.path.join(work, 'dp.pt'), weights_only=False)
+    except Exception as exc:
+        check(False, f'(b)-(d) the gloo ranks: {type(exc).__name__}: {exc}')
+        shutil.rmtree(work, ignore_errors=True)
+        return launches, line
+    shutil.rmtree(work, ignore_errors=True)
+    wall = time.time() - t0
+
+    # (b) against one process's mean of the sub-batches' gradients
+    losses, grads = [], None
+    for r in range(PAR_RANKS):
+        model = parallel_model(torch, cfg)
+        sub = dp_sub_batches(torch, graphs, PAR_RANKS, r)
+        loss, _, g = loss_gradients(
+            model, sub, loss_weights(torch, sub.num_mols, 'cuda'),
+            philox.RankSeeds(torch.Generator().manual_seed(PAR_SEED), r,
+                             PAR_RANKS))
+        losses.append(float(loss))
+        g = [t.float() for t in g.values()]
+        grads = g if grads is None else [x + y for x, y in zip(grads, g)]
+        del model, sub
+    want_loss = float(np.mean(losses))
+    rel = [float((a.cuda() - b / PAR_RANKS).norm()
+                 / max(float((b / PAR_RANKS).norm()), 1e-30))
+           for a, b in zip(dp_out['grads'], grads)]
+    loss_rel = abs(dp_out['loss'] - want_loss) / abs(want_loss)
+    check(loss_rel <= STEP_LOSS_RTOL and max(rel) <= STEP_GRAD_RL2
+          and all(r['dp_ranks_equal'] for r in ranks),
+          f'(b) {PAR_RANKS} gloo ranks on one card ({ranks[0]["backend"]}): '
+          f'the DP step on {PAR_RANKS} x {TRAIN_MOLS // PAR_RANKS} x '
+          f'{TRAIN_CONFS} against one process\'s mean of the sub-batches\' '
+          f'gradients (same dropout seeds): loss rel {loss_rel:.3e} (tol '
+          f'{STEP_LOSS_RTOL}), worst gradient relative L2 {max(rel):.3e} '
+          f'(tol {STEP_GRAD_RL2}); every rank the same mean and parameters '
+          f'{all(r["dp_ranks_equal"] for r in ranks)}')
+    want1 = want_counts(False, False, 1, 1)
+    for r in ranks:
+        check(all(tuple(r['dp_counts'][n]) == want1[n] for n in want1),
+              f'(b) rank {r["rank"]}: launches of its DP step '
+              f'{r["dp_counts"]}')
+        t = r['trainer']
+        check(t['steps'] == 3 and all(np.isfinite(t['losses']))
+              and t['ranks_equal'],
+              f'(c) rank {r["rank"]}: Trainer(mesh=...) epoch of 5 batches: '
+              f'{t["steps"]} steps (the last a trailing group of 1), losses '
+              f'{t["losses"]}, parameters equal on every rank '
+              f'{t["ranks_equal"]}')
+        c = r['conf']
+        check(c['energy_ok'] and c['grad_rel'] <= FORCE_RTOL,
+              f'(c) rank {r["rank"]}: conformer-sharded energy (8 x 32, '
+              f'16 conformers a rank) against the unsharded: energy max '
+              f'err {c["energy_err"]:.3e} (tol {MODEL_ATOL} + '
+              f'{MODEL_RTOL}|E|), dE/dx max|err|/max {c["grad_rel"]:.3e} '
+              f'(tol {FORCE_RTOL})')
+        for key, nf, nb in (('sp_forward', 1, 0), ('sp_step', 1, 1)):
+            want = want_counts(False, False, nf, nb)
+            check(all(tuple(r[key]['counts'][n]) == want[n] for n in want),
+                  f'(d) rank {r["rank"]}: launches of the {key} '
+                  f'{r[key]["counts"]}')
+        for name, n in r['launches'].items():
+            launches[name] = launches.get(name, 0) + n
+    s = ranks[0]['sp_ref']
+    check(s['energy_ok'] and s['grad_ok'],
+          f'(d) atom-sharded forward, {SP_ATOMS} atoms x {FUSION_CONFS} '
+          f'conformers over {PAR_RANKS} ranks, against the unsharded: '
+          f'energy max err {s["energy_err"]:.3e} (tol {SP_E_TOL} + '
+          f'{SP_E_TOL}|E|), dE/dx max err {s["grad_err"]:.3e} (tol '
+          f'{SP_G_TOL} + {SP_G_TOL}|g|)')
+    # the loss against its float64 value, and the all-reduced gradients
+    # with the loss in float64 against one process's on the whole batch:
+    # float32 resolves this loss only to ~1e-3, and a step's gradients
+    # carry that rounding (the float32 steps' gradients are readings)
+    sp_loss, l64 = ranks[0]['sp_step']['loss'], s['loss64']
+    off_sp, off_ref = abs(sp_loss - l64), abs(s['loss'] - l64)
+    check(off_sp <= SP_LOSS_RTOL * abs(l64)
+          and s['grad_rl2'] <= STEP_GRAD_RL2 and s['params_ok'],
+          f'(d) atom-sharded train step with dropout: loss {sp_loss:.6e} vs '
+          f'the float64 loss of the same prediction {l64:.6e}, rel '
+          f'{off_sp / abs(l64):.3e} (tol {SP_LOSS_RTOL}; the unsharded '
+          f'float32 loss {s["loss"]:.6e}, rel {off_ref / abs(l64):.3e}); '
+          f'with the loss in float64, the worst of the {s["grad_n"]} '
+          f'all-reduced gradients against the unsharded, relative L2 '
+          f'{s["grad_rl2"]:.3e} ({s["grad_worst"]}; tol {STEP_GRAD_RL2}; '
+          f'all together {s["grad_rl2_all"]:.3e}); the float32 steps\' '
+          f'gradients against those float64-loss ones: sharded worst '
+          f'{s["step_grad_rl2"]:.3e}, all {s["step_grad_rl2_all"]:.3e}, '
+          f'{s["step_grad_over"]} over {STEP_GRAD_RL2}; unsharded worst '
+          f'{s["ref_grad_rl2"]:.3e}, all {s["ref_grad_rl2_all"]:.3e}, '
+          f'{s["ref_grad_over"]} over; parameters max |diff| '
+          f'{s["params_err"]:.3e} (tol {SP_PARAM_TOL} + {SP_PARAM_TOL}|p|)')
+    check(s['md_ok'],
+          f'(d) atom-sharded NVE, {SP_MD_STEPS} steps at {SP_MD_DT} fs with '
+          f'the reference parameters: potential max err '
+          f'{s["md_potential_err"]:.3e}, xyz {s["md_xyz_err"]:.3e} (tol '
+          f'{SP_MD_TOL} + {SP_MD_TOL}|x|)')
+
+    # (e) the row offsets of K1 / K1b / K1m, K2 / K2b / K2m
+    offset_kernel_checks(torch)
+
+    line['gloo_two_ranks_one_card'] = dict(
+        note=f'{PAR_RANKS} processes sharing one card over gloo: the '
+             f'collectives go through host memory; no multi-card speed',
+        wall_s=wall, dp_loss_rel=loss_rel, dp_grad_rel_l2=max(rel),
+        sp=dict(atoms=SP_ATOMS, energy_err=s['energy_err'],
+                grad_err=s['grad_err'], loss_rel=s['loss_rel'],
+                loss_off64_sharded=off_sp / abs(l64),
+                loss_off64_unsharded=off_ref / abs(l64),
+                loss64_sharded_rel=abs(s['loss64_sh'] - l64) / abs(l64),
+                grad64_rel_l2_worst=s['grad_rl2'],
+                grad64_rel_l2_all=s['grad_rl2_all'],
+                step_grad_rel_l2_worst=s['step_grad_rl2'],
+                step_grad_rel_l2_all=s['step_grad_rl2_all'],
+                step_grad_over=s['step_grad_over'],
+                unsharded_step_grad_rel_l2_worst=s['ref_grad_rl2'],
+                unsharded_step_grad_rel_l2_all=s['ref_grad_rl2_all'],
+                unsharded_step_grad_over=s['ref_grad_over'],
+                params_err=s['params_err'],
+                md_potential_err=s['md_potential_err'],
+                md_xyz_err=s['md_xyz_err']),
+        ranks=[dict(
+            rank=r['rank'], dp_step_ms=r['dp_step_ms'],
+            dp_step_ms_all=r['dp_step_ms_all'],
+            dp_first_step_ms=r['dp_first_step_ms'],
+            all_reduce_ms=r['all_reduce_ms'],
+            all_reduce_mb=r['all_reduce_mb'],
+            dp_peak_gib=r['dp_peak_gib'],
+            trainer_epoch_ms=r['trainer']['epoch_ms'],
+            sp_forward_ms=r['sp_forward']['ms'],
+            sp_forward_warm_ms=r['sp_forward']['warm_ms'],
+            sp_step_ms=r['sp_step']['ms'],
+            sp_step_peak_gib=r['sp_step']['peak_gib'],
+            sp_md_ms_a_step=r['sp_md']['ms_a_step'],
+            peak_gib=r['peak_gib']) for r in ranks])
+    return launches, line
+
+
 def report_failures() -> int:
     """1 after naming each failed check on standard error (the tail a
     caller that keeps only the end of the output sees), else 0."""
@@ -4650,6 +5281,7 @@ def main() -> int:
     gnn_calls_only = sys.argv[1:] == ['--gnn-calls']
     gmx_only = sys.argv[1:] == ['--gmx']
     data_only = sys.argv[1:] == ['--data']
+    parallel_only = sys.argv[1:] == ['--parallel']
     sys.path.insert(0, ROOT)
     import torch
     if not torch.cuda.is_available():
@@ -4722,6 +5354,10 @@ def main() -> int:
         _, lines = data_phase(torch, get_default_model_config(), work, smi)
         for name, line in lines.items():
             print(f'{name} ' + json.dumps(line), flush=True)
+        return report_failures()
+    if parallel_only:
+        _, line = parallel_phase(torch, smi)
+        print('parallel ' + json.dumps(line), flush=True)
         return report_failures()
     if trainrun_only:
         data_dir, made, _, test_batches = trainrun_data(torch, work)
@@ -4885,6 +5521,9 @@ def main() -> int:
         eval_fix[1])
     for name, per_path in data_launches.items():
         launches.setdefault(name, {}).update(per_path)
+    par_launches, parallel_line = parallel_phase(torch, smi)
+    for name, n in par_launches.items():
+        launches.setdefault(name, {})['parallel'] = n
 
     if FAILURES:
         return report_failures()
@@ -4950,6 +5589,7 @@ def main() -> int:
     print('gmx ' + json.dumps(gmx_line))
     for name, line in data_lines.items():
         print(f'{name} ' + json.dumps(line))
+    print('parallel ' + json.dumps(parallel_line))
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

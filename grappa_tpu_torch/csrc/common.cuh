@@ -78,6 +78,16 @@ __device__ __forceinline__ uint32_t philox_bits(uint32_t seed,
 // factor `scale` (= 1 / (1 - rate), rounded to float32 by the wrapper) iff
 // its bits >= threshold (= round(rate * 2^32)), else 0 -- the JAX
 // _dropout_mask rule. on == 0 means no dropout.
+//
+// Built with GRAPPA_SHARDED_DROP (fused_gnn_rows.cu and fused_block_rows.cu,
+// K1's and K2's files again for their `_rows` entry points) a mask is a
+// shard's: the tensor's matrix is blocks of `rows` rows, each holding rows
+// row0 .. row0 + rows - 1 of a block of rows_glob rows (K1: one block of a
+// rank's nodes; K2: S blocks of a rank's tuples), and element (m, n) draws
+// the bits of its place in the unsharded tensor: local row m = s * rows + t
+// is row s * rows_glob + row0 + t. Without it Drop is the unsharded mask
+// alone, so the entry points every other path calls keep their code.
+#ifndef GRAPPA_SHARDED_DROP
 struct Drop {
   uint32_t seed, stream, threshold;
   float scale;
@@ -89,6 +99,32 @@ struct Drop {
     return at((unsigned long long)m * cols + n);
   }
 };
+#else
+struct Drop {
+  uint32_t seed, stream, threshold;
+  float scale;
+  int on, cols;
+  long long rows, rows_glob, row0;
+  __device__ __forceinline__ float keep(unsigned long long idx) const {
+    return philox_bits(seed, stream, idx) >= threshold ? scale : 0.f;
+  }
+  // the flat index of local element (m, n) in the unsharded tensor
+  __device__ __forceinline__ unsigned long long index(
+      unsigned long long m, unsigned long long n) const {
+    const unsigned long long s = m / (unsigned long long)rows;
+    m += s * (unsigned long long)(rows_glob - rows) + row0;
+    return m * (unsigned long long)cols + n;
+  }
+  // by the local flat index
+  __device__ __forceinline__ float at(unsigned long long idx) const {
+    const unsigned long long m = idx / (unsigned long long)cols;
+    return keep(index(m, idx - m * (unsigned long long)cols));
+  }
+  __device__ __forceinline__ float operator()(int m, int n) const {
+    return keep(index((unsigned long long)m, (unsigned long long)n));
+  }
+};
+#endif
 
 inline Drop make_drop(uint32_t seed, uint32_t stream, uint32_t threshold,
                       float scale, int on, int cols) {
@@ -99,8 +135,38 @@ inline Drop make_drop(uint32_t seed, uint32_t stream, uint32_t threshold,
   d.scale = scale;
   d.on = on;
   d.cols = cols;
+#ifdef GRAPPA_SHARDED_DROP
+  d.rows = d.rows_glob = 1;
+  d.row0 = 0;
+#endif
   return d;
 }
+
+// The dropout arguments of K1's and K2's C entry points and the masks they
+// make: (seed, threshold, scale, on), and in the GRAPPA_SHARDED_DROP
+// object the `_rows` entry points' rows_glob and row0 as well.
+#ifdef GRAPPA_SHARDED_DROP
+#define GRAPPA_ENTRY(name) name##_rows
+#define GRAPPA_DROP_PARAMS                                               \
+  uint32_t seed, uint32_t threshold, float drop_scale, int drop_on,     \
+      long long rows_glob, long long row0
+inline Drop shard_drop(Drop d, long long rows, long long rows_glob,
+                       long long row0) {
+  d.rows = rows;
+  d.rows_glob = rows_glob;
+  d.row0 = row0;
+  return d;
+}
+#define GRAPPA_DROP(stream, cols, rows)                                  \
+  shard_drop(make_drop(seed, stream, threshold, drop_scale, drop_on, cols), \
+             rows, rows_glob, row0)
+#else
+#define GRAPPA_ENTRY(name) name
+#define GRAPPA_DROP_PARAMS                                               \
+  uint32_t seed, uint32_t threshold, float drop_scale, int drop_on
+#define GRAPPA_DROP(stream, cols, rows)                                  \
+  make_drop(seed, stream, threshold, drop_scale, drop_on, cols)
+#endif
 
 // ---------------------------------------------------------------- operands
 // A GEMM operand is viewed as L(i, k): row i of the product's side, k along

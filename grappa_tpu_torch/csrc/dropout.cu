@@ -41,6 +41,24 @@ dropout_masks_kernel(Drop a, Drop b, float* __restrict__ m1,
   m2[i] = b.at((unsigned long long)i);
 }
 
+// The masks of a shard: a matrix `cols` wide in blocks of `rows` rows,
+// each holding rows row0 .. row0 + rows - 1 of a block of rows_glob rows
+// (K1's nodes, K2's tuples); element i draws the bits of its flat index in
+// the unsharded tensor, as K1's and K2's `_rows` entry points do.
+__global__ void __launch_bounds__(kThreads)
+dropout_masks_rows_kernel(Drop a, Drop b, float* __restrict__ m1,
+                          float* __restrict__ m2, long long total, int cols,
+                          long long rows, long long rows_glob,
+                          long long row0) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= total) return;
+  const long long m = i / cols, n = i - m * cols, s = m / rows;
+  const unsigned long long g =
+      (unsigned long long)(m + s * (rows_glob - rows) + row0) * cols + n;
+  m1[i] = a.at(g);
+  m2[i] = b.at(g);
+}
+
 }  // namespace
 
 extern "C" {
@@ -54,6 +72,22 @@ int grappa_dropout_masks(uint32_t seed, uint32_t threshold, float drop_scale,
   if (total > 0)
     dropout_masks_kernel<<<cdiv(total, kThreads), kThreads, 0,
                            (cudaStream_t)stream>>>(a, b, m1, m2, total);
+  return (int)cudaGetLastError();
+}
+
+// The same for a shard's rows (dropout_masks_rows_kernel): K1m's and K2m's
+// dump of what K1's and K2's `_rows` entry points draw.
+int grappa_dropout_masks_rows(uint32_t seed, uint32_t threshold,
+                              float drop_scale, long long total, int cols,
+                              long long rows, long long rows_glob,
+                              long long row0, float* m1, float* m2,
+                              void* stream) {
+  const Drop a = make_drop(seed, 0, threshold, drop_scale, 1, 0);
+  const Drop b = make_drop(seed, 1, threshold, drop_scale, 1, 0);
+  if (total > 0)
+    dropout_masks_rows_kernel<<<cdiv(total, kThreads), kThreads, 0,
+                                (cudaStream_t)stream>>>(
+        a, b, m1, m2, total, cols, rows, rows_glob, row0);
   return (int)cudaGetLastError();
 }
 

@@ -507,6 +507,7 @@ int block_bwd_bf16(const float* g2, const float* dy, const Drop& m1,
 
 extern "C" {
 
+#ifndef GRAPPA_SHARDED_DROP
 // Floats of the forward's scratch: its intermediates (FwdLayout), R x (7F +
 // hid); in bf16 mode R x (6F + hid) and the bf16 copies, R x (3F + hid) / 2
 // and the weights. The backward reads them: keep the scratch until it has
@@ -515,6 +516,7 @@ long long grappa_fused_block_scratch(int s, int t, int f, int hid,
                                      int mm_bf16) {
   return (long long)fwd_layout((long long)s * t, f, hid, mm_bf16).total;
 }
+#endif
 
 // x, y: (S, T, F); weights in torch layout: wq (3F, F), wo (F, F),
 // w1 (hid, F), w2 (F, hid). S must be 2, 3 or 4. Dropout: masks keyed by
@@ -522,19 +524,20 @@ long long grappa_fused_block_scratch(int s, int t, int f, int hid,
 // kept values x drop_scale. mm_bf16: the four products on wg_gemm.cuh's
 // bf16 wgmma (operands rounded to bf16, float32 sums), the JAX kernel's
 // mm_dtype=bfloat16; LayerNorms and attention stay float32, as there.
-int grappa_fused_block_fwd(const float* x, const float* g1, const float* b1,
-                           const float* wq, const float* bq, const float* wo,
-                           const float* bo, const float* g2, const float* b2,
-                           const float* w1, const float* c1, const float* w2,
-                           const float* c2, uint32_t seed, uint32_t threshold,
-                           float drop_scale, int drop_on, float* scratch,
-                           float* y, int s, int t, int f, int hid,
-                           int n_heads, float scale, int mm_bf16,
-                           void* stream) {
+// grappa_fused_block_fwd_rows (GRAPPA_SHARDED_DROP) takes a rank's T tuples
+// of rows_glob, from row0 on: mask element (s, t, f) is the unsharded
+// mask's (s, row0 + t, f).
+int GRAPPA_ENTRY(grappa_fused_block_fwd)(
+    const float* x, const float* g1, const float* b1, const float* wq,
+    const float* bq, const float* wo, const float* bo, const float* g2,
+    const float* b2, const float* w1, const float* c1, const float* w2,
+    const float* c2, GRAPPA_DROP_PARAMS, float* scratch, float* y, int s,
+    int t, int f, int hid, int n_heads, float scale, int mm_bf16,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int r = s * t;
-  const Drop m1 = make_drop(seed, 0, threshold, drop_scale, drop_on, f);
-  const Drop m2 = make_drop(seed, 1, threshold, drop_scale, drop_on, f);
+  const Drop m1 = GRAPPA_DROP(0, f, t);
+  const Drop m2 = GRAPPA_DROP(1, f, t);
   if (mm_bf16)
     return block_fwd_bf16(x, g1, b1, wq, bq, wo, bo, g2, b2, w1, c1, w2, c2,
                           m1, m2, scratch, y, s, t, f, hid, n_heads, scale,
@@ -557,10 +560,12 @@ int grappa_fused_block_fwd(const float* x, const float* g1, const float* b1,
                  st, m2);
 }
 
+#ifndef GRAPPA_SHARDED_DROP
 long long grappa_fused_block_bwd_scratch(int s, int t, int f, int hid,
                                          int mm_bf16) {
   return (long long)bwd_layout((long long)s * t, f, hid, mm_bf16).total;
 }
+#endif
 
 // Gradients of the forward above for dy (S, T, F): dx (S, T, F) and the
 // twelve parameter gradients in the parameters' shapes. `fwd` is the
@@ -570,20 +575,19 @@ long long grappa_fused_block_bwd_scratch(int s, int t, int f, int hid,
 // rounded to bf16 (dy's descendants too), float32 sums, as the JAX kernel's
 // _dot_tn / _dot_nt with mm_dtype=bfloat16; column sums, LayerNorm and
 // attention backward stay float32, as there.
-int grappa_fused_block_bwd(
+int GRAPPA_ENTRY(grappa_fused_block_bwd)(
     const float* x, const float* g1, const float* b1, const float* wq,
     const float* bq, const float* wo, const float* bo, const float* g2,
     const float* b2, const float* w1, const float* c1, const float* w2,
-    const float* c2, const float* dy, uint32_t seed, uint32_t threshold,
-    float drop_scale, int drop_on, const float* fwd, float* scratch,
-    float* dx, float* dg1, float* db1, float* dwq, float* dbq, float* dwo,
-    float* dbo, float* dg2, float* db2, float* dw1, float* dc1, float* dw2,
-    float* dc2, int s, int t, int f, int hid, int n_heads, float scale,
-    int mm_bf16, void* stream) {
+    const float* c2, const float* dy, GRAPPA_DROP_PARAMS, const float* fwd,
+    float* scratch, float* dx, float* dg1, float* db1, float* dwq,
+    float* dbq, float* dwo, float* dbo, float* dg2, float* db2, float* dw1,
+    float* dc1, float* dw2, float* dc2, int s, int t, int f, int hid,
+    int n_heads, float scale, int mm_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int r = s * t;
-  const Drop m1 = make_drop(seed, 0, threshold, drop_scale, drop_on, f);
-  const Drop m2 = make_drop(seed, 1, threshold, drop_scale, drop_on, f);
+  const Drop m1 = GRAPPA_DROP(0, f, t);
+  const Drop m2 = GRAPPA_DROP(1, f, t);
   const BwdLayout l = bwd_layout(r, f, hid, mm_bf16);
   float* p = scratch;
   float *dxn = p + l.dxn, *mean = p + l.mean, *rstd = p + l.rstd,

@@ -664,6 +664,7 @@ int gnn_bwd_bf16(const float* g2, const float* dy, const Drop& m1,
 
 extern "C" {
 
+#ifndef GRAPPA_SHARDED_DROP
 // Floats of the forward's scratch: its intermediates (FwdLayout), N x (4F +
 // hid); in bf16 mode N x (3F + hid) and the bf16 copies, N x (2F + hid) / 2
 // and the weights. The backward reads them: keep the scratch until it has
@@ -671,6 +672,7 @@ extern "C" {
 long long grappa_fused_gnn_scratch(int n, int f, int hid, int mm_bf16) {
   return (long long)fwd_layout(n, f, hid, mm_bf16).total;
 }
+#endif
 
 // feat, hn, y: (N, F); nbr: (D, N, F); mask: (D, N); weights in torch
 // Linear layout (out, in): wr (F, F), w1 (hid, F), w2 (F, hid). Dropout:
@@ -678,26 +680,28 @@ long long grappa_fused_gnn_scratch(int n, int f, int hid, int mm_bf16) {
 // >= threshold, kept values x drop_scale. mm_bf16: the three products on
 // wg_gemm.cuh (operands rounded to bf16, float32 sums), the JAX kernel's
 // mm_dtype=bfloat16; the scores and the message sum stay float32, as
-// there.
-int grappa_fused_gnn_fwd(const float* feat, const float* nbr, const float* hn,
-                         const float* mask, const float* wr, const float* br,
-                         const float* g2, const float* b2, const float* w1,
-                         const float* c1, const float* w2, const float* c2,
-                         uint32_t seed, uint32_t threshold, float drop_scale,
-                         int drop_on, float* scratch, float* y, int n, int f,
-                         int hid, int d, int n_heads, float scale,
-                         int mm_bf16, void* stream) {
+// there. grappa_fused_gnn_fwd_rows (GRAPPA_SHARDED_DROP) takes a rank's N
+// rows of rows_glob nodes, from row0 on: its masks are the unsharded ones'
+// rows.
+int GRAPPA_ENTRY(grappa_fused_gnn_fwd)(
+    const float* feat, const float* nbr, const float* hn, const float* mask,
+    const float* wr, const float* br, const float* g2, const float* b2,
+    const float* w1, const float* c1, const float* w2, const float* c2,
+    GRAPPA_DROP_PARAMS, float* scratch, float* y, int n, int f, int hid,
+    int d, int n_heads, float scale, int mm_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const Drop m1 = make_drop(seed, 0, threshold, drop_scale, drop_on, f);
-  const Drop m2 = make_drop(seed, 1, threshold, drop_scale, drop_on, f);
+  const Drop m1 = GRAPPA_DROP(0, f, n);
+  const Drop m2 = GRAPPA_DROP(1, f, n);
   return (mm_bf16 ? gnn_fwd_bf16 : gnn_fwd_f32)(
       feat, nbr, hn, mask, wr, br, g2, b2, w1, c1, w2, c2, m1, m2, scratch,
       y, n, f, hid, d, n_heads, scale, st);
 }
 
+#ifndef GRAPPA_SHARDED_DROP
 long long grappa_fused_gnn_bwd_scratch(int n, int f, int hid, int mm_bf16) {
   return (long long)bwd_layout(n, f, hid, mm_bf16).total;
 }
+#endif
 
 // Gradients of the forward above for dy (N, F): dfeat, dhn (N, F), dnbr
 // (D, N, F) and the eight parameter gradients in the parameters' shapes.
@@ -707,19 +711,16 @@ long long grappa_fused_gnn_bwd_scratch(int n, int f, int hid, int mm_bf16) {
 // (dy's descendants too), float32 sums, as the JAX kernel's _dot_tn /
 // _dot_nt with mm_dtype=bfloat16; the column sums, the LayerNorm backward
 // and the attention backward stay float32, as there.
-int grappa_fused_gnn_bwd(const float* feat, const float* nbr,
-                         const float* mask, const float* wr, const float* g2,
-                         const float* w1, const float* w2, const float* dy,
-                         uint32_t seed, uint32_t threshold, float drop_scale,
-                         int drop_on, const float* fwd, float* scratch,
-                         float* dfeat, float* dnbr, float* dhn, float* dwr,
-                         float* dbr, float* dg2, float* db2, float* dw1,
-                         float* dc1, float* dw2, float* dc2, int n, int f,
-                         int hid, int d, int n_heads, float scale,
-                         int mm_bf16, void* stream) {
+int GRAPPA_ENTRY(grappa_fused_gnn_bwd)(
+    const float* feat, const float* nbr, const float* mask, const float* wr,
+    const float* g2, const float* w1, const float* w2, const float* dy,
+    GRAPPA_DROP_PARAMS, const float* fwd, float* scratch, float* dfeat,
+    float* dnbr, float* dhn, float* dwr, float* dbr, float* dg2, float* db2,
+    float* dw1, float* dc1, float* dw2, float* dc2, int n, int f, int hid,
+    int d, int n_heads, float scale, int mm_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const Drop m1 = make_drop(seed, 0, threshold, drop_scale, drop_on, f);
-  const Drop m2 = make_drop(seed, 1, threshold, drop_scale, drop_on, f);
+  const Drop m1 = GRAPPA_DROP(0, f, n);
+  const Drop m2 = GRAPPA_DROP(1, f, n);
   RETURN_IF_ERR(
       mm_bf16 ? gnn_bwd_bf16(g2, dy, m1, m2, fwd, scratch, dhn, dwr, dbr, dg2,
                              db2, dw1, dc1, dw2, dc2, n, f, hid, st)

@@ -171,6 +171,9 @@ class GraphBatch:
     gradient_ref: torch.Tensor     # (N, C, 3) float32
     terms: Dict[str, TermBatch]
     num_mols: int
+    # an atom-sharded batch's `parallel.sp.AtomShard` (the node- and
+    # tuple-indexed tensors then hold one rank's rows); None otherwise
+    shard: Optional[object] = None
 
     def atoms_per_mol(self) -> torch.Tensor:
         """Real atoms of each molecule (M,) as float32."""
@@ -192,7 +195,7 @@ class GraphBatch:
             neighbor_mask=fn(self.neighbor_mask), xyz=fn(self.xyz),
             conf_mask=fn(self.conf_mask), energy_ref=fn(self.energy_ref),
             gradient_ref=fn(self.gradient_ref), terms=terms,
-            num_mols=self.num_mols)
+            num_mols=self.num_mols, shard=self.shard)
 
     def to(self, device, non_blocking: bool = False) -> 'GraphBatch':
         return self._map(lambda t: t.to(device, non_blocking=non_blocking))
@@ -209,6 +212,23 @@ class GraphBatch:
             return t
         self._map(record)
         return tuple(shapes)
+
+
+def stack_batches(batches: Sequence[GraphBatch]) -> GraphBatch:
+    """Stack same-shape batches along a new leading axis: the batch cache
+    of a data-parallel epoch (`parallel.dp`), slot i holding batches[i]
+    (the JAX package's stack_batches, there a device axis)."""
+    if len({b.num_mols for b in batches}) != 1 or len(
+            {b.shapes() for b in batches}) != 1:
+        raise ValueError("stack_batches needs batches of one padded shape "
+                         "and molecule count (a loader with fixed_pad=True)")
+    leaves = []
+    for b in batches:
+        mine = []
+        b._map(lambda t: mine.append(t) or t)
+        leaves.append(mine)
+    stacked = iter([torch.stack(xs) for xs in zip(*leaves)])
+    return batches[0]._map(lambda _: next(stacked))
 
 
 def _round_up(x: int, mult: int, minimum: int) -> int:
@@ -235,17 +255,27 @@ class PadSpec:
         return cls(n_nodes=n_nodes, n_tuples=n_tuples, n_confs=n_confs)
 
 
+def conf_draw(g: MolGraph, n_confs: int,
+              rng: Optional[np.random.Generator]) -> Optional[np.ndarray]:
+    """The conformer columns collate keeps of a molecule: None (all) if it
+    has at most n_confs, else a sorted draw without replacement from `rng`
+    (the first n_confs without one). A loader that skips a batch draws
+    this alone, so its RNG stays where collating would leave it."""
+    c = g.n_confs
+    if c <= n_confs:
+        return None
+    if rng is None:
+        return np.arange(n_confs)
+    return np.sort(rng.choice(c, size=n_confs, replace=False))
+
+
 def _subsample_confs(g: MolGraph, n_confs: int,
                      rng: Optional[np.random.Generator]):
     """Pick conformer columns: subsample without replacement if too many,
     keep all (padding happens later) if fewer."""
-    c = g.n_confs
-    if c <= n_confs:
-        return g.xyz, g.energy_ref, g.gradient_ref, c
-    if rng is None:
-        sel = np.arange(n_confs)
-    else:
-        sel = np.sort(rng.choice(c, size=n_confs, replace=False))
+    sel = conf_draw(g, n_confs, rng)
+    if sel is None:
+        return g.xyz, g.energy_ref, g.gradient_ref, g.n_confs
     return (g.xyz[:, sel], g.energy_ref[sel], g.gradient_ref[:, sel], n_confs)
 
 

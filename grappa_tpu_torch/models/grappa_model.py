@@ -208,17 +208,29 @@ class GrappaModel(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         """In training mode the dropouts draw their seeds from `generator`
         (a CPU generator: drawing never waits for the card); in eval mode
-        it is not needed."""
+        it is not needed. On an atom-sharded batch (`batch.shard`, from
+        `parallel.sp.shard_batch_by_atoms`) the GNN runs on the rank's
+        nodes, the writers on its tuples, and the outputs hold the rank's
+        tuples; the GNN's output rows are all-gathered once for the
+        writers' gathers."""
+        shard = batch.shard
         h = self.gnn(batch.feats, batch.neighbors, batch.neighbor_mask,
-                     generator)
+                     generator, shard)
+        rows = dict.fromkeys(batch.terms)
+        if shard is not None:
+            h, rows = shard.gather_nodes(h), shard.tuple_rows
         w = self.parameter_writer
-        n2_k, n2_eq = w.bond_writer(h, batch.terms['n2'].idxs, generator)
-        n3_k, n3_eq = w.angle_writer(h, batch.terms['n3'].idxs, generator)
+        n2_k, n2_eq = w.bond_writer(h, batch.terms['n2'].idxs, generator,
+                                    rows['n2'])
+        n3_k, n3_eq = w.angle_writer(h, batch.terms['n3'].idxs, generator,
+                                     rows['n3'])
         return {
             'n2_k': n2_k, 'n2_eq': n2_eq, 'n3_k': n3_k, 'n3_eq': n3_eq,
-            'n4_k': w.proper_writer(h, batch.terms['n4'].idxs, generator),
+            'n4_k': w.proper_writer(h, batch.terms['n4'].idxs, generator,
+                                    rows['n4']),
             'n4_improper_k': w.improper_writer(
-                h, batch.terms['n4_improper'].idxs, generator),
+                h, batch.terms['n4_improper'].idxs, generator,
+                rows['n4_improper']),
         }
 
 

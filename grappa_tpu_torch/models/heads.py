@@ -20,6 +20,11 @@ training mode every dropout draws from the `generator` the forward takes:
 each fused transformer block one seed per call, as the JAX package draws
 one key per fused block.
 
+On an atom-sharded batch a writer takes all the atom embeddings (the
+all-gathered GNN output) and the rank's tuples, and `rows=(first, total)`,
+the tuples' place among the unsharded T, so that every dropout mask draws
+the unsharded tensor's bits (`ops.philox`).
+
 `dtype=torch.bfloat16` (the config's heads_compute_dtype or compute_dtype)
 is the JAX package's bf16 heads: the RepProjector's Dense, elu and cast to
 float32, and flax's bf16 semantics in the eager blocks and Symmetriser
@@ -93,7 +98,8 @@ class GrappaTransformer(nn.Module):
         self.fused = fused if layer_norm else False
         self.dtype = dtype
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                rows=None):
         fused = use_fused(self.fused, x)
         if self.positional_encoding is not None:
             pos = self.positional_encoding[:, None, :].expand(
@@ -106,9 +112,9 @@ class GrappaTransformer(nn.Module):
                     x, blk.fused_params(), blk.num_heads, rate,
                     self.training,
                     philox.seed_for(rate, self.training, generator),
-                    self.dtype)
+                    self.dtype, rows)
             else:
-                x = blk(x, generator)
+                x = blk(x, generator, rows)
         return x
 
 
@@ -179,8 +185,9 @@ class TupleHead(nn.Module):
             feats, out_feats, permutations, symmetriser_feats,
             symmetriser_layers, layer_norm, fused, dtype)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
-        return self.symmetriser(self.grappa_transformer(x, generator))
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                rows=None):
+        return self.symmetriser(self.grappa_transformer(x, generator, rows))
 
 
 class HarmonicParameterHead(nn.Module):
@@ -214,9 +221,10 @@ class HarmonicParameterHead(nn.Module):
         self.to_eq = (scalers.ToPositive(eq_mean, eq_std) if term == 'n2'
                       else scalers.ToRange(math.pi, eq_std))
 
-    def forward(self, h, idxs, generator: Optional[torch.Generator] = None):
+    def forward(self, h, idxs, generator: Optional[torch.Generator] = None,
+                rows=None):
         coeffs = getattr(self, self.model_name)(self.rep_projector(h, idxs),
-                                                generator)
+                                                generator, rows)
         k = self.to_k(coeffs[:, 1])
         if self.gate:
             k = k * scalers.sigmoid_gate(coeffs[:, 2])
@@ -259,8 +267,10 @@ class TorsionParameterHead(nn.Module):
             [list(k_std)[:n_periodicity]], dtype=torch.float32))
         self.n_per, self.gated, self.cutoff = n_periodicity, gated, cutoff
 
-    def forward(self, h, idxs, generator: Optional[torch.Generator] = None):
-        coeffs = self.torsion_model(self.rep_projector(h, idxs), generator)
+    def forward(self, h, idxs, generator: Optional[torch.Generator] = None,
+                rows=None):
+        coeffs = self.torsion_model(self.rep_projector(h, idxs), generator,
+                                    rows)
         if self.gated:
             gate = torch.sigmoid(coeffs[:, self.n_per:])
             # gated: no mean shift, so the gate can express exact zeros

@@ -151,8 +151,11 @@ class Dropout(nn.Module):
         self.p = p
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return philox.dropout(x, self.p, self.training, generator)
+                generator: Optional[torch.Generator] = None,
+                rows=None) -> torch.Tensor:
+        """rows: (first, total) when x is a rank's shard along axis -2
+        (`ops.philox`)."""
+        return philox.dropout(x, self.p, self.training, generator, rows)
 
 
 class FeedForward(nn.Module):
@@ -175,12 +178,13 @@ class FeedForward(nn.Module):
         self.out_feats = out_feats
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                rows=None) -> torch.Tensor:
         x = self.norm1(x)
         l1, l2, dt = self.linear1, self.linear2, self.dtype
         h = dense(elu(dense(x, l1.weight, l1.bias, dt)), l2.weight,
                   l2.bias, dt)
-        h = self.dropout(h.to(x.dtype), generator)
+        h = self.dropout(h.to(x.dtype), generator, rows)
         if self.skip:
             h = h + repeat_interleave_skip(x, self.out_feats)
         return h
@@ -241,10 +245,13 @@ class TransformerBlock(nn.Module):
         self.num_heads = num_heads
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                rows=None) -> torch.Tensor:
+        """rows: (first, total) of a rank's tuples (axis T) on an
+        atom-sharded batch, for the dropout masks."""
         x = self.norm1(x)
-        x = self.dropout(self.attn(x), generator) + x
-        return self.ff(x, generator)
+        x = self.dropout(self.attn(x), generator, rows) + x
+        return self.ff(x, generator, rows)
 
     def fused_params(self):
         """The block's tensors in the order `ops.fused_block` takes them."""

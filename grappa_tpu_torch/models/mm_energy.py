@@ -11,6 +11,12 @@ backward). `use_fused_torsion=True` computes the torsion terms with the
 torsion kernel K5 (`ops.torsion_kernel`), whose backward is differentiable
 too.
 
+On an atom-sharded batch (`parallel.sp`: the rank's node rows and tuples,
+`batch.shard` set) `energy_and_gradient` computes the rank's tuples'
+energies on the all-gathered positions and all-reduces the per-molecule
+sums; dE/dx of the rank's tuples is taken on all positions, all-reduced,
+and the rank's rows kept (`sharded_energy_and_gradient`).
+
 Parameter convention: a dict keyed like the model output --
   n2_k (B,), n2_eq (B,), n3_k (A,), n3_eq (A,),
   n4_k (P, n_per) signed, n4_improper_k (I, n_per) signed.
@@ -127,8 +133,12 @@ def energy_and_gradient(batch: GraphBatch, params: ParamDict,
     The gradient is dE/dx, NOT the force -dE/dx (the reference's 'gradient'
     convention). When any parameter requires grad it is differentiable
     w.r.t. the parameters (create_graph), so a loss on it trains the model
-    through a double backward."""
+    through a double backward. On an atom-sharded batch: the energy of
+    the whole molecules and the rank's rows of dE/dx (module doc)."""
     create = any(p.requires_grad for p in params.values())
+    if batch.shard is not None:
+        return sharded_energy_and_gradient(batch, params, batch.xyz, create,
+                                           offset_torsion, use_fused_torsion)
     with torch.enable_grad():
         xyz = batch.xyz.detach().requires_grad_(True)
         energy = pooled_energy(batch, params, xyz, offset_torsion,
@@ -136,6 +146,29 @@ def energy_and_gradient(batch: GraphBatch, params: ParamDict,
         (gradient,) = torch.autograd.grad(energy.sum(), xyz,
                                           create_graph=create)
     return (energy if create else energy.detach()), gradient
+
+
+def sharded_energy_and_gradient(batch: GraphBatch, params: ParamDict,
+                                xyz: torch.Tensor, create: bool = False,
+                                offset_torsion: bool = False,
+                                use_fused_torsion: bool = False
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Energy (M, C) and the rank's rows of dE/dx at positions `xyz` (the
+    rank's rows) of an atom-sharded batch: the rank's tuples on the
+    all-gathered positions, the per-molecule energies and dE/dx all-reduced
+    (differentiable collectives, so `create` trains through them)."""
+    shard = batch.shard
+    with torch.enable_grad():
+        x_all = shard.gather_nodes(xyz.detach()).requires_grad_(True)
+        part = pooled_energy(batch, params, x_all, offset_torsion,
+                             use_fused_torsion)['energy']
+        (g_all,) = torch.autograd.grad(part.sum(), x_all,
+                                       create_graph=create)
+        energy = shard.all_reduce(part)
+        gradient = shard.local_nodes(shard.all_reduce(g_all))
+    if not create:
+        energy, gradient = energy.detach(), gradient.detach()
+    return energy, gradient
 
 
 def centered(energy: torch.Tensor, conf_mask: torch.Tensor) -> torch.Tensor:

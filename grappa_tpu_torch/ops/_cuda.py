@@ -3,7 +3,11 @@ and check what the ops hand them.
 
 At first use every `.cu` file is compiled for `sm_90a` by its own `nvcc`
 process (all started together), and the objects are linked into one shared
-library with a plain C interface, loaded with ctypes. The library's name
+library with a plain C interface, loaded with ctypes. `fused_gnn_rows.cu`
+and `fused_block_rows.cu` build K1's and K2's files a second time with the
+sharded Drop (`csrc/common.cuh`): their `_rows` entry points draw a rank's
+rows of the unsharded dropout masks on an atom-sharded batch, so the entry
+points every other path calls keep their code. The library's name
 carries a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is reused. The build directory `grappa_tpu_torch/build/` is
 listed in `.gitignore`. Nothing here runs when the module is imported.
@@ -27,13 +31,16 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / 'build'
 SOURCES = ('fused_gnn.cu', 'fused_block.cu', 'fused_symmetriser.cu',
-           'dropout.cu', 'torsion.cu')
+           'dropout.cu', 'torsion.cu', 'fused_gnn_rows.cu',
+           'fused_block_rows.cu')
 FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
          '-Xcompiler', '-fPIC')
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL, _U = ctypes.c_longlong, ctypes.c_uint32
 _DROP = [_U, _U, _F, _I]      # seed, keep threshold, keep scale, on
+# the `_rows` entry points': then the sharded axis's global rows, first row
+_DROP_ROWS = _DROP + [_LL, _LL]
 # C entry points: name -> (restype, argtypes); pointers and the stream are
 # c_void_p so ctypes never cuts a 64-bit address to an int
 _SIGNATURES = {
@@ -55,7 +62,17 @@ _SIGNATURES = {
     'grappa_fused_symmetriser_bwd_scratch': (_LL, [_I, _I, _I, _P, _I]),
     'grappa_fused_symmetriser_bwd': (
         _I, [_P, _I, _I, _I, _P, _I, _P, _P, _I] + [_P] * 5 + [_I, _P]),
+    'grappa_fused_gnn_fwd_rows': (_I, [_P] * 12 + _DROP_ROWS + [_P] * 2
+                                  + [_I] * 5 + [_F, _I, _P]),
+    'grappa_fused_gnn_bwd_rows': (_I, [_P] * 8 + _DROP_ROWS + [_P] * 13
+                                  + [_I] * 5 + [_F, _I, _P]),
+    'grappa_fused_block_fwd_rows': (_I, [_P] * 13 + _DROP_ROWS + [_P] * 2
+                                    + [_I] * 5 + [_F, _I, _P]),
+    'grappa_fused_block_bwd_rows': (_I, [_P] * 14 + _DROP_ROWS + [_P] * 15
+                                    + [_I] * 5 + [_F, _I, _P]),
     'grappa_dropout_masks': (_I, [_U, _U, _F, _LL, _P, _P, _P]),
+    'grappa_dropout_masks_rows': (_I, [_U, _U, _F, _LL, _I, _LL, _LL, _LL,
+                                       _P, _P, _P]),
     'grappa_torsion_energy': (_I, [_P, _P, _P, _I, _I, _I, _P]),
     'grappa_torsion_grad': (_I, [_P] * 5 + [_I] * 3 + [_P]),
 }

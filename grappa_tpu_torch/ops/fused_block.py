@@ -34,7 +34,12 @@ Dropout (training mode, rate > 0) takes a 32-bit `seed`: mask 1 (after
 out_proj) and mask 2 (after linear2) are Philox bits keyed by (seed, 0) and
 (seed, 1) over the (S, T, F) layout (`ops.philox`); the backward
 regenerates them. `dropout_masks` dumps them (the mask-dump kernel on
-CUDA, counted by `dropout_masks.launches`).
+CUDA, counted by `dropout_masks.launches`). On an atom-sharded batch the
+block runs on a rank's tuples, and `rows=(first, total)` gives their place
+among the unsharded T: a mask element (s, t, f) draws the bits of flat
+index s T_glob F + (first + t) F + f, so the ranks' masks are slices of
+the unsharded (S, T_glob, F) masks. None (or (0, T)) is the unsharded
+draw.
 
 Parameters are a tuple in torch layout (`TransformerBlock.fused_params()`):
     (norm1.weight, norm1.bias, attn.in_proj_weight, attn.in_proj_bias,
@@ -112,7 +117,9 @@ class _BlockKernel(torch.autograd.Function):
             lib.grappa_fused_block_scratch(s, t, f, hid, int(bf16)),
             dtype=torch.float32, device=x.device)
         y = torch.empty_like(x)
-        rc = lib.grappa_fused_block_fwd(
+        # a shard's masks (drop carries the rows): the `_rows` entry point
+        rc = (lib.grappa_fused_block_fwd if len(drop) == 4
+              else lib.grappa_fused_block_fwd_rows)(
             x.data_ptr(), *[p.data_ptr() for p in params], *drop,
             scratch.data_ptr(), y.data_ptr(), s, t, f, hid, n_heads,
             _cuda.head_scale(f // n_heads), int(bf16), _cuda.stream_of(x))
@@ -138,7 +145,8 @@ class _BlockKernel(torch.autograd.Function):
             lib.grappa_fused_block_bwd_scratch(s, t, f, hid, int(ctx.bf16)),
             dtype=torch.float32, device=x.device)
         grads = [torch.empty_like(p) for p in (x, *params)]
-        rc = lib.grappa_fused_block_bwd(
+        rc = (lib.grappa_fused_block_bwd if len(ctx.drop) == 4
+              else lib.grappa_fused_block_bwd_rows)(
             *[p.data_ptr() for p in (x, *params, dy)], *ctx.drop,
             saved.data_ptr(), scratch.data_ptr(),
             *[g.data_ptr() for g in grads], s, t, f, hid,
@@ -157,10 +165,11 @@ def fused_transformer_block(x, params: Sequence[torch.Tensor],
                             n_heads: int = 8, dropout_rate: float = 0.0,
                             training: bool = False,
                             seed: Optional[int] = None,
-                            mm_dtype=None) -> torch.Tensor:
+                            mm_dtype=None, rows=None) -> torch.Tensor:
     """One TransformerBlock on x (S, T, F) (see module doc). Dropout runs
     in training mode at rate > 0 and then needs `seed`. mm_dtype: None
-    (float32) or torch.bfloat16 (the bf16 mode)."""
+    (float32) or torch.bfloat16 (the bf16 mode). rows: (first, total) of
+    a rank's tuples (module doc)."""
     params = tuple(params)
     _check(x, params, n_heads)
     bf16 = _cuda.mm_bf16(mm_dtype)
@@ -170,25 +179,28 @@ def fused_transformer_block(x, params: Sequence[torch.Tensor],
         raise ValueError("fused_transformer_block: dropout in training mode "
                          "needs a seed")
     if not _cuda.on_cuda((x, *params), 'fused_transformer_block'):
-        masks = (philox.dump_masks(seed, x.shape, dropout_rate, x.device)
-                 if drop else None)
+        masks = (philox.dump_masks(seed, x.shape, dropout_rate, x.device,
+                                   rows) if drop else None)
         return reference_block(x, params, n_heads, masks, mm_dtype)
     if x.shape[0] not in ARITIES:
         raise ValueError(f"the kernel takes tuples of {ARITIES} slots, got "
                          f"S={x.shape[0]}")
-    return _BlockKernel.apply(
-        x, n_heads, philox.kernel_args(seed if drop else None, dropout_rate),
-        bf16, *params)
+    drop_args = philox.kernel_args(seed if drop else None, dropout_rate)
+    if drop:
+        drop_args += philox.row_shard(x.shape, rows)
+    return _BlockKernel.apply(x, n_heads, drop_args, bf16, *params)
 
 
 def dropout_masks(seed: int, shape: Sequence[int], rate: float,
-                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  device=None, rows=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2m: the two masks (S, T, F) that `fused_transformer_block` draws
     for `seed` at `rate`, values already scaled by 1/keep (mask 1 after
-    out_proj, mask 2 after linear2). Runs on `device`: CUDA unless the
-    caller asks for another; on the CPU it is the plain Philox."""
+    out_proj, mask 2 after linear2); with `rows` = (first, total) those of
+    a rank's tuples. Runs on `device`: CUDA unless the caller asks for
+    another; on the CPU it is the plain Philox."""
     device = resolve_device(device)
-    masks = philox.dump_masks(seed, shape, rate, device)
+    masks = philox.dump_masks(seed, shape, rate, device, rows)
     if device.type == 'cuda':
         dropout_masks.launches += 1
     return masks

@@ -42,7 +42,11 @@ Dropout (training mode, rate > 0) takes a 32-bit `seed`: mask 1 (after
 head_reducer) and mask 2 (after the FF's elu) are Philox bits keyed by
 (seed, 0) and (seed, 1) (`ops.philox`); the backward regenerates them.
 `dropout_masks` dumps them (the mask-dump kernel on CUDA, counted by
-`dropout_masks.launches`).
+`dropout_masks.launches`). On an atom-sharded batch the block runs on a
+rank's rows of the nodes, and `rows=(first, total)` gives the rows' place
+among the unsharded nodes: each mask element then draws the bits of its
+element in the unsharded (N, F) mask (`ops.philox`), so the ranks' masks
+are the unsharded masks' rows. None (or (0, N)) is the unsharded draw.
 
 Parameters are a tuple in torch Linear layout (weight (out, in)):
     (head_reducer.weight, head_reducer.bias, interaction_norm.weight,
@@ -131,7 +135,9 @@ class _GnnBlockKernel(torch.autograd.Function):
             dtype=torch.float32, device=feat.device)
         y = torch.empty((n, f), dtype=torch.float32, device=feat.device)
         ptrs = [t.data_ptr() for t in (feat, nbr, hn, mask, *params)]
-        rc = lib.grappa_fused_gnn_fwd(
+        # a shard's masks (drop carries the rows): the `_rows` entry point
+        rc = (lib.grappa_fused_gnn_fwd if len(drop) == 4
+              else lib.grappa_fused_gnn_fwd_rows)(
             *ptrs, *drop, scratch.data_ptr(), y.data_ptr(), n, f, hid, d,
             n_heads, _cuda.head_scale(f // n_heads), int(bf16),
             _cuda.stream_of(feat))
@@ -159,7 +165,8 @@ class _GnnBlockKernel(torch.autograd.Function):
             dtype=torch.float32, device=feat.device)
         # dfeat, dnbr, dhn (hn has feat's shape) and the parameters'
         grads = [torch.empty_like(t) for t in (feat, nbr, feat, *params)]
-        rc = lib.grappa_fused_gnn_bwd(
+        rc = (lib.grappa_fused_gnn_bwd if len(ctx.drop) == 4
+              else lib.grappa_fused_gnn_bwd_rows)(
             *[t.data_ptr() for t in (feat, nbr, mask, wr, g2, w1, w2, dy)],
             *ctx.drop, saved.data_ptr(), scratch.data_ptr(),
             *[g.data_ptr() for g in grads], n, f, hid, d, ctx.n_heads,
@@ -178,10 +185,11 @@ def fused_gnn_block(feat, nbr, hn, mask, params: Sequence[torch.Tensor],
                     n_heads: int = 16, dropout_rate: float = 0.0,
                     training: bool = False,
                     seed: Optional[int] = None,
-                    mm_dtype=None) -> torch.Tensor:
+                    mm_dtype=None, rows=None) -> torch.Tensor:
     """Post-gather half of a GNN ResidualAttentionBlock (see module doc).
     Dropout runs in training mode at rate > 0 and then needs `seed`.
-    mm_dtype: None (float32) or torch.bfloat16 (the bf16 mode)."""
+    mm_dtype: None (float32) or torch.bfloat16 (the bf16 mode). rows:
+    (first, total) of a rank's nodes (module doc)."""
     params = tuple(params)
     _check(feat, nbr, hn, mask, params, n_heads)
     bf16 = _cuda.mm_bf16(mm_dtype)
@@ -192,27 +200,30 @@ def fused_gnn_block(feat, nbr, hn, mask, params: Sequence[torch.Tensor],
                          "seed")
     if not _cuda.on_cuda((feat, nbr, hn, mask, *params), 'fused_gnn_block'):
         masks = (philox.dump_masks(seed, feat.shape, dropout_rate,
-                                   feat.device) if drop else None)
+                                   feat.device, rows) if drop else None)
         return reference_gnn_block(feat, nbr, hn, mask, params, n_heads,
                                    masks, mm_dtype)
     d = nbr.shape[0]
     if not 1 <= d <= MAX_SLOTS:
         raise ValueError(f"the kernel takes 1..{MAX_SLOTS} neighbour slots, "
                          f"got {d}")
-    return _GnnBlockKernel.apply(
-        feat, nbr, hn, mask, n_heads,
-        philox.kernel_args(seed if drop else None, dropout_rate), bf16,
-        *params)
+    drop_args = philox.kernel_args(seed if drop else None, dropout_rate)
+    if drop:
+        drop_args += philox.row_shard(feat.shape, rows)
+    return _GnnBlockKernel.apply(feat, nbr, hn, mask, n_heads, drop_args,
+                                 bf16, *params)
 
 
 def dropout_masks(seed: int, shape: Sequence[int], rate: float,
-                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  device=None, rows=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1m: the two masks (N, F) that `fused_gnn_block` draws for `seed`
     at `rate`, values already scaled by 1/keep (mask 1 after head_reducer,
-    mask 2 after the FF). Runs on `device`: CUDA unless the caller asks for
-    another; on the CPU it is the plain Philox."""
+    mask 2 after the FF); with `rows` = (first, total) those of a rank's
+    rows. Runs on `device`: CUDA unless the caller asks for another; on
+    the CPU it is the plain Philox."""
     device = resolve_device(device)
-    masks = philox.dump_masks(seed, shape, rate, device)
+    masks = philox.dump_masks(seed, shape, rate, device, rows)
     if device.type == 'cuda':
         dropout_masks.launches += 1
     return masks

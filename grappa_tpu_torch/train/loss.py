@@ -10,6 +10,11 @@ package: entries with a NaN reference still count in the parameter-loss
 denominator; reference torsion ks are zero-padded or truncated to the
 model's periodicity; improper ks stay out of the parameter loss; the mean
 over molecules comes last.
+
+On an atom-sharded batch (`parallel.sp`) every per-molecule sum over
+nodes or tuples is the rank's part, all-reduced (a differentiable
+all-reduce), so the loss and the diagnostics are the whole molecule's on
+every rank.
 """
 from __future__ import annotations
 
@@ -35,8 +40,16 @@ class LossWeights(NamedTuple):
     improper_reg: torch.Tensor
 
 
-def _segment_mean(values, seg, counts, num_mols):
-    return segment_sum(values, seg, num_mols) / counts.clamp_min(1.0)
+def _segment_mean(values, seg, counts, num_mols, seg_sum=segment_sum):
+    return seg_sum(values, seg, num_mols) / counts.clamp_min(1.0)
+
+
+def _sharded_sum(shard):
+    """segment_sum, with the ranks' parts all-reduced on a shard."""
+    if shard is None:
+        return segment_sum
+    return lambda values, seg, m: shard.all_reduce(segment_sum(values, seg,
+                                                               m))
 
 
 def molwise_loss(batch: GraphBatch, pred: Dict[str, torch.Tensor],
@@ -49,6 +62,7 @@ def molwise_loss(batch: GraphBatch, pred: Dict[str, torch.Tensor],
         param_type_weights = DEFAULT_PARAM_TYPE_WEIGHTS
     m = batch.num_mols
     aux: Dict[str, torch.Tensor] = {}
+    seg_sum = _sharded_sum(batch.shard)
 
     energy, gradient = mm_energy.energy_and_gradient(batch, pred)
 
@@ -66,8 +80,12 @@ def molwise_loss(batch: GraphBatch, pred: Dict[str, torch.Tensor],
                           * batch.node_mask[:, None]).to(torch.float32)
     g_diff = (torch.square(gradient - batch.gradient_ref)
               * conf_mask_per_node[..., None])
-    g_counts = batch.atoms_per_mol() * conf_counts * 3.0
-    g_mse = _segment_mean(g_diff.sum(dim=(1, 2)), node_mol, g_counts, m)
+    atoms = batch.atoms_per_mol()
+    if batch.shard is not None:
+        atoms = batch.shard.all_reduce(atoms)
+    g_counts = atoms * conf_counts * 3.0
+    g_mse = _segment_mean(g_diff.sum(dim=(1, 2)), node_mol, g_counts, m,
+                          seg_sum)
     aux['gradient_mse'] = g_mse
 
     # parameters: NaN-masked squared error with per-type weights, one mean
@@ -97,9 +115,9 @@ def molwise_loss(batch: GraphBatch, pred: Dict[str, torch.Tensor],
         # NaN-reference entries count toward the denominator (zeroed but
         # included in the mean), as the reference does
         cnt = tb.mask.to(torch.float32) * ref.shape[1]
-        se_per_mol = se_per_mol + segment_sum(
+        se_per_mol = se_per_mol + seg_sum(
             torch.square(diff).sum(dim=1), tb.mol, m)
-        count_per_mol = count_per_mol + segment_sum(cnt, tb.mol, m)
+        count_per_mol = count_per_mol + seg_sum(cnt, tb.mol, m)
     param_mse = se_per_mol / count_per_mol.clamp_min(1.0)
     aux['param_mse'] = param_mse
 
@@ -112,8 +130,8 @@ def molwise_loss(batch: GraphBatch, pred: Dict[str, torch.Tensor],
         se = torch.square(torch.where(tb.mask[:, None], k,
                                       torch.zeros_like(k))).sum(dim=1)
         cnt = tb.mask.to(torch.float32) * k.shape[1]
-        regs = regs + w * (segment_sum(se, tb.mol, m)
-                           / segment_sum(cnt, tb.mol, m).clamp_min(1.0))
+        regs = regs + w * (seg_sum(se, tb.mol, m)
+                           / seg_sum(cnt, tb.mol, m).clamp_min(1.0))
 
     per_mol = (weights.energy * e_mse + weights.gradient * g_mse
                + weights.param * param_mse + regs)

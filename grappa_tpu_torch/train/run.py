@@ -9,6 +9,15 @@ split, subsampling, per-subdataset sampling weights, a one-batch non-NaN
 smoke test (`test_model`), and one automatic restart from last.ckpt on
 failure. Every entry point runs on a CUDA device unless the caller passes
 `device='cpu'`; the smoke test runs on the run's device, kernels included.
+
+With `mesh` (`parallel.dp.make_mesh`) every rank of the job makes the same
+call (under torchrun or torch.multiprocessing) and the Trainer trains
+data-parallel on the mesh's device. The split, the statistics and the
+initial model are deterministic (the config's seed), so every rank makes
+the same ones; the Trainer broadcasts rank 0's weights all the same. Rank
+0 alone writes the run directory's files (config, split, statistics,
+logs, checkpoints, model.npz), and every rank returns after they are
+written. There is no command-line flag for it, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -173,7 +182,7 @@ def do_trainrun(config: Dict, project_dir: str = 'runs',
                 dataset_override: Optional[Dataset] = None,
                 cache_batches: bool = False,
                 pretrain_path: Optional[str] = None,
-                device=None) -> Dict:
+                device=None, mesh=None) -> Dict:
     """Train a model as `config` says, into <project_dir>/<run_name>.
 
     pretrain_path: model file (.npz/.pth model_dict) whose weights AND
@@ -181,13 +190,16 @@ def do_trainrun(config: Dict, project_dir: str = 'runs',
     to 0 (reference trainrun.py:118-136).
 
     device: where the model, the batches and the kernels run (CUDA unless
-    the caller asks for another)."""
-    device = resolve_device(device)
+    the caller asks for another). mesh: data-parallel training over the
+    mesh's ranks on its device (module doc)."""
+    device = mesh.device if mesh is not None else resolve_device(device)
+    writer = mesh is None or mesh.rank == 0
     validate_config(config)
     run_name = run_name or config['trainer_config'].get('name') or 'run'
     run_dir = Path(project_dir) / run_name
     run_dir.mkdir(parents=True, exist_ok=True)
-    write_yaml(config, run_dir / 'grappa_config.yaml')
+    if writer:
+        write_yaml(config, run_dir / 'grappa_config.yaml')
     dcfg = config['data_config']
 
     if dataset_override is not None:
@@ -198,21 +210,23 @@ def do_trainrun(config: Dict, project_dir: str = 'runs',
         split = calc_split_ids(
             ids_by_ds, tuple(dcfg.get('partition', (0.8, 0.1, 0.1))),
             seed=dcfg.get('seed', 0))
-        save_split(split, run_dir / 'split.json')
+        if writer:
+            save_split(split, run_dir / 'split.json')
         tr, vl, _ = ds.split(split['train'], split['val'], split['test'])
         train_loader, val_loader = _train_val_loaders(tr, vl, dcfg, device)
         test_loader = None
     else:
         _phase(f"{run_name}: loading datasets")
         train_loader, val_loader, test_loader, split = get_dataloaders(
-            dcfg, run_dir, device)
+            dcfg, run_dir if writer else None, device)
 
     # scaler statistics from the train set (full pass, like the reference)
     _phase(f"{run_name}: computing parameter statistics")
     stats = param_statistics_from_graphs(train_loader.dataset.graphs())
-    (run_dir / 'param_statistics.json').write_text(json.dumps(
-        {m: {k: np.asarray(v).tolist() for k, v in stats[m].items()}
-         for m in ('mean', 'std')}))
+    if writer:
+        (run_dir / 'param_statistics.json').write_text(json.dumps(
+            {m: {k: np.asarray(v).tolist() for k, v in stats[m].items()}
+             for m in ('mean', 'std')}))
     seed = dcfg.get('seed', 0)
     model = make_model(config['model_config'], stats,
                        generator=torch.Generator().manual_seed(seed))
@@ -244,17 +258,18 @@ def do_trainrun(config: Dict, project_dir: str = 'runs',
             raise RuntimeError("model smoke test: non-finite gradients")
     del batch
 
-    logger = MetricLogger(run_dir, name=run_name)
+    logger = MetricLogger(run_dir, name=run_name) if writer else None
     trainer = Trainer(model, train_loader, val_loader,
                       config['lit_model_config'], config['trainer_config'],
                       out_dir=str(run_dir), full_config=config,
-                      log_fn=logger.log, seed=seed,
-                      cache_batches=cache_batches)
+                      log_fn=logger.log if logger else None, seed=seed,
+                      cache_batches=cache_batches, mesh=mesh)
     try:
         _phase(f"{run_name}: entering fit")
         results = trainer.fit()
     finally:
-        logger.finish()
+        if logger:
+            logger.finish()
 
     return _finalize_run(trainer, config, split, test_loader, run_dir,
                          results)
@@ -303,20 +318,26 @@ def _finalize_run(trainer: Trainer, config, split, test_loader, run_dir,
     model_dict = build_model_dict(eval_model, config, split_names=split,
                                   results=final_metrics)
     export_path = run_dir / 'model.npz'
-    save_model_dict(model_dict, export_path)
+    if trainer.mesh is None or trainer.mesh.rank == 0:
+        save_model_dict(model_dict, export_path)
+    if trainer.mesh is not None:
+        trainer.mesh.barrier()
     return {'model_dict_path': str(export_path), 'results': results,
             'run_dir': str(run_dir), 'trainer': trainer,
             'test_eval_s': test_eval_s}
 
 
 def resume_trainrun(run_dir: str, extra_epochs: Optional[int] = None,
-                    cache_batches: bool = False, device=None) -> Dict:
+                    cache_batches: bool = False, device=None,
+                    mesh=None) -> Dict:
     """Continue a run from <run_dir>/last.ckpt with the stored config.
 
     Like do_trainrun, finishes with the bootstrap test evaluation and
     model.npz export, so a run that completes via resume produces the same
-    artifacts as an uninterrupted one."""
-    device = resolve_device(device)
+    artifacts as an uninterrupted one. mesh: data-parallel, as
+    do_trainrun's (every rank loads the checkpoint)."""
+    device = mesh.device if mesh is not None else resolve_device(device)
+    writer = mesh is None or mesh.rank == 0
     run_dir = Path(run_dir)
     config = read_yaml(run_dir / 'grappa_config.yaml')
     if not config['data_config'].get('datasets'):
@@ -332,18 +353,23 @@ def resume_trainrun(run_dir: str, extra_epochs: Optional[int] = None,
     if (run_dir / 'split.json').exists():
         config['data_config']['splitpath'] = str(run_dir / 'split.json')
     _phase(f"resume {run_dir.name}: loading datasets")
+    if mesh is not None and not writer:
+        mesh.barrier()     # rank 0 rewrites split.json first
     train_loader, val_loader, test_loader, split = get_dataloaders(
-        config['data_config'], run_dir, device)
+        config['data_config'], run_dir if writer else None, device)
+    if mesh is not None and writer:
+        mesh.barrier()
     stats = param_statistics_from_graphs(train_loader.dataset.graphs())
     # weights and buffers are overwritten by the checkpoint
     model = make_model(config['model_config'], stats).to(device)
     next(iter(train_loader))   # the JAX package's init batch draw
 
-    logger = MetricLogger(run_dir)
+    logger = MetricLogger(run_dir) if writer else None
     trainer = Trainer(model, train_loader, val_loader,
                       config['lit_model_config'], config['trainer_config'],
                       out_dir=str(run_dir), full_config=config,
-                      log_fn=logger.log, cache_batches=cache_batches)
+                      log_fn=logger.log if logger else None,
+                      cache_batches=cache_batches, mesh=mesh)
     trainer.load_checkpoint(run_dir / 'last.ckpt')
     max_epochs = (trainer.epoch + extra_epochs if extra_epochs is not None
                   else config['trainer_config'].get('max_epochs'))
@@ -352,7 +378,8 @@ def resume_trainrun(run_dir: str, extra_epochs: Optional[int] = None,
                f"{trainer.epoch}")
         results = trainer.fit(max_epochs=max_epochs)
     finally:
-        logger.finish()
+        if logger:
+            logger.finish()
     return _finalize_run(trainer, config, split, test_loader, run_dir,
                          results)
 
@@ -361,9 +388,10 @@ def safe_trainrun(config: Dict, project_dir: str = 'runs',
                   run_name: Optional[str] = None, **kwargs) -> Dict:
     """do_trainrun with one automatic resume-from-last-checkpoint retry.
 
-    The retry keeps the run's execution mode (cache_batches, device), and
-    runs started with a dataset_override cannot be resumed (the datasets
-    are not persisted), so the original error is re-raised instead."""
+    The retry keeps the run's execution mode (cache_batches, device,
+    mesh), and runs started with a dataset_override cannot be resumed (the
+    datasets are not persisted), so the original error is re-raised
+    instead."""
     try:
         return do_trainrun(config, project_dir, run_name, **kwargs)
     except Exception:
@@ -377,5 +405,5 @@ def safe_trainrun(config: Dict, project_dir: str = 'runs',
             return resume_trainrun(
                 str(run_dir),
                 cache_batches=kwargs.get('cache_batches', False),
-                device=kwargs.get('device'))
+                device=kwargs.get('device'), mesh=kwargs.get('mesh'))
         raise

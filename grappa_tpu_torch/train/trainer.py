@@ -233,7 +233,29 @@ class Trainer:
     PyTorch runs every step eagerly, so here it is the cached loop with the
     scan's rules: it requires cache_batches and uniform batch shapes
     (fixed_pad), and validation runs on a fixed-pad copy of the val loader.
-    None reads trainer_config['scan_epochs'] (default off)."""
+    None reads trainer_config['scan_epochs'] (default off).
+
+    mesh: a `parallel.dp.Mesh` trains data-parallel, every rank running
+    the same Trainer on its own device (the model's) with a GraphLoader of
+    the same seed. Each optimizer step takes W loader batches: rank r
+    takes batch i where i % W == r and the ranks' gradients are averaged
+    (`parallel.dp.make_dp_train_step`). A trailing group of k < W batches
+    is padded by cycling its batches (rank r >= k takes its batch
+    (r - k) % k), the k real batches' loss weights scaled by W / k and
+    the padding's zeroed, so the mean is the real batches' (the JAX
+    package's rule). A rank collates only its own batches: the loader
+    skips the others (`GraphLoader.select`), drawing its RNG as if it
+    collated them, so every rank sees the order the JAX package's loader
+    draws. With cache_batches a rank caches its own slots (one a group,
+    its padding last), and each epoch shuffles its real slots with a seed
+    drawn on every rank alike and the rank's index, so the groups change
+    from epoch to epoch while the trailing group's scale stays by
+    position; scan_epochs runs that cache as one
+    `make_dp_scan_epoch_step`. Rank 0's parameters and Adam
+    state are broadcast at the start. Rank 0 alone logs and writes
+    checkpoints, and every host decision (plateau decay, early stop, the
+    time limits) is rank 0's, broadcast; every rank validates, rank 0's
+    metrics count."""
 
     def __init__(self, model: torch.nn.Module, train_loader, val_loader,
                  lit_config: Dict, trainer_config: Dict,
@@ -242,22 +264,32 @@ class Trainer:
                  log_fn: Optional[Callable[[Dict], None]] = None,
                  seed: int = 0,
                  cache_batches: bool = False,
-                 scan_epochs: Optional[bool] = None):
+                 scan_epochs: Optional[bool] = None,
+                 mesh=None):
         self.model = model
         self.device = next(model.parameters()).device
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.cfg = lit_config
         self.trainer_cfg = trainer_config
-        self.out_dir = Path(out_dir) if out_dir else None
+        self.mesh = mesh
+        # only rank 0 of a mesh writes checkpoints and logs
+        writer = mesh is None or mesh.rank == 0
+        self.out_dir = Path(out_dir) if out_dir and writer else None
         self.full_config = full_config or {}
-        self.log_fn = log_fn or (lambda d: None)
+        self.log_fn = (log_fn if writer else None) or (lambda d: None)
 
         self.optimizer = make_optimizer(
             grad_clip=trainer_config.get('gradient_clip_val', 10.0),
             weight_decay=lit_config.get('weight_decay', 0.0))
         self.train_step = make_train_step(model, self.optimizer)
         self.eval_step = make_eval_step(model)
+        if mesh is not None:
+            from grappa_tpu_torch.parallel.dp import (
+                make_dp_train_step, replicate)
+            replicate(model, mesh, self.optimizer)
+            self.dp_train_step = make_dp_train_step(model, self.optimizer,
+                                                    mesh)
 
         self.lr = float(lit_config['lr'])
         self.start_qm_epochs = int(lit_config.get('start_qm_epochs', 1))
@@ -281,6 +313,11 @@ class Trainer:
             raise ValueError("scan_epochs requires cache_batches=True "
                              "(the scan consumes device-resident batches)")
         self.scan_epochs = scan_epochs
+        self._dp_scan_cache = None
+        if scan_epochs and mesh is not None:
+            from grappa_tpu_torch.parallel.dp import make_dp_scan_epoch_step
+            self.dp_scan_step = make_dp_scan_epoch_step(model, self.optimizer,
+                                                        mesh)
         if scan_epochs and val_loader is not None and not val_loader.fixed_pad:
             # as the JAX package: the scanned validation pass runs on a
             # trainer-local shallow copy flipped to the fixed worst-case
@@ -369,11 +406,13 @@ class Trainer:
         activities = [ProfilerActivity.CPU]
         if self.device.type == 'cuda':
             activities.append(ProfilerActivity.CUDA)
-        batches = iter(self.train_loader)
+        batches = (iter(self.train_loader) if self.mesh is None
+                   else self.train_loader.select(self._dp_plan()[0]))
+        step = self.train_step if self.mesh is None else self.dp_train_step
         try:
             with profile(activities=activities) as prof:
                 for batch, ds_names in itertools.islice(batches, n_steps):
-                    self.train_step(
+                    step(
                         batch, self._loss_weights(ds_names, batch.num_mols),
                         self.lr, self._gen)
                 if self.device.type == 'cuda':
@@ -390,6 +429,10 @@ class Trainer:
             self.optimizer.reset()
             self._warmup_step = 0
 
+        if self.mesh is not None:
+            return self._finish_epoch(self._train_epoch_dp_scan()
+                                      if self.scan_epochs
+                                      else self._train_epoch_dp())
         losses = []
         batches = self._train_batches()
         while True:
@@ -407,15 +450,121 @@ class Trainer:
             self.timings['step_s'].append(time.perf_counter() - t1)
             losses.append(loss)
             self.global_step += 1
-        # one host fetch of the epoch's losses
+        return self._finish_epoch(losses)
+
+    def _finish_epoch(self, losses) -> float:
+        """One host fetch of the epoch's losses; the epoch's mean."""
         t0 = time.perf_counter()
-        values = torch.stack(losses).cpu().tolist() if losses else []
+        values = (torch.stack(list(losses)).cpu().tolist() if len(losses)
+                  else [])
         self.timings['fetch_s'].append(time.perf_counter() - t0)
         self.train_losses.append(values)
         mean_loss = float(np.mean(values)) if values else 0.0
         self.log_fn({'epoch': self.epoch, 'train_loss': mean_loss,
                      'lr': self.lr})
         return mean_loss
+
+    def _dp_plan(self):
+        """This rank's share of an epoch (class doc): (keep, scale,
+        n_real). keep(i) says whether the rank takes loader batch i: one a
+        group, in group order. scale (n_groups,) float32: each group's
+        weight scale, 1 but for a trailing group of k < W, where it is
+        W / k on ranks r < k and 0 on the others, which take a padding
+        replica. n_real: the rank's real batches (its padding is last)."""
+        w, r = self.mesh.size, self.mesh.rank
+        n = len(self.train_loader)
+        n_groups = -(-n // w)
+        k = n - (n_groups - 1) * w
+        scale = np.ones(n_groups, np.float32)
+        pad = -1
+        if 0 < k < w:
+            scale[-1] = w / k if r < k else 0.0
+            if r >= k:
+                pad = (n_groups - 1) * w + (r - k) % k
+        n_real = n_groups - int(pad >= 0)
+        return (lambda i: i % w == r or i == pad), scale, n_real
+
+    def _dp_order(self, n_real: int, n_groups: int) -> np.ndarray:
+        """The epoch's order of this rank's cached slots: its real slots
+        shuffled, its padding last. The seed is drawn from the Trainer's
+        generator on every rank alike (the generators stay in step), and
+        the rank's index makes its shuffle its own."""
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self._gen))
+        rng = np.random.default_rng((seed, self.mesh.rank))
+        return np.concatenate([rng.permutation(n_real),
+                               np.arange(n_real, n_groups)])
+
+    def _dp_cache(self):
+        """This rank's slots of the epoch, collated once: ([(batch,
+        names)], scale, n_real) of _dp_plan."""
+        if self._batch_cache is None:
+            keep, scale, n_real = self._dp_plan()
+            slots = list(self.train_loader.select(keep))
+            if self.scan_epochs:
+                # every rank raises, or none: a lone raise would hang the
+                # others in their next collective
+                ragged = torch.tensor(
+                    [float(len({b.shapes() for b, _ in slots}) > 1)],
+                    device=self.mesh.device)
+                if float(self.mesh.all_reduce_(ragged)) > 0:
+                    raise ValueError(
+                        "scan_epochs needs uniform batch shapes — use a "
+                        "loader with fixed_pad=True (the training default)")
+            self._batch_cache = (slots, scale, n_real)
+        return self._batch_cache
+
+    def _train_epoch_dp(self) -> List[torch.Tensor]:
+        """One epoch of data-parallel steps, a group of W loader batches a
+        step (class doc): the rank's batch of each group, its weights
+        times the group's scale."""
+        if self.cache_batches:
+            slots, scale, n_real = self._dp_cache()
+            items = [slots[i] for i in self._dp_order(n_real, len(scale))]
+        else:
+            keep, scale, _ = self._dp_plan()
+            items = self.train_loader.select(keep)
+        losses: List[torch.Tensor] = []
+        for g, (batch, names) in enumerate(items):
+            weights = self._loss_weights(names, batch.num_mols)
+            if scale[g] != 1.0:
+                # float32 products, as the JAX package's x * float32(scale)
+                weights = LossWeights(*(
+                    torch.as_tensor(x, dtype=torch.float32,
+                                    device=self.device) * float(scale[g])
+                    for x in weights))
+            t0 = time.perf_counter()
+            loss, _ = self.dp_train_step(batch, weights, self._step_lr(),
+                                         self._gen)
+            self.timings['step_s'].append(time.perf_counter() - t0)
+            losses.append(loss)
+            self.global_step += 1
+        return losses
+
+    def _train_epoch_dp_scan(self) -> torch.Tensor:
+        """The cached data-parallel epoch (`make_dp_scan_epoch_step`) over
+        this rank's slots, stacked once: the real slots first and the
+        padding last; the trailing group's weight scale is positional, so
+        the epoch's shuffle of the real slots keeps the loop's group
+        rule."""
+        from grappa_tpu_torch.data.graph_batch import stack_batches
+        from grappa_tpu_torch.parallel.dp import stack_loss_weights
+        if self._dp_scan_cache is None:
+            slots, scale, n_real = self._dp_cache()
+            self._dp_scan_cache = (
+                stack_batches([b for b, _ in slots]),
+                torch.from_numpy(scale),
+                [(n, b.num_mols) for b, n in slots], n_real)
+            self._batch_cache = None     # the stack holds the batches
+        flat_b, scale, names_mols, n_real = self._dp_scan_cache
+        # the curriculum's weights are restacked every epoch
+        flat_w = stack_loss_weights([self._loss_weights(n, m)
+                                     for n, m in names_mols])
+        perm = self._dp_order(n_real, len(names_mols))
+        lrs = [self._step_lr() for _ in names_mols]
+        losses = self.dp_scan_step(flat_b, flat_w, scale, perm, lrs,
+                                   self._gen)
+        self.global_step += len(names_mols)
+        return losses
 
     def _train_batches(self):
         if not self.cache_batches:
@@ -506,6 +655,9 @@ class Trainer:
         # fit() (or a save outside fit) doesn't double-count it
         self.elapsed_time += time.time() - start_time
         self._fit_start = None
+        if self.mesh is not None:
+            # rank 0's checkpoints are on disk before any rank reads them
+            self.mesh.barrier()
         return {'best_early_stopping_loss': self.best_loss,
                 'epochs': self.epoch, 'history': self.history}
 
@@ -517,6 +669,9 @@ class Trainer:
             t_train = time.time() - t_ep
             t_val0 = time.time()
             metrics = self.validate()
+            if self.mesh is not None:
+                # every decision below reads rank 0's metrics
+                metrics = self.mesh.broadcast_object(metrics)
             t_val = time.time() - t_val0
             self.timings['train_s'].append(t_train)
             self.timings['val_s'].append(t_val)
@@ -562,12 +717,14 @@ class Trainer:
 
             elapsed_h = (time.time() - start_time + self.elapsed_time) / 3600.0
             relevant = [v for k, v in finish_criterion.items() if k < elapsed_h]
-            if relevant and es_loss > min(relevant):
-                break
-            if time_limit_h is not None and elapsed_h > time_limit_h:
-                break
-            if session_limit_h is not None and (
-                    (time.time() - start_time) / 3600.0 > session_limit_h):
+            stop = bool(
+                (relevant and es_loss > min(relevant))
+                or (time_limit_h is not None and elapsed_h > time_limit_h)
+                or (session_limit_h is not None and (
+                    (time.time() - start_time) / 3600.0 > session_limit_h)))
+            if self.mesh is not None:
+                stop = self.mesh.broadcast_object(stop)   # rank 0's clock
+            if stop:
                 break
 
             if self.out_dir and self.epoch % ckpt_every == 0:

@@ -99,7 +99,9 @@ def test_import_without_jax():
     reads its config without pyyaml. The MD engines (openmm, openff,
     rdkit, kimmdy) and matplotlib are blocked too: the wrappers and the
     lazy top-level names resolve without them, and an engine's entry point
-    raises a clear ImportError."""
+    raises a clear ImportError. grappa_tpu_torch.parallel holds every
+    public function of the JAX package's parallel.dp and parallel.sp under
+    its name."""
     modules = sorted(
         '.'.join(p.relative_to(ROOT).with_suffix('').parts)
         .replace('.__init__', '')
@@ -122,6 +124,14 @@ def test_import_without_jax():
             "    raise AssertionError('no ImportError')\n"
             "except ImportError as e:\n"
             "    assert 'openmm is not installed' in str(e), e\n"
+            "from grappa_tpu_torch import parallel\n"
+            "for n in ('make_mesh', 'shard_batches', 'make_dp_train_step',\n"
+            "          'make_dp_scan_epoch_step', 'make_dp_eval_step',\n"
+            "          'make_conf_sharded_energy_fn', 'replicate',\n"
+            "          'stack_loss_weights', 'atom_sharded_pad_spec',\n"
+            "          'shard_batch_by_atoms', 'make_atom_sharded_forward',\n"
+            "          'make_atom_sharded_train_step'):\n"
+            "    assert callable(getattr(parallel, n)), n\n"
             "for m in ('grappa_tpu', 'openmm', 'openff', 'rdkit', 'kimmdy',\n"
             "          'matplotlib'):\n"
             "    assert sys.modules.get(m) is None, m\n")
