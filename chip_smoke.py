@@ -12,6 +12,9 @@
     python3 chip_smoke.py --data           # phases 1 and 12 alone
     python3 chip_smoke.py --gnn-calls      # K1 / K1b bf16 a call, profile
     python3 chip_smoke.py --parallel       # phases 1 and 13 alone
+    python3 chip_smoke.py --parallel-bf16  # phases 1, 13(e) and 13(f)
+    python3 chip_smoke.py --parallel-bf16 --spread  # and 13(e)'s one-ulp
+                                                    # spread reading
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit, the torch / CUDA versions;
@@ -266,10 +269,34 @@ Phases, each printing its own lines:
      step and MD ms, with the card's name and power limit; two ranks on
      one card show the arithmetic and the collectives' placement, not a
      multi-card speed.
+     13(e) the same paths with the default model in bf16
+     (compute_dtype='bfloat16'), deterministic algorithms on: a mesh of
+     one NCCL rank, 3 bf16 DP steps bit for bit with bf16 make_train_step
+     (else where they part); two gloo ranks: the bf16 DP step on the
+     shares against one process's mean of the shares' bf16 gradients
+     (13(b)'s tolerances), a bf16 Trainer(mesh=...) epoch, the
+     atom-sharded bf16 forward and step at 12,000 atoms against the
+     unsharded bf16 ones on the card (13(d)'s tolerances, the step's
+     loss gated in float64: the sharded prediction's float64 loss
+     against the unsharded prediction's, the float32 losses readings;
+     with --spread the unsharded step's own one-ulp spread as a
+     reading), the collectives' operand
+     dtypes, the bf16 launches (7 / 12 / 4 a forward and a step a rank,
+     no float32 launch; the sharded step's 7 / 12 through K1's / K2's
+     `_rows` builds), and K1 / K1b, K2 / K2b in bf16 through `_rows` at
+     every shape the sharded step gives them (K1 at a rank's nodes, K2 at
+     each writer's S and T) on every rank's rows against their plain
+     bf16 versions (10(a) / 10(c)(a)'s rule), at rank 1's nodes and n4
+     tuples beside the unsharded bf16 kernel's time at those rows. 13(f)
+     the atom-sharded MM energy with K5 / K5b (2 / 2 launches a call a
+     rank) against the sharded plain path (6(b)'s tolerances) and the
+     unsharded K5 path (13(d)'s). The `parallel_bf16` line: step,
+     forward, all-reduce and energy ms and peak memory a rank, with the
+     card's name and power limit.
 
 The `trainrun {...}`, `trainrun_bf16 {...}`, `eval {...}`, `ingest
-{...}`, `gmx {...}`, phase 12's five lines and `parallel {...}` come
-before
+{...}`, `gmx {...}`, phase 12's five lines, `parallel {...}` and
+`parallel_bf16 {...}` come before
 the last three lines, which are a
 JSON object describing the kernels, the card's name and power limit, and
 {"ok": true, "device": {...}}. In the kernels'
@@ -277,7 +304,9 @@ line, `launches` sums the main paths (the two predict paths and the ten
 training steps, phase 8's training run and phase 9's eval and ingest
 paths, phase 11's gmx path, phase 12's sweep and plots and phase 13's
 steps and atom-sharded paths (`parallel`, the ranks' summed) for K1-K3
-and the sweep and phase 13 for K1b-K3b; phase 6's four paths for K5 and K5b;
+and the sweep and phase 13 for K1b-K3b; phase 6's four paths and 13(f)'s
+sharded energy (`parallel_sharded_energy`) for K5 and K5b; 13(e)'s bf16
+steps and atom-sharded paths (`parallel_bf16`) for the bf16 entries;
 `launches_per_path` gives each), and `ms`, `plain_ms`, `bound_ms`,
 `gflop` and `mbytes` sum one call at each shape of each path; K1-K3 and
 K1b-K3b also give `bound_tc_ms` (3 x their FLOPs at the 495 TFLOP/s TF32
@@ -485,6 +514,16 @@ REF_FIELDS = {'n2_k': ('n2', 'k_ref'), 'n2_eq': ('n2', 'eq_ref'),
               'n3_k': ('n3', 'k_ref'), 'n3_eq': ('n3', 'eq_ref'),
               'n4_k': ('n4', 'k_ref'),
               'n4_improper_k': ('n4_improper', 'k_ref')}
+# phase 13(e): the bf16 mesh (the default config with PAR_BF16), held
+# against the port's unsharded bf16 path on the card at 13(a)-(d)'s
+# tolerances, the ranks and the references with deterministic algorithms
+# on: the same kernels on the same rows then keep the two within float32
+# order. A bf16 step's gradients at 12,000 atoms move by ~5% under a
+# one-ulp weight change (the bf16 roundings cascade; `--spread` prints
+# it): a rule scaled by it would pass a step whose masks are wrong.
+# 13(f): K5 / K5b on SP_ATOMS atoms over the ranks, phase 6(b)'s
+# tolerances against the sharded plain path, (d)'s against the unsharded
+PAR_BF16 = {'compute_dtype': 'bfloat16'}
 
 FAILURES = []
 
@@ -4943,16 +4982,19 @@ def parallel_rank(rank, world, work):
     dist.destroy_process_group()
 
 
-def float64_loss_gradients(torch, cfg, batch, weights):
+def float64_loss_gradients(torch, cfg, batch, weights, ulp=False):
     """The loss of the first step's prediction (phase 13's weights, the
     training-mode forward with PAR_SEED's dropout seeds) in float64 from
     the float32 parameters on, and its gradients (float32, the model's
     backward as in a step): a step's gradients with the loss resolved
     past float32 (the centred energies of a molecule whose total is ~1e7
     carry a few units of rounding). On a rank's shard every rank calls it
-    and the gradients are the rank's part."""
+    and the gradients are the rank's part. ulp: every weight one float32
+    ulp away first (`ulp_model`)."""
     from grappa_tpu_torch.train.loss import LossWeights, molwise_loss
     model = parallel_model(torch, cfg).train()
+    if ulp:
+        ulp_model(torch, model)
     pred = model(batch, torch.Generator().manual_seed(PAR_SEED))
     up = lambda t: t.double() if t.is_floating_point() else t
     loss, _ = molwise_loss(batch._map(up), {k: v.double()
@@ -4963,6 +5005,38 @@ def float64_loss_gradients(torch, cfg, batch, weights):
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     return float(loss), [torch.zeros_like(p) if g is None else g.float()
                          for p, g in zip(params, grads)]
+
+
+def ulp_model(torch, model, seed=5):
+    """Every parameter of `model` moved by one float32 ulp in a seeded
+    random direction (10(c)(d)'s one-ulp change)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for q in model.parameters():
+            up = torch.rand(q.shape, generator=gen) < 0.5
+            way = torch.where(up, torch.tensor(float('inf')),
+                              torch.tensor(float('-inf'))).to(q.device)
+            q.copy_(torch.nextafter(q, way))
+    return model
+
+
+def rows_counts():
+    """{op: (`_rows` forward, `_rows` backward) launches} of K1 and K2."""
+    from grappa_tpu_torch.ops.fused_block import fused_transformer_block
+    from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
+    return {c.__name__: (c.rows_launches, c.rows_bwd_launches)
+            for c in (fused_gnn_block, fused_transformer_block)}
+
+
+def counted_rows(torch, fn):
+    """(fn()'s result, bf16_counters' counts, rows_counts) with every count
+    zeroed just before fn and read just after it."""
+    from grappa_tpu_torch.ops.fused_block import fused_transformer_block
+    from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
+    for c in (fused_gnn_block, fused_transformer_block):
+        c.rows_launches = c.rows_bwd_launches = 0
+    out, counts = counted(torch, fn)
+    return out, counts, rows_counts()
 
 
 def offset_kernel_checks(torch):
@@ -5256,6 +5330,597 @@ def parallel_phase(torch, smi):
     return launches, line
 
 
+def parallel_bf16_rank(rank, world, work, spread):
+    """One of phase 13(e)'s gloo ranks on the one card, the default model
+    in bf16 (PAR_BF16), deterministic algorithms on: the DP step on its
+    share of the 128 x 32 batch, a Trainer(mesh=...) epoch with a trailing
+    group, the atom-sharded forward and train step at SP_ATOMS atoms
+    (rank 0 also the unsharded references), and 13(f): the atom-sharded
+    MM energy with and without K5 / K5b on the reference parameters (rank
+    0 also the unsharded fused energy). spread: rank 0 also reads the
+    unsharded step's one-ulp spread. Writes its numbers to
+    bf16_rank<r>.json (rank 0 the DP step's mean gradients to dp16.pt)."""
+    sys.path.insert(0, ROOT)
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    from grappa_tpu_torch.data.dataset import Dataset
+    from grappa_tpu_torch.data.graph_batch import MolGraph, collate
+    from grappa_tpu_torch.data.loader import GraphLoader
+    from grappa_tpu_torch.data.synthetic import make_dataset, make_moldata
+    from grappa_tpu_torch.models import mm_energy
+    from grappa_tpu_torch.models.grappa_model import get_default_model_config
+    from grappa_tpu_torch.parallel import dp, sp
+    from grappa_tpu_torch.train.trainer import (Trainer, make_eval_step,
+                                                make_optimizer,
+                                                make_train_step)
+    cfg = dict(get_default_model_config(), **PAR_BF16)
+    mesh = dp.make_mesh(world, device='cuda:0',
+                        init_method=f'file://{work}/store', rank=rank,
+                        world_size=world, timeout_s=PAR_TIMEOUT_S)
+    res = {'rank': rank, 'backend': mesh.backend, 'launches': {}}
+    gib = lambda: torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def tally(counts):
+        for name, c in counts.items():
+            for key, n in zip((name, f'{name}.bf16', f'{name}.backward',
+                               f'{name}.bf16_bwd'), c):
+                if n:
+                    res['launches'][key] = res['launches'].get(key, 0) + n
+
+    def collectives():
+        seen = sorted(f'{op}:{dt}' for op, dt in dp.COLLECTIVE_DTYPES)
+        dp.COLLECTIVE_DTYPES.clear()
+        return seen
+
+    # the DP step on rank's 64 of the 128 molecules x 32 conformers
+    graphs = training_batches(torch)
+    batch = dp_sub_batches(torch, graphs, world, rank)
+    model = parallel_model(torch, cfg)
+    opt = CaptureAdam(make_optimizer())
+    step = dp.make_dp_train_step(model, opt, mesh)
+    w = loss_weights(torch, batch.num_mols, 'cuda')
+    gen = torch.Generator().manual_seed(PAR_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    dp.COLLECTIVE_DTYPES.clear()
+    ((loss, _), ms), counts, rows = counted_rows(torch, lambda: cuda_ms(
+        torch, lambda: step(batch, w, TRAIN_LR, gen)))
+    tally(counts)
+    res['dp'] = dict(first_ms=ms, counts=counts, rows=rows, loss=float(loss),
+                     collectives=collectives())
+    times = [cuda_ms(torch, lambda: step(batch, w, TRAIN_LR, gen))[1]
+             for _ in range(PAR_DP_STEPS)]
+    ar = [cuda_ms(torch, lambda: dp.mean_over_ranks(opt.seen, mesh))[1]
+          for _ in range(3)]
+    norms = torch.stack([g.double().norm() for g in opt.seen]
+                        + [p.detach().double().norm()
+                           for p in model.parameters()]).float()
+    allnorms = mesh.all_gather(norms[None])
+    res['dp'].update(
+        step_ms=float(np.median(times)), step_ms_all=times,
+        all_reduce_ms=float(np.median(ar)),
+        all_reduce_mb=4 * sum(g.numel() for g in opt.seen) / 1e6,
+        peak_gib=gib(), ranks_equal=bool((allnorms == allnorms[0]).all()))
+    if rank == 0:
+        torch.save({'loss': float(loss),
+                    'grads': [g.cpu() for g in opt.seen]},
+                   os.path.join(work, 'dp16.pt'))
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+
+    # a bf16 Trainer(mesh=...) epoch: 5 batches of 2 over 2 ranks, the last
+    # group a trailing one
+    ds = Dataset.from_moldata(make_dataset(n_mols=PAR_TRAINER_MOLS,
+                                           n_confs=PAR_TRAINER_CONFS,
+                                           seed=PAR_SEED), 'syn')
+    loader = GraphLoader(ds, batch_size=2, conf_strategy=PAR_TRAINER_CONFS,
+                         shuffle=True, drop_last=True, seed=0,
+                         device='cuda')
+    model = parallel_model(torch, cfg)
+    trainer = Trainer(model, loader, None,
+                      {'lr': TRAIN_LR, 'start_qm_epochs': 0,
+                       'warmup_steps': 2, 'patience': 0},
+                      {'max_epochs': 1}, out_dir=None, mesh=mesh)
+    (_, ms), counts = counted(torch, lambda: cuda_ms(torch,
+                                                     trainer.train_epoch))
+    tally(counts)
+    sums = torch.stack([p.detach().double().sum()
+                        for p in model.parameters()]).float()
+    allsums = mesh.all_gather(sums[None])
+    res['trainer'] = dict(losses=trainer.train_losses[0],
+                          steps=trainer.global_step, epoch_ms=ms,
+                          counts=counts,
+                          ranks_equal=bool((allsums == allsums[0]).all()))
+    del model, trainer, loader
+    torch.cuda.empty_cache()
+
+    # the atom-sharded forward and train step: 12,000 atoms x 4 conformers
+    mdata = make_moldata(seed=0, n_confs=FUSION_CONFS, n_atoms=SP_ATOMS)
+    graph = MolGraph.from_moldata(mdata)
+    whole = collate([graph], pad=sp.atom_sharded_pad_spec(
+        [graph], FUSION_CONFS, mesh), device='cuda')
+    sharded = sp.shard_batch_by_atoms(whole, mesh)
+    # the rank's rows K1 and each writer's K2 (S, T) take
+    res['shapes'] = dict(nodes=int(sharded.node_mask.shape[0]), tuples={
+        t: tuple(int(x) for x in sharded.terms[t].idxs.shape[::-1])
+        for t in ('n2', 'n3', 'n4', 'n4_improper')})
+    model = parallel_model(torch, cfg)
+    fwd = sp.make_atom_sharded_forward(model, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    dp.COLLECTIVE_DTYPES.clear()
+    ((energy, grad), ms), counts, rows = counted_rows(torch, lambda: cuda_ms(
+        torch, lambda: fwd(sharded)))
+    tally(counts)
+    res['sp_forward'] = dict(ms=ms, counts=counts, rows=rows,
+                             collectives=collectives(),
+                             warm_ms=cuda_ms(torch, lambda: fwd(sharded))[1])
+    grad_all = mesh.all_gather(grad)
+    sp_model = parallel_model(torch, cfg)
+    sp_opt = CaptureAdam(make_optimizer())
+    sp_step = sp.make_atom_sharded_train_step(sp_model, sp_opt, mesh)
+    wts = loss_weights(torch, 1, 'cuda')
+    ((sp_loss, _), ms), counts, rows = counted_rows(torch, lambda: cuda_ms(
+        torch, lambda: sp_step(sharded, wts, TRAIN_LR,
+                               torch.Generator().manual_seed(PAR_SEED))))
+    tally(counts)
+    res['sp_step'] = dict(ms=ms, counts=counts, rows=rows,
+                          loss=float(sp_loss), peak_gib=gib(),
+                          collectives=collectives())
+    # the sharded gradients of the first step's loss in float64, the
+    # ranks' mean
+    loss64_sh, grads64_sh = float64_loss_gradients(torch, cfg, sharded, wts)
+    grads64_sh = dp.mean_over_ranks(grads64_sh, mesh)
+    if rank == 0:
+        # the unsharded path on the same card, the other rank waiting
+        e_ref, g_ref = make_eval_step(model)(whole)
+        ref_model = parallel_model(torch, cfg)
+        ref_loss, _ = make_train_step(ref_model, make_optimizer())(
+            whole, wts, TRAIN_LR, torch.Generator().manual_seed(PAR_SEED))
+        loss64, grads64 = float64_loss_gradients(torch, cfg, whole, wts)
+        names = [n for n, _ in sp_model.named_parameters()]
+        rl2 = lambda a, b: float((a.double() - b.double()).norm()) / max(
+            float(b.double().norm()), 1e-30)
+        rel = [rl2(a, b) for a, b in zip(grads64_sh, grads64)]
+        worst = int(np.argmax(rel))
+        if spread:
+            _, grads_ulp = float64_loss_gradients(torch, cfg, whole, wts,
+                                                  ulp=True)
+            spread_rel = [rl2(a, b) for a, b in zip(grads_ulp, grads64)]
+            res['spread'] = dict(rl2_median=float(np.median(spread_rel)),
+                                 rl2_min=min(spread_rel))
+        p_ok, p_err = params_close(sp_model, ref_model, SP_PARAM_TOL,
+                                   SP_PARAM_TOL)
+        res['sp_ref'] = dict(
+            energy_ok=bool(((energy - e_ref).abs() <= SP_E_TOL
+                            + SP_E_TOL * e_ref.abs()).all()),
+            energy_err=float((energy - e_ref).abs().max()),
+            grad_ok=bool(((grad_all - g_ref).abs() <= SP_G_TOL
+                          + SP_G_TOL * g_ref.abs()).all()),
+            grad_err=float((grad_all - g_ref).abs().max()),
+            loss=float(ref_loss), loss64=loss64, loss64_sh=loss64_sh,
+            grad_n=len(names),
+            grad_over=sum(r > STEP_GRAD_RL2 for r in rel),
+            grad_rl2_max=max(rel), grad_rl2_median=float(np.median(rel)),
+            worst=names[worst],
+            params_ok=p_ok, params_err=p_err)
+        del ref_model
+    mesh.barrier()
+    del model, sp_model, sp_opt, sp_step
+    torch.cuda.empty_cache()
+
+    # 13(f): the atom-sharded MM energy through K5 / K5b and without
+    params = ref_params(torch, sharded)
+    call = lambda fused: mm_energy.energy_and_gradient(
+        sharded, params, use_fused_torsion=fused)
+    (fused, ms_f), k5 = k5_launches(torch, lambda: cuda_ms(
+        torch, lambda: call(True)))
+    (plain, ms_p), k5_plain = k5_launches(torch, lambda: cuda_ms(
+        torch, lambda: call(False)))
+    for name, n in zip(('torsion_energy_fused', 'torsion_energy_grad'), k5):
+        res['launches'][name] = res['launches'].get(name, 0) + n
+    g_f, g_p = mesh.all_gather(fused[1]), mesh.all_gather(plain[1])
+    e_f, e_p = fused[0], plain[0]
+    res['k5'] = dict(
+        launches=k5, plain_launches=k5_plain, first_ms=ms_f,
+        first_plain_ms=ms_p,
+        fused_ms=timed(torch, lambda: call(True), iters=10),
+        plain_ms=timed(torch, lambda: call(False), iters=10),
+        energy_ok=bool(torch.isfinite(e_f).all() and (
+            (e_f - e_p).abs() <= MODEL_ATOL + MODEL_RTOL * e_p.abs()).all()),
+        energy_err=float((e_f - e_p).abs().max()),
+        grad_rel=max_rel(g_f, g_p), grad_finite=bool(
+            torch.isfinite(g_f).all()))
+    if rank == 0:
+        e_u, g_u = mm_energy.energy_and_gradient(
+            whole, ref_params(torch, whole), use_fused_torsion=True)
+        res['k5'].update(
+            unsharded_energy_ok=bool(((e_f - e_u).abs() <= SP_E_TOL
+                                      + SP_E_TOL * e_u.abs()).all()),
+            unsharded_energy_err=float((e_f - e_u).abs().max()),
+            unsharded_grad_ok=bool(((g_f - g_u).abs() <= SP_G_TOL
+                                    + SP_G_TOL * g_u.abs()).all()),
+            unsharded_grad_err=float((g_f - g_u).abs().max()))
+    mesh.barrier()
+    res['peak_gib'] = gib()
+    with open(os.path.join(work, f'bf16_rank{rank}.json'), 'w') as f:
+        json.dump(res, f)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+def offset_kernel_checks_bf16(torch, shapes):
+    """13(e): K1 / K1b and K2 / K2b in bf16 mode through their `_rows`
+    builds at every shape the sharded step gives them, on every rank's
+    rows: K1 at a rank's nodes (shapes['nodes'], N of PAR_RANKS x N), K2
+    at each writer's tuples (shapes['tuples'][term] = (S, T), T of
+    PAR_RANKS x T), dropout on, against their plain bf16 versions on the
+    unsharded masks' rows, under phase 10(a) / 10(c)(a)'s rule. At rank
+    1's nodes and n4 tuples the unsharded bf16 kernel's time at the same
+    rows stands beside each. Returns {name: (rows ms, unsharded ms)}."""
+    from grappa_tpu_torch.ops import fused_block as fb
+    from grappa_tpu_torch.ops import fused_gnn as fg
+    bf16, world = torch.bfloat16, PAR_RANKS
+    gen = torch.Generator().manual_seed(78)
+    dy_gen = torch.Generator(device='cuda').manual_seed(78)
+    f, heads, hid, hid2, d = 512, 16, 2048, 512, 8
+    on = lambda ts, a: tuple(x.to(a.device) for x in ts)
+    cases = [(fg, 'nodes', (shapes['nodes'], f), 0.3, 17)] + [
+        (fb, term, (s, t, f), 0.5, 101)
+        for term, (s, t) in shapes['tuples'].items()]
+    times = {}
+    for op, term, shape, rate, seed in cases:
+        n = shape[-2]
+        full = op.dropout_masks(seed, (*shape[:-2], world * n, f), rate,
+                                device='cuda')
+        if op is fg:
+            mask = (torch.rand((d, n), generator=gen) < 0.8).float()
+            mask[0] = 1.0
+            mask = mask.cuda()
+            p = rand_params(torch, gen, [
+                ((f, f), 'w'), ((f,), 'b'), ((f,), 'g'), ((f,), 'b'),
+                ((hid, f), 'w'), ((hid,), 'b'), ((f, hid), 'w'),
+                ((f,), 'b')])
+            inputs = [torch.randn((n, f), generator=gen).cuda(),
+                      torch.randn((d, n, f), generator=gen).cuda(),
+                      torch.randn((n, f), generator=gen).cuda(), *p]
+            kernel = lambda dt, r: lambda a, b, c, *q: (
+                fg.fused_gnn_block(a, b, c, mask, q, heads, rate, True,
+                                   seed, mm_dtype=dt, rows=r))
+            plain = lambda dt, ms: lambda a, b, c, *q: (
+                fg.reference_gnn_block(a, b, c, mask.to(a.device), q, heads,
+                                       on(ms, a), dt))
+            name = 'fused_gnn_block'
+            fwd = 2 * n * (f * f + 2 * f * hid) + 4 * float(mask.sum()) * f
+            inb = (2 + d) * n * f + d * n + sum(q.numel() for q in p)
+            io = (fwd, 4 * (inb + n * f)), (2 * fwd, 4 * (2 * inb - d * n
+                                                           + n * f))
+        else:
+            p = rand_params(torch, gen, [
+                ((f,), 'g'), ((f,), 'b'), ((3 * f, f), 'w'), ((3 * f,), 'b'),
+                ((f, f), 'w'), ((f,), 'b'), ((f,), 'g'), ((f,), 'b'),
+                ((hid2, f), 'w'), ((hid2,), 'b'), ((f, hid2), 'w'),
+                ((f,), 'b')])
+            inputs = [torch.randn(shape, generator=gen).cuda(), *p]
+            kernel = lambda dt, r: lambda a, *q: (
+                fb.fused_transformer_block(a, q, 8, rate, True, seed,
+                                           mm_dtype=dt, rows=r))
+            plain = lambda dt, ms: lambda a, *q: fb.reference_block(
+                a, q, 8, on(ms, a), dt)
+            name = 'fused_transformer_block'
+            rs = shape[0] * n
+            fwd = 2 * rs * (4 * f * f + 2 * f * hid2) + 4 * n * 16 * f
+            inb = rs * f + sum(q.numel() for q in p)
+            io = (fwd, 4 * (inb + rs * f)), (2 * fwd, 4 * (2 * inb + rs * f))
+        dy = torch.randn(inputs[0].shape, generator=dy_gen, device='cuda')
+        for rank in range(world):
+            first = rank * n
+            rows = (first, world * n)
+            masks = tuple(m[..., first:first + n, :].contiguous()
+                          for m in full)
+            label = (f'{term}, rank {rank}: rows {first}..{first + n - 1} '
+                     f'of {world * n}{"" if op is fg else f", S {shape[0]}"}'
+                     f', dropout {rate}, the `_rows` build')
+            compare_bf16(torch, {}, name, label,
+                         lambda dt: kernel(dt, rows)(*inputs),
+                         lambda dt: plain(dt, masks)(*inputs), *io[0],
+                         on_path=False)
+            compare_grad_bf16(torch, {}, dict(
+                name=name, label=label, inputs=inputs, dy=dy,
+                kernel=lambda dt, r=rows: kernel(dt, r),
+                plain=lambda dt, ms=masks: plain(dt, ms), bwd=io[1]))
+            if rank != 1 or term not in ('nodes', 'n4'):
+                continue
+
+            def bwd_ms(r):
+                leaves = [x.detach().clone().requires_grad_(True)
+                          for x in inputs]
+                y = kernel(bf16, r)(*leaves)
+                return timed(torch, lambda: torch.autograd.grad(
+                    y, leaves, dy, retain_graph=True), iters=5)
+            times[f'{name}.bf16'] = (
+                timed(torch, lambda: kernel(bf16, rows)(*inputs)),
+                timed(torch, lambda: kernel(bf16, None)(*inputs)))
+            times[f'{name}.bf16_bwd'] = (bwd_ms(rows), bwd_ms(None))
+            (fr, fu), (br, bu) = (times[f'{name}.bf16'],
+                                  times[f'{name}.bf16_bwd'])
+            print(f'(e) {name} bf16 at {label}: forward {fr:.4f} ms '
+                  f'through `_rows`, {fu:.4f} ms unsharded; backward '
+                  f'{br:.4f} / {bu:.4f} ms', flush=True)
+        del full
+    return times
+
+
+def parallel_bf16_phase(torch, smi, spread=False):
+    """Phases 13(e) and 13(f) (PAR_BF16's comment); spread: with the
+    unsharded bf16 step's one-ulp spread as a reading. Returns ({kernel
+    name: launches on 13(e)'s paths}, {K5 / K5b: launches on 13(f)'s},
+    the `parallel_bf16` line)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from grappa_tpu_torch.models.grappa_model import get_default_model_config
+    from grappa_tpu_torch.ops import philox
+    from grappa_tpu_torch.parallel import dp
+    from grappa_tpu_torch.train.trainer import (loss_gradients,
+                                                make_optimizer,
+                                                make_train_step)
+    phase('13(e), (f). bf16 on the mesh; K5 on the atom-sharded energy')
+    torch.cuda.empty_cache()
+    cfg = dict(get_default_model_config(), **PAR_BF16)
+    line = {'card': smi, 'compute_dtype': PAR_BF16['compute_dtype']}
+    launches, k5_launches_all = {}, {}
+
+    def tally(counts):
+        for name, c in counts.items():
+            for key, n in zip((name, f'{name}.bf16', f'{name}.backward',
+                               f'{name}.bf16_bwd'), c):
+                if n:
+                    launches[key] = launches.get(key, 0) + n
+
+    # (e) a mesh of one rank on NCCL: 3 bf16 DP steps = bf16
+    # make_train_step's, bit for bit
+    graphs = training_batches(torch)
+    batch = dp_sub_batches(torch, graphs, 1, 0)
+    w = loss_weights(torch, batch.num_mols, 'cuda')
+    mesh = dp.make_mesh(1)
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        a, b = parallel_model(torch, cfg), parallel_model(torch, cfg)
+        names = [n for n, _ in a.named_parameters()]
+        sa = make_train_step(a, make_optimizer())
+        sb = dp.make_dp_train_step(b, make_optimizer(), mesh)
+        ga = torch.Generator().manual_seed(PAR_SEED)
+        gb = torch.Generator().manual_seed(PAR_SEED)
+        ms_a, ms_b, parted, total = [], [], None, {}
+        for i in range(PAR_DP_STEPS):
+            (la, _), t = cuda_ms(torch, lambda: sa(batch, w, TRAIN_LR, ga))
+            ms_a.append(t)
+            ((lb, _), t), counts = counted(torch, lambda: cuda_ms(
+                torch, lambda: sb(batch, w, TRAIN_LR, gb)))
+            ms_b.append(t)
+            tally(counts)
+            for k, c in counts.items():
+                total[k] = tuple(x + y for x, y in zip(total.get(
+                    k, (0, 0, 0, 0)), c))
+            if parted is None:
+                diff = [j for j, (p, q) in enumerate(zip(a.parameters(),
+                                                         b.parameters()))
+                        if not torch.equal(p, q)]
+                if diff or not torch.equal(la, lb):
+                    j = diff[0] if diff else 0
+                    pa, pb = list(a.parameters())[j], list(b.parameters())[j]
+                    parted = dict(step=i + 1, loss_equal=bool(
+                        torch.equal(la, lb)), loss_diff=float(la - lb),
+                        tensors=len(diff), first=names[j] if diff else None,
+                        max_abs=float((pa - pb).abs().max()))
+        flat = torch.cat([p.detach().reshape(-1) for p in b.parameters()])
+        ar = [cuda_ms(torch, lambda: mesh.all_reduce_(flat))[1]
+              for _ in range(3)]
+        check(mesh.backend == 'nccl' and parted is None,
+              f'(e) bf16, world size 1 on {mesh.backend}: {PAR_DP_STEPS} DP '
+              f'steps at 128 x 32 with dropout equal bf16 make_train_step\'s '
+              f'bit for bit (deterministic algorithms on); where they part: '
+              f'{parted}')
+        want = want_counts(True, True, PAR_DP_STEPS, PAR_DP_STEPS)
+        check(total == want, f'(e) bf16 launches of the {PAR_DP_STEPS} DP '
+                             f'steps {total} (want {want}: no float32 '
+                             f'launch)')
+        line['nccl_world_1'] = dict(
+            step_ms=float(np.median(ms_b)),
+            make_train_step_ms=float(np.median(ms_a)),
+            all_reduce_ms=float(np.median(ar)),
+            all_reduce_mb=flat.numel() * 4 / 1e6, parted=parted,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del a, b, sa, sb, flat
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # two gloo ranks sharing the card
+    os.makedirs(os.path.join(ROOT, 'runs'), exist_ok=True)
+    work = tempfile.mkdtemp(prefix='parallel_bf16_', dir=os.path.join(
+        ROOT, 'runs'))
+    t0 = time.time()
+    try:
+        ctx = mp.start_processes(parallel_bf16_rank,
+                                 args=(PAR_RANKS, work, spread),
+                                 nprocs=PAR_RANKS, join=False,
+                                 start_method='spawn')
+        deadline = time.time() + PAR_JOIN_S
+        try:
+            while not ctx.join(timeout=2):
+                if time.time() > deadline:
+                    raise TimeoutError(f'the ranks ran past {PAR_JOIN_S} s')
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = []
+        for r in range(PAR_RANKS):
+            with open(os.path.join(work, f'bf16_rank{r}.json')) as f:
+                ranks.append(json.load(f))
+        dp_out = torch.load(os.path.join(work, 'dp16.pt'),
+                            weights_only=False)
+    except Exception as exc:
+        check(False, f'(e)-(f) the gloo ranks: {type(exc).__name__}: {exc}')
+        shutil.rmtree(work, ignore_errors=True)
+        return launches, k5_launches_all, line
+    shutil.rmtree(work, ignore_errors=True)
+    wall = time.time() - t0
+
+    # (e) the DP step against one process's mean of the shares' bf16
+    # gradients (the same dropout seeds, deterministic algorithms on)
+    losses, grads = [], None
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for r in range(PAR_RANKS):
+            model = parallel_model(torch, cfg)
+            sub = dp_sub_batches(torch, graphs, PAR_RANKS, r)
+            loss, _, g = loss_gradients(
+                model, sub, loss_weights(torch, sub.num_mols, 'cuda'),
+                philox.RankSeeds(torch.Generator().manual_seed(PAR_SEED), r,
+                                 PAR_RANKS))
+            losses.append(float(loss))
+            g = [x.float() for x in g.values()]
+            grads = g if grads is None else [x + y for x, y in zip(grads, g)]
+            del model, sub
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want_loss = float(np.mean(losses))
+    rel = [float((x.cuda() - y / PAR_RANKS).norm()
+                 / max(float((y / PAR_RANKS).norm()), 1e-30))
+           for x, y in zip(dp_out['grads'], grads)]
+    loss_rel = abs(dp_out['loss'] - want_loss) / abs(want_loss)
+    check(loss_rel <= STEP_LOSS_RTOL and max(rel) <= STEP_GRAD_RL2
+          and all(r['dp']['ranks_equal'] for r in ranks),
+          f'(e) bf16, {PAR_RANKS} gloo ranks on one card '
+          f'({ranks[0]["backend"]}): the DP step on {PAR_RANKS} x '
+          f'{TRAIN_MOLS // PAR_RANKS} x {TRAIN_CONFS} against one process\'s '
+          f'mean of the shares\' bf16 gradients (same dropout seeds): loss '
+          f'rel {loss_rel:.3e} (tol {STEP_LOSS_RTOL}), worst gradient '
+          f'relative L2 {max(rel):.3e} (tol {STEP_GRAD_RL2}); every rank '
+          f'the same mean and parameters '
+          f'{all(r["dp"]["ranks_equal"] for r in ranks)}')
+    rows0 = {'fused_gnn_block': [0, 0], 'fused_transformer_block': [0, 0]}
+    for r in ranks:
+        print(f'(e) rank {r["rank"]}: collectives by operand dtype: DP step '
+              f'{r["dp"]["collectives"]}, sharded forward '
+              f'{r["sp_forward"]["collectives"]}, sharded step '
+              f'{r["sp_step"]["collectives"]}', flush=True)
+        for key, nf, nb, rows_want in (
+                ('dp', 1, 1, rows0), ('sp_forward', 1, 0, rows0),
+                ('sp_step', 1, 1, {'fused_gnn_block': [7, 7],
+                                   'fused_transformer_block': [12, 12]})):
+            want = want_counts(True, True, nf, nb)
+            got = {k: tuple(v) for k, v in r[key]['counts'].items()}
+            check(got == want and r[key]['rows'] == rows_want,
+                  f'(e) rank {r["rank"]}: launches of the bf16 {key} {got} '
+                  f'(want {want}: no float32 launch), of the `_rows` builds '
+                  f'(forward, backward) {r[key]["rows"]} (want {rows_want})')
+        t = r['trainer']
+        check(t['steps'] == 3 and all(np.isfinite(t['losses']))
+              and t['ranks_equal']
+              and {k: tuple(v) for k, v in t['counts'].items()}
+              == want_counts(True, True, 3, 3),
+              f'(e) rank {r["rank"]}: bf16 Trainer(mesh=...) epoch of 5 '
+              f'batches: {t["steps"]} steps (the last a trailing group of '
+              f'1), losses {t["losses"]}, parameters equal on every rank '
+              f'{t["ranks_equal"]}, launches {t["counts"]}')
+        for name, n in r['launches'].items():
+            target = (k5_launches_all if name.startswith('torsion')
+                      else launches)
+            target[name] = target.get(name, 0) + n
+    s = ranks[0]['sp_ref']
+    check(s['energy_ok'] and s['grad_ok'],
+          f'(e) bf16 atom-sharded forward, {SP_ATOMS} atoms x '
+          f'{FUSION_CONFS} conformers over {PAR_RANKS} ranks, against the '
+          f'unsharded bf16 forward: energy max err {s["energy_err"]:.3e} '
+          f'(tol {SP_E_TOL} + {SP_E_TOL}|E|), dE/dx max err '
+          f'{s["grad_err"]:.3e} (tol {SP_G_TOL} + {SP_G_TOL}|g|)')
+    # the gate: the float64 loss of the sharded prediction (a float32
+    # loss of a ~1e7 total resolves only ~1e-3 of it; the step's float32
+    # losses are readings)
+    sp_loss, l64, l64_sh = (ranks[0]['sp_step']['loss'], s['loss64'],
+                            s['loss64_sh'])
+    off_sp, off_ref = abs(sp_loss - l64), abs(s['loss'] - l64)
+    off64 = abs(l64_sh - l64) / abs(l64)
+    spread_note = ('' if 'spread' not in ranks[0] else
+                   f'; reading: the unsharded step\'s own one-ulp spread, '
+                   f'median relative L2 '
+                   f'{ranks[0]["spread"]["rl2_median"]:.3e}')
+    check(off64 <= SP_LOSS_RTOL and np.isfinite(sp_loss)
+          and s['grad_over'] == 0 and s['params_ok'],
+          f'(e) bf16 atom-sharded train step with dropout: the float64 loss '
+          f'of the sharded prediction {l64_sh:.9e} against the unsharded '
+          f'prediction\'s {l64:.9e}, rel {off64:.3e} (tol {SP_LOSS_RTOL}); '
+          f'readings: the step\'s float32 loss {sp_loss:.6e}, rel '
+          f'{off_sp / abs(l64):.3e} from the float64 loss, the unsharded '
+          f'step\'s {s["loss"]:.6e}, rel {off_ref / abs(l64):.3e}; with the '
+          f'loss in float64 on both sides, {s["grad_over"]} of the '
+          f'{s["grad_n"]} all-reduced gradients past relative L2 '
+          f'{STEP_GRAD_RL2} against the unsharded (tol 0; max '
+          f'{s["grad_rl2_max"]:.3e} at {s["worst"]}, median '
+          f'{s["grad_rl2_median"]:.3e}{spread_note}); parameters max |diff| '
+          f'{s["params_err"]:.3e} (tol {SP_PARAM_TOL} + {SP_PARAM_TOL}|p|)')
+    kernel_times = offset_kernel_checks_bf16(torch, ranks[0]['shapes'])
+
+    # (f) K5 / K5b on the atom-sharded energy
+    for r in ranks:
+        k = r['k5']
+        check(k['energy_ok'] and k['grad_finite']
+              and k['grad_rel'] <= FORCE_RTOL and tuple(k['launches'])
+              == (2, 2) and tuple(k['plain_launches']) == (0, 0),
+              f'(f) rank {r["rank"]}: sharded energy + dE/dx, {SP_ATOMS} '
+              f'atoms over {PAR_RANKS} ranks, reference parameters, with K5 '
+              f'against without: energy max err {k["energy_err"]:.3e} (tol '
+              f'{MODEL_ATOL} + {MODEL_RTOL}|E|), dE/dx max|err|/max '
+              f'{k["grad_rel"]:.3e} (tol {FORCE_RTOL}); K5 / K5b launches '
+              f'{k["launches"]} (want 2 / 2), without {k["plain_launches"]}')
+    k = ranks[0]['k5']
+    check(k['unsharded_energy_ok'] and k['unsharded_grad_ok'],
+          f'(f) sharded energy with K5 against the unsharded with K5: '
+          f'energy max err {k["unsharded_energy_err"]:.3e} (tol {SP_E_TOL} + '
+          f'{SP_E_TOL}|E|), dE/dx max err {k["unsharded_grad_err"]:.3e} '
+          f'(tol {SP_G_TOL} + {SP_G_TOL}|g|)')
+
+    line['gloo_two_ranks_one_card'] = dict(
+        note=f'{PAR_RANKS} processes sharing one card over gloo: the '
+             f'collectives go through host memory; no multi-card speed',
+        wall_s=wall, dp_loss_rel=loss_rel, dp_grad_rel_l2=max(rel),
+        sp=dict(atoms=SP_ATOMS, energy_err=s['energy_err'],
+                grad_err=s['grad_err'],
+                loss64_sharded_rel=off64,
+                loss_off64_sharded=off_sp / abs(l64),
+                loss_off64_unsharded=off_ref / abs(l64),
+                grad64_rel_l2_max=s['grad_rl2_max'],
+                grad64_rel_l2_median=s['grad_rl2_median'],
+                grad64_over=s['grad_over'],
+                spread=ranks[0].get('spread'),
+                params_err=s['params_err']),
+        rows_kernels_ms=kernel_times,
+        ranks=[dict(
+            rank=r['rank'], dp_step_ms=r['dp']['step_ms'],
+            dp_step_ms_all=r['dp']['step_ms_all'],
+            dp_first_step_ms=r['dp']['first_ms'],
+            all_reduce_ms=r['dp']['all_reduce_ms'],
+            all_reduce_mb=r['dp']['all_reduce_mb'],
+            dp_peak_gib=r['dp']['peak_gib'],
+            trainer_epoch_ms=r['trainer']['epoch_ms'],
+            sp_forward_ms=r['sp_forward']['ms'],
+            sp_forward_warm_ms=r['sp_forward']['warm_ms'],
+            sp_step_ms=r['sp_step']['ms'],
+            sp_step_peak_gib=r['sp_step']['peak_gib'],
+            k5_sharded_ms=r['k5']['fused_ms'],
+            plain_sharded_ms=r['k5']['plain_ms'],
+            peak_gib=r['peak_gib']) for r in ranks])
+    return launches, k5_launches_all, line
+
+
 def report_failures() -> int:
     """1 after naming each failed check on standard error (the tail a
     caller that keeps only the end of the output sees), else 0."""
@@ -5282,6 +5947,9 @@ def main() -> int:
     gmx_only = sys.argv[1:] == ['--gmx']
     data_only = sys.argv[1:] == ['--data']
     parallel_only = sys.argv[1:] == ['--parallel']
+    parallel_bf16_only = sys.argv[1:] == ['--parallel-bf16']
+    spread = sys.argv[1:] == ['--parallel-bf16', '--spread']
+    parallel_bf16_only |= spread
     sys.path.insert(0, ROOT)
     import torch
     if not torch.cuda.is_available():
@@ -5355,9 +6023,12 @@ def main() -> int:
         for name, line in lines.items():
             print(f'{name} ' + json.dumps(line), flush=True)
         return report_failures()
-    if parallel_only:
-        _, line = parallel_phase(torch, smi)
-        print('parallel ' + json.dumps(line), flush=True)
+    if parallel_only or parallel_bf16_only:
+        if parallel_only:
+            _, line = parallel_phase(torch, smi)
+            print('parallel ' + json.dumps(line), flush=True)
+        _, _, line = parallel_bf16_phase(torch, smi, spread)
+        print('parallel_bf16 ' + json.dumps(line), flush=True)
         return report_failures()
     if trainrun_only:
         data_dir, made, _, test_batches = trainrun_data(torch, work)
@@ -5524,6 +6195,11 @@ def main() -> int:
     par_launches, parallel_line = parallel_phase(torch, smi)
     for name, n in par_launches.items():
         launches.setdefault(name, {})['parallel'] = n
+    bf16_par, k5_par, parallel_bf16_line = parallel_bf16_phase(torch, smi)
+    for path, counts in (('parallel_bf16', bf16_par),
+                         ('parallel_sharded_energy', k5_par)):
+        for name, n in counts.items():
+            launches.setdefault(name, {})[path] = n
 
     if FAILURES:
         return report_failures()
@@ -5590,6 +6266,7 @@ def main() -> int:
     for name, line in data_lines.items():
         print(f'{name} ' + json.dumps(line))
     print('parallel ' + json.dumps(parallel_line))
+    print('parallel_bf16 ' + json.dumps(parallel_bf16_line))
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

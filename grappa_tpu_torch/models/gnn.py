@@ -46,11 +46,18 @@ from torch import nn
 from grappa_tpu_torch import constants
 from grappa_tpu_torch.models.layers import (
     ChargeEncoding, Dropout, dense, elu, make_norm, masked_softmax,
-    repeat_interleave_skip, use_fused, zero_init)
+    repeat_interleave_skip, shard_dense, use_fused, zero_init)
 from grappa_tpu_torch.ops import philox
 from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
 
 Generator = Optional[torch.Generator]
+
+
+def _dense(x, weight, bias, dtype, shard):
+    """`dense`, or on an atom-shard's rows `shard_dense`."""
+    if shard is None:
+        return dense(x, weight, bias, dtype)
+    return shard_dense(x, weight, bias, dtype, shard)
 
 
 def _shard_args(shard):
@@ -71,14 +78,16 @@ class NeighborAttention(nn.Module):
         self.num_heads = num_heads
         self.dtype = dtype
 
-    def project(self, h):
-        """The fc projection, in the module's dtype."""
-        return dense(h, self.fc.weight, None, self.dtype)
+    def project(self, h, shard=None):
+        """The fc projection, in the module's dtype; on an atom-shard's
+        rows (`shard`) with the unsharded gradients (`layers.shard_dense`)."""
+        return _dense(h, self.fc.weight, None, self.dtype, shard)
 
-    def forward(self, h, neighbors, neighbor_mask, gather=None):
+    def forward(self, h, neighbors, neighbor_mask, shard=None):
         # h: (N, F); neighbors: (N, D) int64; neighbor_mask: (N, D) bool;
-        # gather: the all-gather of a shard's rows, or None
-        feat = self.project(h)
+        # shard: an atom-shard (its rows' all-gather), or None
+        gather = _shard_args(shard)[0]
+        feat = self.project(h, shard)
         n, f = feat.shape
         dh = f // self.num_heads
         feat = feat.reshape(n, self.num_heads, dh)
@@ -137,18 +146,18 @@ class ResidualAttentionBlock(nn.Module):
                 generator: Generator = None, shard=None):
         if use_fused(self.fused, h):
             return self._fused(h, neighbors, neighbor_mask, generator, shard)
-        gather, rows = _shard_args(shard)
+        rows = _shard_args(shard)[1]
         h = self.layer_norm(h)
         h_skip = h
-        a = self.graph_module(h, neighbors, neighbor_mask, gather)
+        a = self.graph_module(h, neighbors, neighbor_mask, shard)
         hr, dt = self.head_reducer, self.dtype
-        a = dense(a, hr.weight, hr.bias, dt).to(h.dtype)
+        a = _dense(a, hr.weight, hr.bias, dt, shard).to(h.dtype)
         h = self.dropout(a, generator, rows) + h_skip
         if self.has_self_interaction:
             h = self.interaction_norm(h)
             d1, _, d2, _ = self.self_interaction
-            x = elu(dense(elu(dense(h, d1.weight, d1.bias, dt)),
-                          d2.weight, d2.bias, dt))
+            x = elu(_dense(elu(_dense(h, d1.weight, d1.bias, dt, shard)),
+                           d2.weight, d2.bias, dt, shard))
             h = self.dropout(x.to(h.dtype), generator, rows) + h
         return h
 
@@ -167,7 +176,7 @@ class ResidualAttentionBlock(nn.Module):
         rank's rows."""
         gather, rows = _shard_args(shard)
         hn = self.layer_norm(h)
-        feat = self.graph_module.project(hn).to(hn.dtype)
+        feat = self.graph_module.project(hn, shard).to(hn.dtype)
         nbr = (feat if gather is None
                else gather(feat))[neighbors.t()].contiguous()    # (D, N, F)
         mask = neighbor_mask.t().to(feat.dtype).contiguous()      # (D, N)

@@ -221,16 +221,16 @@ class GrappaModel(nn.Module):
             h, rows = shard.gather_nodes(h), shard.tuple_rows
         w = self.parameter_writer
         n2_k, n2_eq = w.bond_writer(h, batch.terms['n2'].idxs, generator,
-                                    rows['n2'])
+                                    rows['n2'], shard)
         n3_k, n3_eq = w.angle_writer(h, batch.terms['n3'].idxs, generator,
-                                     rows['n3'])
+                                     rows['n3'], shard)
         return {
             'n2_k': n2_k, 'n2_eq': n2_eq, 'n3_k': n3_k, 'n3_eq': n3_eq,
             'n4_k': w.proper_writer(h, batch.terms['n4'].idxs, generator,
-                                    rows['n4']),
+                                    rows['n4'], shard),
             'n4_improper_k': w.improper_writer(
                 h, batch.terms['n4_improper'].idxs, generator,
-                rows['n4_improper']),
+                rows['n4_improper'], shard),
         }
 
 

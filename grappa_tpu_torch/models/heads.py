@@ -72,10 +72,16 @@ class RepProjector(nn.Module):
         self.mlp = nn.Sequential(nn.Linear(in_feats, out_feats), nn.ELU())
         self.dtype = dtype
 
-    def forward(self, h, idxs):
-        # h: (N, F_rep); idxs: (T, arity) -> (arity, T, F)
+    def forward(self, h, idxs, shard=None):
+        # h: (N, F_rep); idxs: (T, arity) -> (arity, T, F). shard: the
+        # batch's atom-shard, when h is its all-gathered rows and idxs the
+        # rank's tuples: every rank projects all rows, and in bf16 the
+        # projection's backward then takes the whole gradient, so its
+        # roundings are the unsharded ones
         lin = self.mlp[0]
         x = elu(dense(h, lin.weight, lin.bias, self.dtype)).to(h.dtype)
+        if shard is not None and self.dtype is not None:
+            x = shard.whole_grad(x)
         return x[idxs.t()].contiguous()
 
 
@@ -222,9 +228,9 @@ class HarmonicParameterHead(nn.Module):
                       else scalers.ToRange(math.pi, eq_std))
 
     def forward(self, h, idxs, generator: Optional[torch.Generator] = None,
-                rows=None):
-        coeffs = getattr(self, self.model_name)(self.rep_projector(h, idxs),
-                                                generator, rows)
+                rows=None, shard=None):
+        coeffs = getattr(self, self.model_name)(
+            self.rep_projector(h, idxs, shard), generator, rows)
         k = self.to_k(coeffs[:, 1])
         if self.gate:
             k = k * scalers.sigmoid_gate(coeffs[:, 2])
@@ -268,9 +274,9 @@ class TorsionParameterHead(nn.Module):
         self.n_per, self.gated, self.cutoff = n_periodicity, gated, cutoff
 
     def forward(self, h, idxs, generator: Optional[torch.Generator] = None,
-                rows=None):
-        coeffs = self.torsion_model(self.rep_projector(h, idxs), generator,
-                                    rows)
+                rows=None, shard=None):
+        coeffs = self.torsion_model(self.rep_projector(h, idxs, shard),
+                                    generator, rows)
         if self.gated:
             gate = torch.sigmoid(coeffs[:, self.n_per:])
             # gated: no mean shift, so the gate can express exact zeros

@@ -74,6 +74,53 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
     return y if bias is None else y + bias.to(dtype)
 
 
+def shard_dense(x: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor], dtype: Optional[torch.dtype],
+                shard) -> torch.Tensor:
+    """`dense` on x, whose rows are a rank's rows of an atom-sharded batch
+    (`shard`, its `parallel.sp.AtomShard`): a bf16 product takes the
+    unsharded weight and bias gradients (`_ShardedBf16Dense`)."""
+    if dtype != torch.bfloat16:
+        return dense(x, weight, bias, dtype)
+    return _ShardedBf16Dense.apply(x, weight, bias, shard.mesh)
+
+
+class _ShardedBf16Dense(torch.autograd.Function):
+    """dense in bf16 on a rank's rows. The forward and dx are autograd's
+    through `dense` bit for bit. The unsharded product's weight and bias
+    gradients are sums over all rows in float32 rounded to bf16 once;
+    autograd here would round each rank's partial sum before the step's
+    all-reduce adds them. So the rank's partials are summed in float32,
+    all-reduced in float32 and rounded once, and each rank returns that
+    sum over the world size (every rank's part already carries the world
+    size's factor of the replicated loss, which the step's mean over the
+    ranks divides out)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mesh):
+        bf16 = torch.bfloat16
+        xb, wb = x.to(bf16), weight.to(bf16)
+        ctx.save_for_backward(xb, wb)
+        ctx.mesh, ctx.x_dtype, ctx.has_bias = mesh, x.dtype, bias is not None
+        y = F.linear(xb, wb)
+        return y if bias is None else y + bias.to(bf16)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xb, wb = ctx.saved_tensors
+        dx = dy.to(torch.bfloat16).matmul(wb).to(ctx.x_dtype)
+        d2 = dy.reshape(-1, dy.shape[-1]).float()
+        parts = [d2.t() @ xb.reshape(-1, xb.shape[-1]).float()]
+        if ctx.has_bias:
+            parts.append(d2.sum(0))
+        flat = ctx.mesh.all_reduce_(torch.cat([p.reshape(-1)
+                                               for p in parts]))
+        flat = flat.to(torch.bfloat16).float() / ctx.mesh.size
+        dw = flat[:wb.numel()].view(wb.shape)
+        db = flat[wb.numel():] if ctx.has_bias else None
+        return dx, dw, db, None
+
+
 class _EluBf16(torch.autograd.Function):
     """elu of a bf16 tensor with the gradient jax.nn.elu has in bf16: JAX
     differentiates expm1 by its output, g (expm1(x) + 1), the sum and the

@@ -64,6 +64,19 @@ def _points(xyz: torch.Tensor, idxs: torch.Tensor):
     return [xyz[idxs[:, j]] for j in range(idxs.shape[1])]
 
 
+def internal_coordinates(batch: GraphBatch,
+                         xyz: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """x (T, C) of every term from coordinates (N, C, 3): the bond lengths,
+    the bond angles and the proper and improper dihedrals."""
+    coords = {'n2': geometry.distance(*_points(xyz, batch.terms['n2'].idxs)),
+              'n3': geometry.bond_angle(*_points(xyz,
+                                                 batch.terms['n3'].idxs))}
+    for t in TORSIONS:
+        coords[t] = geometry.dihedral_angle(*_points(xyz,
+                                                     batch.terms[t].idxs))
+    return coords
+
+
 def tuple_energies(batch: GraphBatch, params: ParamDict, xyz: torch.Tensor,
                    offset_torsion: bool = False,
                    use_fused_torsion: bool = False) -> Dict[str, torch.Tensor]:

@@ -19,7 +19,9 @@ differentiates it. `fused_transformer_block.launches` and
 `fused_transformer_block.bwd_launches` count kernel launches,
 `fused_transformer_block.bf16_launches` and
 `fused_transformer_block.bf16_bwd_launches` the forward's and the
-backward's in bf16 mode.
+backward's in bf16 mode; `fused_transformer_block.rows_launches` and
+`rows_bwd_launches` count, among those, the launches of the `_rows` entry
+points (a shard's dropout masks).
 
 `mm_dtype=torch.bfloat16` is the JAX op's bf16 mode: the four dense
 products (QKV, out_proj, FF in, FF out) round both operands to bf16 and sum
@@ -128,6 +130,8 @@ class _BlockKernel(torch.autograd.Function):
             fused_transformer_block.bf16_launches += 1
         else:
             fused_transformer_block.launches += 1
+        if len(drop) > 4:
+            fused_transformer_block.rows_launches += 1
         # the scratch holds the forward's intermediates: the backward reads
         # them instead of recomputing the forward
         ctx.save_for_backward(x, scratch, *params)
@@ -157,6 +161,8 @@ class _BlockKernel(torch.autograd.Function):
             fused_transformer_block.bf16_bwd_launches += 1
         else:
             fused_transformer_block.bwd_launches += 1
+        if len(ctx.drop) > 4:
+            fused_transformer_block.rows_bwd_launches += 1
         dx, *dparams = grads
         return (dx, None, None, None, *dparams)
 
@@ -210,4 +216,6 @@ fused_transformer_block.launches = 0
 fused_transformer_block.bf16_launches = 0
 fused_transformer_block.bwd_launches = 0
 fused_transformer_block.bf16_bwd_launches = 0
+fused_transformer_block.rows_launches = 0
+fused_transformer_block.rows_bwd_launches = 0
 dropout_masks.launches = 0

@@ -25,7 +25,9 @@ differentiates it.
 `fused_gnn_block.launches` and `fused_gnn_block.bwd_launches` count
 kernel launches, `fused_gnn_block.bf16_launches` and
 `fused_gnn_block.bf16_bwd_launches` the forward's and the backward's in
-bf16 mode.
+bf16 mode; `fused_gnn_block.rows_launches` and `rows_bwd_launches` count,
+among those, the launches of the `_rows` entry points (a shard's dropout
+masks).
 
 `mm_dtype=torch.bfloat16` is the JAX op's bf16 mode (`mm_dtype=
 jnp.bfloat16`): the three dense products (head_reducer, FF in, FF out) round
@@ -146,6 +148,8 @@ class _GnnBlockKernel(torch.autograd.Function):
             fused_gnn_block.bf16_launches += 1
         else:
             fused_gnn_block.launches += 1
+        if len(drop) > 4:
+            fused_gnn_block.rows_launches += 1
         # the scratch holds the forward's intermediates: the backward reads
         # them instead of recomputing the forward
         ctx.save_for_backward(feat, nbr, mask, scratch, *params)
@@ -177,6 +181,8 @@ class _GnnBlockKernel(torch.autograd.Function):
             fused_gnn_block.bf16_bwd_launches += 1
         else:
             fused_gnn_block.bwd_launches += 1
+        if len(ctx.drop) > 4:
+            fused_gnn_block.rows_bwd_launches += 1
         dfeat, dnbr, dhn, *dparams = grads
         return (dfeat, dnbr, dhn, None, None, None, None, *dparams)
 
@@ -233,4 +239,6 @@ fused_gnn_block.launches = 0
 fused_gnn_block.bf16_launches = 0
 fused_gnn_block.bwd_launches = 0
 fused_gnn_block.bf16_bwd_launches = 0
+fused_gnn_block.rows_launches = 0
+fused_gnn_block.rows_bwd_launches = 0
 dropout_masks.launches = 0

@@ -30,6 +30,7 @@ which gloo lacks.
 """
 from __future__ import annotations
 
+import collections
 import datetime
 import os
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
@@ -45,6 +46,10 @@ from grappa_tpu_torch.train.loss import LossWeights
 # a rank that waits longer than this on a collective fails instead of
 # hanging its job
 TIMEOUT_S = 120
+
+# {(collective, operand dtype): calls} of this process's Mesh collectives
+# (objects and barriers aside); a caller clears it to see one path's
+COLLECTIVE_DTYPES = collections.Counter()
 
 
 class Mesh(NamedTuple):
@@ -64,6 +69,7 @@ class Mesh(NamedTuple):
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """In-place sum over the ranks of a contiguous tensor."""
+        COLLECTIVE_DTYPES['all_reduce', str(t.dtype)] += 1
         if self._host(t):
             h = t.cpu()
             dist.all_reduce(h, group=self.group)
@@ -73,6 +79,7 @@ class Mesh(NamedTuple):
 
     def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """In place: every rank's t becomes rank `src`'s."""
+        COLLECTIVE_DTYPES['broadcast', str(t.dtype)] += 1
         if self.size == 1:
             return t
         if self._host(t) or not t.is_contiguous():
@@ -86,6 +93,7 @@ class Mesh(NamedTuple):
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """The ranks' t (same shape on every rank) concatenated along axis
         0, in rank order."""
+        COLLECTIVE_DTYPES['all_gather', str(t.dtype)] += 1
         if self.size == 1:
             return t.clone()
         src = t.detach().contiguous()
@@ -218,6 +226,30 @@ class _AllGatherRows(torch.autograd.Function):
         first = ctx.mesh.rank * ctx.rows
         full = _AllReduceSum.apply(dy.contiguous(), ctx.mesh)
         return full[first:first + ctx.rows], None
+
+
+class _WholeGrad(torch.autograd.Function):
+    """y = x, for a tensor every rank computes whole from replicated inputs
+    while each rank uses its own part of it: dx is the ranks' mean of dy,
+    summed in float32. Each rank's dy carries the world size's factor of
+    the replicated loss, so the mean is the whole tensor's gradient, and
+    the ops before it see that gradient as an unsharded backward does
+    (a bf16 cast's backward would otherwise round each rank's part)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        full = ctx.mesh.all_reduce_(dy.float().contiguous().clone())
+        return full.div_(float(ctx.mesh.size)).to(dy.dtype), None
+
+
+def whole_grad(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """x, whose gradient is the ranks' mean of theirs (`_WholeGrad`)."""
+    return _WholeGrad.apply(x, mesh)
 
 
 def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

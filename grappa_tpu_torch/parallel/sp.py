@@ -19,7 +19,13 @@ hand (`dp.all_gather_rows` / `dp.all_reduce_sum`, differentiable):
   * in the loss (`train.loss`): every per-molecule sum over nodes or
     tuples all-reduced; the parameter gradients all-reduced (and divided by
     the world size: every rank seeds its replicated loss with 1) before
-    AdamClip.
+    AdamClip;
+  * with a bf16 compute dtype, in the backward: a bf16 Dense on the rank's
+    rows sums its weight and bias gradients over the ranks in float32 and
+    rounds them once (`layers.shard_dense`), and each writer's projection
+    of the gathered rows takes the ranks' whole output gradient before its
+    bf16 backward (`AtomShard.whole_grad`), so the bf16 roundings are the
+    unsharded step's.
 
 Every dropout mask on a sharded axis draws the bits of the unsharded
 tensor's elements (`ops.philox`, K1 / K2's row offset), and every rank
@@ -43,7 +49,8 @@ from grappa_tpu_torch.data.graph_batch import (GraphBatch, MolGraph, PadSpec,
                                                TERMS, TermBatch, _round_up)
 from grappa_tpu_torch.models import mm_energy
 from grappa_tpu_torch.parallel.dp import (Mesh, all_gather_rows,
-                                          all_reduce_sum, mean_over_ranks)
+                                          all_reduce_sum, mean_over_ranks,
+                                          whole_grad)
 from grappa_tpu_torch.train.loss import LossWeights
 
 
@@ -68,6 +75,11 @@ class AtomShard:
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The ranks' sum (differentiable)."""
         return all_reduce_sum(x, self.mesh)
+
+    def whole_grad(self, x: torch.Tensor) -> torch.Tensor:
+        """x, a tensor every rank computes whole, with the whole tensor's
+        gradient on every rank (`dp.whole_grad`)."""
+        return whole_grad(x, self.mesh)
 
     def local_nodes(self, x: torch.Tensor) -> torch.Tensor:
         """The rank's rows of a whole node-indexed tensor."""

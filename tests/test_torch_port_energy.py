@@ -119,6 +119,20 @@ def test_geometry_matches_jax():
         np.testing.assert_allclose(got, want, **TOL, err_msg=name)
 
 
+def test_internal_coordinates_match_jax():
+    """internal_coordinates: each term's bond lengths, angles and proper /
+    improper dihedrals (T, C) on a seeded two-molecule batch, against the
+    JAX package's at atol 1e-5 + rtol 1e-5 (float32 geometry)."""
+    _, jb, tb = _batches([3, 8], n_confs=5)
+    got = mm_energy.internal_coordinates(tb, tb.xyz)
+    want = jmm.internal_coordinates(jb, jb.xyz)
+    assert set(got) == set(want) == set(TERMS)
+    for t in TERMS:
+        assert got[t].shape == tuple(want[t].shape), t
+        np.testing.assert_allclose(got[t].numpy(), np.asarray(want[t]),
+                                   rtol=1e-5, atol=1e-5, err_msg=t)
+
+
 def test_energy_and_gradient_match_jax_and_the_oracle():
     jmds, jb, tb = _batches([0, 1, 2, 3])
     p = _params(jb)
