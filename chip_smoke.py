@@ -15,6 +15,7 @@
     python3 chip_smoke.py --parallel-bf16  # phases 1, 13(e) and 13(f)
     python3 chip_smoke.py --parallel-bf16 --spread  # and 13(e)'s one-ulp
                                                     # spread reading
+    python3 chip_smoke.py --recipes        # phases 1 and 14 alone
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit, the torch / CUDA versions;
@@ -293,18 +294,53 @@ Phases, each printing its own lines:
      unsharded K5 path (13(d)'s). The `parallel_bf16` line: step,
      forward, all-reduce and energy ms and peak memory a rank, with the
      card's name and power limit.
+ 14. the published training recipes through grappa_tpu_torch.production
+     at the published width, on stand-ins under the recipes' own tags in a
+     temporary GRAPPA_TPU_CACHE (make_dataset, RECIPE_MOLS x RECIPE_CONFS
+     a tag, phase 8's atoms, random classical parameters with 6-wide
+     proper ks; an espaloma_split tag over the first RECIPE_SPLIT_TAGS
+     tags, so that the split's extension runs; downloads raise), cut to
+     RECIPE_EPOCHS epochs, param_loss_epochs 100 -> 3 and
+     val_conf_strategy 500 -> 16 (run_production's overrides): (a)
+     grappa-1.2.1 (7 x 512 GNN, periodicity 3, torsion cutoff): finite
+     losses; each epoch's LossWeights (param-only epochs 0-1, QM epoch 2,
+     the parameter weight off at epoch 3) and the restarts; 7 / 12 / 4
+     launches each forward (steps, validation and test batches) and each
+     step's backward; split.json assigns every molecule of the 13 training
+     tags and keeps the stored split's assignments, rna-nucleoside trains
+     only, the two pure test tags are only in the test metrics; model.npz
+     predicts proper ks of width 3; K1-K3 at the run's train and test
+     batches' shapes and K1b-K3b at its train batch's against their plain
+     versions (phases 2 and 4's rules, K3 with 6 proper outputs);
+     resume_trainrun by one epoch; (b) grappa-1.0 (2 convolution blocks +
+     5 attention blocks, periodicity 6), RECIPE_V10_EPOCHS epochs: 5 / 12
+     / 4 launches each forward and step, non-zero gradients on both
+     convolution blocks, a 32-molecule forward card vs the CPU's eager
+     modules (MODEL_RTOL / MODEL_ATOL), a dropout-free step card vs CPU
+     (phase 5(a)'s rule); (c) one epoch with -p 0.001 --shrink_train 0.5
+     --n_periodicity 4 --no_torsion_cutoff and one with --pretrain_path
+     (a)'s model.npz: the JAX driver's run names and config edits, the
+     pretrained run's first weights equal to the file's, QM weights with
+     the parameter weight 0 from epoch 0; then grappa-1.2.1 on
+     RECIPE_CPU_MOLS x RECIPE_CPU_CONFS a tag, dropout off, card vs CPU
+     (phase 8(b)'s rules). A `recipe` line a version: epochs, writer-free
+     steps/s, epoch, validation and test-evaluation ms, peak memory, the
+     device idle share of an epoch, launches, the cuts, the card's name
+     and power limit.
 
 The `trainrun {...}`, `trainrun_bf16 {...}`, `eval {...}`, `ingest
-{...}`, `gmx {...}`, phase 12's five lines, `parallel {...}` and
-`parallel_bf16 {...}` come before
+{...}`, `gmx {...}`, phase 12's five lines, `parallel {...}`,
+`parallel_bf16 {...}` and the two `recipe {...}` lines come before
 the last three lines, which are a
 JSON object describing the kernels, the card's name and power limit, and
 {"ok": true, "device": {...}}. In the kernels'
 line, `launches` sums the main paths (the two predict paths and the ten
 training steps, phase 8's training run and phase 9's eval and ingest
-paths, phase 11's gmx path, phase 12's sweep and plots and phase 13's
-steps and atom-sharded paths (`parallel`, the ranks' summed) for K1-K3
-and the sweep and phase 13 for K1b-K3b; phase 6's four paths and 13(f)'s
+paths, phase 11's gmx path, phase 12's sweep and plots, phase 13's
+steps and atom-sharded paths (`parallel`, the ranks' summed) and phase
+14's four recipe runs (`recipe_1.2.1`, `recipe_1.0`, `recipe_flags`,
+`recipe_pretrain`) for K1-K3 and the sweep, phase 13 and phase 14 for
+K1b-K3b; phase 6's four paths and 13(f)'s
 sharded energy (`parallel_sharded_energy`) for K5 and K5b; 13(e)'s bf16
 steps and atom-sharded paths (`parallel_bf16`) for the bf16 entries;
 `launches_per_path` gives each), and `ms`, `plain_ms`, `bound_ms`,
@@ -328,7 +364,8 @@ the kernels' sums as a `kernel_times` line instead; `--bf16` runs phase
 `bf16_kernel_times` lines); `--trainrun` runs phase 8 alone and
 `--eval` phase 9 alone, `--gmx` phase 11 alone (after phase 2 at its
 shapes; a `kernel_times` line and the `gmx` line) and
-`--train-step` phase 5 and 10(c)(c) alone (the float32 and the bf16
+`--recipes` phase 14 alone (a `kernel_times` line and the `recipe`
+lines), `--train-step` phase 5 and 10(c)(c) alone (the float32 and the bf16
 steps, with names a parent checkout shares, so that one copy of this
 script times the steps of both); `--gnn-calls` prints only the
 `gnn_call` lines, K1 / K1b in bf16 mode one call at a time at N 64, 224,
@@ -524,6 +561,19 @@ REF_FIELDS = {'n2_k': ('n2', 'k_ref'), 'n2_eq': ('n2', 'eq_ref'),
 # 13(f): K5 / K5b on SP_ATOMS atoms over the ranks, phase 6(b)'s
 # tolerances against the sharded plain path, (d)'s against the unsharded
 PAR_BF16 = {'compute_dtype': 'bfloat16'}
+# phase 14: the published recipes through grappa_tpu_torch.production at
+# the published width, on stand-ins under the recipes' own tags
+# (RECIPE_MOLS x RECIPE_CONFS a tag, phase 8's atoms; the espaloma_split
+# tag covers the first RECIPE_SPLIT_TAGS tags), cut to RECIPE_EPOCHS
+# epochs (grappa-1.0: RECIPE_V10_EPOCHS), param_loss_epochs 100 ->
+# RECIPE_PARAM_LOSS_EPOCHS and val_conf_strategy 500 -> RECIPE_VAL_CONFS;
+# card vs CPU on RECIPE_CPU_MOLS x RECIPE_CPU_CONFS a tag, dropout off
+RECIPE_DIRS = {'grappa-1.2.1': 'experiments/train-grappa-1.2.1',
+               'grappa-1.0': 'experiments/train-grappa-1.0'}
+RECIPE_MOLS, RECIPE_CONFS, RECIPE_SPLIT_TAGS = 16, 8, 3
+RECIPE_EPOCHS, RECIPE_V10_EPOCHS = 4, 3
+RECIPE_PARAM_LOSS_EPOCHS, RECIPE_VAL_CONFS = 3, 16
+RECIPE_CPU_MOLS, RECIPE_CPU_CONFS, RECIPE_CPU_EPOCHS = 8, 4, 2
 
 FAILURES = []
 
@@ -1094,11 +1144,13 @@ def compare_out(torch, entries, name, label, kernel, plain, flops, nbytes,
         accumulate(entries, name, max_abs, ms, plain_ms, flops, nbytes)
 
 
-def kernel_cases(torch, workloads):
+def kernel_cases(torch, workloads, n4_out=12):
     """Every forward kernel's case at the shapes each workload's forward
     gives it (its padded N, neighbour list and tuple counts), on seeded
     inputs: (name, label, kernel(mm_dtype), plain(mm_dtype), flops,
-    nbytes, on_path), made one at a time (the same inputs on every call)."""
+    nbytes, on_path), made one at a time (the same inputs on every call).
+    n4_out: the proper writer's symmetriser outputs (2 x the gated
+    periodicity: 12 at the default 6, 6 at the 1.1+ recipes' 3)."""
     from grappa_tpu_torch.data.graph_batch import TERM_ARITY, TERMS
     from grappa_tpu_torch.ops import fused_block as fb
     from grappa_tpu_torch.ops import fused_gnn as fg
@@ -1107,7 +1159,7 @@ def kernel_cases(torch, workloads):
                                                WRONG_SYMMETRY_IMPROPER)
     gen = torch.Generator().manual_seed(1234)
     f, heads, hid, hid2, width = 512, 16, 2048, 512, 256
-    sym_out = {'n2': 2, 'n3': 2, 'n4': 12, 'n4_improper': 6}
+    sym_out = {'n2': 2, 'n3': 2, 'n4': n4_out, 'n4_improper': 6}
 
     def sym_case(perms, t, out, label, on_path=True):
         s = len(perms[0])
@@ -1235,14 +1287,15 @@ def compare_grad(torch, entries, name, label, kernel, plain, inputs, dy,
         accumulate(entries, name, max_abs, ms, plain_ms, flops, nbytes)
 
 
-def training_cases(torch, batches):
+def training_cases(torch, batches, n4_out=12):
     """K1b-K3b's cases at the shapes one training step gives them on each
     of `batches` (label -> batch), dropout on at the default rates (K1
     0.3, K2 0.5; K3 has none), on seeded inputs: dicts with the op's name,
     a label, the inputs, dy, kernel(mm_dtype) and plain(mm_dtype) (each a
     function of the inputs; plain runs on the inputs' device), the
     forward's and the backward's FLOPs and bytes, and what the mask dumps
-    need (`masks`: (op module, shape, rate, seed) on the 'train' batch)."""
+    need (`masks`: (op module, shape, rate, seed) on the 'train' batch).
+    n4_out: as kernel_cases'."""
     from grappa_tpu_torch.data.graph_batch import TERM_ARITY, TERMS
     from grappa_tpu_torch.models.heads import PERMUTATIONS
     from grappa_tpu_torch.ops import fused_block as fb
@@ -1254,7 +1307,7 @@ def training_cases(torch, batches):
     # so that every other input stays what `gen` gives it
     dy_gen = torch.Generator(device='cuda').manual_seed(4321)
     f, heads, hid, hid2, width = 512, 16, 2048, 512, 256
-    sym_out = {'n2': 2, 'n3': 2, 'n4': 12, 'n4_improper': 6}
+    sym_out = {'n2': 2, 'n3': 2, 'n4': n4_out, 'n4_improper': 6}
     on = lambda ts, a: tuple(t.to(a.device) for t in ts)
 
     for label, batch in batches.items():
@@ -1424,30 +1477,28 @@ def perturbed_model(torch, make_model, cfg, seed=0):
     return model
 
 
-def training_phase(torch, graphs, batch, cfg):
-    """Phase 5: (a) card vs CPU step, (b) ten steps with dropout on the
-    128 x 32 batch, (c) overfitting. Returns the launches of (b)."""
+def no_dropout(cfg):
+    """The model config `cfg` with every dropout rate 0."""
+    return dict(cfg, gnn_dropout_attention=0.0, parameter_dropout=0.0,
+                gnn_dropout_final=0.0, gnn_dropout_initial=0.0,
+                gnn_dropout_conv=0.0)
+
+
+def step_card_vs_cpu(torch, label, cfg, graphs, confs=4):
+    """The loss and gradients of one training-mode forward of the model
+    `cfg` (dropout off; perturbed_model's weights) on `graphs` x `confs`
+    conformers with the QM-phase weights, on the card (kernels) and on the
+    CPU (plain path): the loss at STEP_LOSS_RTOL, every gradient's
+    relative L2 at STEP_GRAD_RL2. Returns the batch on the card."""
     from grappa_tpu_torch.data.graph_batch import collate
     from grappa_tpu_torch.data.loader import bucketed_pad_spec
     from grappa_tpu_torch.models.grappa_model import make_model
-    from grappa_tpu_torch.ops.fused_block import fused_transformer_block
-    from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
-    from grappa_tpu_torch.ops.fused_symmetriser import fused_symmetriser
-    from grappa_tpu_torch.train.loss import molwise_loss
-    from grappa_tpu_torch.train.trainer import (loss_gradients,
-                                                make_optimizer,
-                                                make_train_step)
-
-    no_drop = dict(cfg, gnn_dropout_attention=0.0, parameter_dropout=0.0,
-                   gnn_dropout_final=0.0, gnn_dropout_initial=0.0)
-    few = graphs[:8]
-    pad8 = bucketed_pad_spec(few, 4)
-    b_cpu = collate(few, pad8, 4, device='cpu')
-    b_gpu = collate(few, pad8, 4, device='cuda')
-
-    # (a) the same step on the card (kernels) and on the CPU (plain path)
-    cpu_model = perturbed_model(torch, make_model, no_drop)
-    gpu_model = make_model(no_drop).cuda()
+    from grappa_tpu_torch.train.trainer import loss_gradients
+    pad = bucketed_pad_spec(graphs, confs)
+    b_cpu = collate(graphs, pad, confs, device='cpu')
+    b_gpu = collate(graphs, pad, confs, device='cuda')
+    cpu_model = perturbed_model(torch, make_model, cfg)
+    gpu_model = make_model(cfg).cuda()
     gpu_model.load_state_dict(cpu_model.state_dict())
     t0 = time.time()
     l_cpu, _, g_cpu = loss_gradients(
@@ -1461,12 +1512,29 @@ def training_phase(torch, graphs, batch, cfg):
                 for k, g in g_cpu.items())
     check(abs(l_gpu - l_cpu) <= STEP_LOSS_RTOL * abs(l_cpu)
           and worst[0] <= STEP_GRAD_RL2,
-          f'(a) step on the card vs the CPU ({len(few)} molecules x 4 '
-          f'conformers, N={b_gpu.xyz.shape[0]}, dropout off): loss '
+          f'{label} step on the card vs the CPU ({len(graphs)} molecules x '
+          f'{confs} conformers, N={b_gpu.xyz.shape[0]}, dropout off): loss '
           f'{l_gpu:.6e} vs {l_cpu:.6e} (rtol {STEP_LOSS_RTOL}); worst '
           f'gradient relative L2 {worst[0]:.3e} ({worst[1]}; tol '
           f'{STEP_GRAD_RL2}) over {len(g_cpu)} tensors; CPU step '
           f'{cpu_s:.1f} s')
+    return b_gpu
+
+
+def training_phase(torch, graphs, batch, cfg):
+    """Phase 5: (a) card vs CPU step, (b) ten steps with dropout on the
+    128 x 32 batch, (c) overfitting. Returns the launches of (b)."""
+    from grappa_tpu_torch.models.grappa_model import make_model
+    from grappa_tpu_torch.ops.fused_block import fused_transformer_block
+    from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
+    from grappa_tpu_torch.ops.fused_symmetriser import fused_symmetriser
+    from grappa_tpu_torch.train.loss import molwise_loss
+    from grappa_tpu_torch.train.trainer import make_optimizer, make_train_step
+
+    no_drop = no_dropout(cfg)
+    few = graphs[:8]
+    # (a) the same step on the card (kernels) and on the CPU (plain path)
+    b_gpu = step_card_vs_cpu(torch, '(a)', no_drop, few)
 
     # (b) ten steps at the default config with its dropout
     w = loss_weights(torch, batch.num_mols, 'cuda')
@@ -2819,8 +2887,7 @@ def bf16_card_cpu_phase(torch, cfg, graphs):
     from grappa_tpu_torch.train.trainer import loss_gradients, make_optimizer
     phase('10(c)(d). a bf16 step on the card against the CPU, default '
           'config, dropout off')
-    no_drop = dict(cfg, gnn_dropout_attention=0.0, parameter_dropout=0.0,
-                   gnn_dropout_final=0.0, gnn_dropout_initial=0.0)
+    no_drop = no_dropout(cfg)
     fused = dict(fused_gnn=True, fused_heads=True)
     bf16 = dict(compute_dtype='bfloat16')
 
@@ -5921,6 +5988,480 @@ def parallel_bf16_phase(torch, smi, spread=False):
     return launches, k5_launches_all, line
 
 
+def recipe_tags():
+    """Every dataset tag the grappa-1.2.1 and grappa-1.0 recipes name, in
+    the order of their yamls, with each recipe's config (dry run)."""
+    from grappa_tpu_torch.production import run_production
+    configs = {v: run_production(os.path.join(ROOT, d), v, argv=[],
+                                 v1_0=v == 'grappa-1.0', dry_run=True)
+               for v, d in RECIPE_DIRS.items()}
+    tags = []
+    for config in configs.values():
+        dcfg = config['data_config']
+        for tag in (dcfg['datasets'] + dcfg['pure_train_datasets']
+                    + dcfg['pure_test_datasets']):
+            if tag not in tags:
+                tags.append(tag)
+    return tags, configs
+
+
+def recipe_data(cache, tags, n_mols, n_confs):
+    """Stand-ins under every tag in `cache`/datasets (make_dataset, random
+    classical parameters: 6-wide proper ks, as the published datasets'),
+    and an espaloma_split tag over the first RECIPE_SPLIT_TAGS tags'
+    molecules only (0.8 / 0.1 / 0.1), so that the split's extension runs.
+    Returns {tag: mol ids} and the stored split."""
+    from grappa_tpu_torch.data.dataset import Dataset
+    from grappa_tpu_torch.data.synthetic import make_dataset
+    ids = {}
+    for i, tag in enumerate(tags):
+        ds = Dataset.from_moldata(make_dataset(
+            n_mols=n_mols, n_confs=n_confs, seed=500 + i,
+            atom_range=TRAINRUN_ATOMS), tag)
+        ds.save(os.path.join(cache, 'datasets', tag))
+        ids[tag] = ds.mol_ids
+    covered = [i for tag in tags[:RECIPE_SPLIT_TAGS] for i in ids[tag]]
+    n_tr, n_vl = int(0.8 * len(covered)), int(0.1 * len(covered))
+    stored = {'train': covered[:n_tr], 'val': covered[n_tr:n_tr + n_vl],
+              'test': covered[n_tr + n_vl:]}
+    split_dir = os.path.join(cache, 'datasets', 'espaloma_split')
+    os.makedirs(split_dir, exist_ok=True)
+    with open(os.path.join(split_dir, 'split.json'), 'w') as f:
+        json.dump(stored, f)
+    return ids, stored
+
+
+def recipe_cuts(epochs, cut_param_loss=True, dropout=True):
+    """The phase's cuts of a published recipe, as run_production's
+    overrides."""
+    cuts = {'data_config': {'val_conf_strategy': RECIPE_VAL_CONFS},
+            'trainer_config': {'max_epochs': epochs}}
+    if cut_param_loss:
+        cuts['lit_model_config'] = {
+            'param_loss_epochs': RECIPE_PARAM_LOSS_EPOCHS}
+    if not dropout:
+        cuts['model_config'] = no_dropout({})
+    return cuts
+
+
+@contextlib.contextmanager
+def recipe_env(cache):
+    """GRAPPA_TPU_CACHE pointed at the stand-ins, and the zoo's download
+    raising (every tag is in the cache; nothing may reach the network)."""
+    from grappa_tpu_torch import zoo
+    saved = os.environ.get('GRAPPA_TPU_CACHE'), zoo._download
+
+    def no_download(url, target):
+        raise RuntimeError(f'phase 14 downloads nothing: {url}')
+
+    os.environ['GRAPPA_TPU_CACHE'] = cache
+    zoo._download = no_download
+    try:
+        yield
+    finally:
+        if saved[0] is None:
+            os.environ.pop('GRAPPA_TPU_CACHE', None)
+        else:
+            os.environ['GRAPPA_TPU_CACHE'] = saved[0]
+        zoo._download = saved[1]
+
+
+def recipe_counters():
+    from grappa_tpu_torch.ops.fused_block import fused_transformer_block
+    from grappa_tpu_torch.ops.fused_gnn import fused_gnn_block
+    from grappa_tpu_torch.ops.fused_symmetriser import fused_symmetriser
+    return fused_gnn_block, fused_transformer_block, fused_symmetriser
+
+
+def recipe_run(torch, version, argv, overrides, device=None, record=None):
+    """run_production of `version` with `argv` and `overrides`, the
+    kernels' counts zeroed just before and read just after. record: a
+    list that gets (epoch, energy, gradient, sorted parameter weights) of
+    every _loss_weights call, and the weights when fit starts. Returns
+    (do_trainrun's output, {kernel: (forward, backward)}, wall s, peak
+    GiB)."""
+    from grappa_tpu_torch.production import run_production
+    from grappa_tpu_torch.train.trainer import Trainer
+    counters = recipe_counters()
+    keep_w, keep_fit = Trainer._loss_weights, Trainer.fit
+    if record is not None:
+        def loss_weights_(self, ds_names, num_mols):
+            w = keep_w(self, ds_names, num_mols)
+            record.append((self.epoch, w.energy, w.gradient,
+                           tuple(sorted(set(w.param.cpu().tolist())))))
+            return w
+
+        def fit_(self, *args, **kwargs):
+            record.append(('fit', {k: v.detach().cpu().clone() for k, v in
+                                   self.model.state_dict().items()}))
+            return keep_fit(self, *args, **kwargs)
+        Trainer._loss_weights, Trainer.fit = loss_weights_, fit_
+    on_card = device != 'cpu'
+    for c in counters:
+        c.launches = c.bwd_launches = 0
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out = run_production(os.path.join(ROOT, RECIPE_DIRS[version]),
+                             version, argv=argv, v1_0=version == 'grappa-1.0',
+                             device=device, overrides=overrides)
+    finally:
+        Trainer._loss_weights, Trainer.fit = keep_w, keep_fit
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {c.__name__: (c.launches, c.bwd_launches) for c in counters}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
+    return out, got, wall, peak
+
+
+def recipe_launch_check(label, out, got, gnn_blocks, n_pure_test):
+    """K1-K3 / K1b-K3b launched gnn_blocks / 12 / 4 times each forward
+    (every train step, each epoch's validation batches, each test batch:
+    split.json's test molecules and the n_pure_test of the pure test
+    sets, one a batch) and each step's backward. Returns the test
+    molecules."""
+    from pathlib import Path
+    trainer = out['trainer']
+    n_test = n_pure_test + len(json.loads(
+        (Path(out['run_dir']) / 'split.json').read_text())['test'])
+    steps, n_val = trainer.global_step, len(trainer.val_loader or [])
+    forwards = steps + trainer.epoch * n_val + n_test
+    want = {'fused_gnn_block': (gnn_blocks * forwards, gnn_blocks * steps),
+            'fused_transformer_block': (12 * forwards, 12 * steps),
+            'fused_symmetriser': (4 * forwards, 4 * steps)}
+    check(got == want and steps > 0,
+          f'{label} launches (forward, backward) {got}: {steps} train steps'
+          f' + {trainer.epoch} validations of {n_val} batch(es) + {n_test}'
+          f' test batches = {forwards} forwards, {steps} backwards (want '
+          f'{gnn_blocks} / 12 / 4 each)')
+    losses = sum(trainer.train_losses, [])
+    check(len(losses) == steps and bool(np.isfinite(losses).all()),
+          f'{label} finite losses by epoch: ' + '; '.join(
+              ', '.join(f'{x:.6e}' for x in e) for e in trainer.train_losses))
+    return n_test
+
+
+def recipe_reduced(epochs):
+    """The `recipe` line's cuts of a published recipe."""
+    return [
+        f'stand-in data for the published tags: make_dataset, '
+        f'{RECIPE_MOLS} molecules x {RECIPE_CONFS} conformers a tag, '
+        f'{TRAINRUN_ATOMS[0]}-{TRAINRUN_ATOMS[1] - 1} atoms, random '
+        f'classical parameters (6-wide proper ks); espaloma_split over the '
+        f'first {RECIPE_SPLIT_TAGS} tags',
+        f'{epochs} epochs, not max_epochs 10000',
+        f'param_loss_epochs 100 -> {RECIPE_PARAM_LOSS_EPOCHS}',
+        f'val_conf_strategy 500 -> {RECIPE_VAL_CONFS}']
+
+
+def recipe_writer_free(torch, trainer, epochs=3):
+    """Writer-free epochs of a fitted Trainer (train_epoch alone, host
+    clock to the end of its loss fetch) after a warm one, then the device
+    idle share of two epochs under torch.profiler. Returns (steps/s of
+    each epoch, idle shares or None)."""
+    trainer.train_epoch()
+    rates = []
+    for _ in range(epochs):
+        steps, t0 = trainer.global_step, time.perf_counter()
+        trainer.train_epoch()
+        rates.append((trainer.global_step - steps)
+                     / (time.perf_counter() - t0))
+    runs = idle_share(torch, trainer.train_epoch, reps=2)
+    return rates, None if runs is None else [round(r[2], 4) for r in runs]
+
+
+def recipe_line(torch, version, out, got, peak, smi, reduced):
+    """The `recipe` line's fields for a run, writer-free epochs included."""
+    trainer = out['trainer']
+    t = trainer.timings
+    ms = lambda xs: [round(x * 1e3, 3) for x in xs]
+    rates, idle = recipe_writer_free(torch, trainer)
+    return {'version': version, 'card': smi, 'epochs': trainer.epoch,
+            'train_steps': trainer.global_step,
+            'train_molecules': len(trainer.train_loader.dataset),
+            'writer_free_steps_per_s': float(np.median(rates)),
+            'writer_free_steps_per_s_all': rates,
+            'epoch_ms': ms(t['epoch_s']), 'val_ms': ms(t['val_s']),
+            'test_eval_ms': round(out['test_eval_s'] * 1e3, 3),
+            'peak_gib': round(peak, 3), 'epoch_idle_share': idle,
+            'launches': got, 'reduced': reduced}
+
+
+def recipe_split_check(label, out, configs, ids, stored):
+    """split.json against the recipe's routing: every molecule of the
+    training tags assigned, the stored split's assignments kept; the pure
+    train tag's molecules in training alone, the pure test tags' in the
+    test metrics alone."""
+    from grappa_tpu_torch.train.export import load_model_dict
+    from pathlib import Path
+    dcfg = configs['data_config']
+    trainer = out['trainer']
+    split = json.loads((Path(out['run_dir']) / 'split.json').read_text())
+    parts = {k: set(v) for k, v in split.items()}
+    in_tags = {i for tag in dcfg['datasets'] for i in ids[tag]}
+    kept = all(set(stored[k]) <= parts[k] for k in stored)
+    train = set(trainer.train_loader.dataset.mol_ids)
+    val = set(trainer.val_loader.dataset.mol_ids)
+    pure_train = {i for tag in dcfg['pure_train_datasets'] for i in ids[tag]}
+    pure_test = {i for tag in dcfg['pure_test_datasets'] for i in ids[tag]}
+    tested = set(load_model_dict(out['model_dict_path'])['results']['test'])
+    check(in_tags == parts['train'] | parts['val'] | parts['test'] and kept
+          and pure_train <= train and not pure_train & (val | parts['test'])
+          and not pure_test & (train | val | set().union(*parts.values()))
+          and set(dcfg['pure_test_datasets']) <= tested
+          and not set(dcfg['pure_train_datasets']) & tested,
+          f'{label} split.json: {len(in_tags)} molecules of '
+          f'{len(dcfg["datasets"])} training tags, assigned '
+          f'{len(parts["train"])} / {len(parts["val"])} / '
+          f'{len(parts["test"])} (every one: '
+          f'{in_tags == parts["train"] | parts["val"] | parts["test"]}), '
+          f'the stored split\'s {sum(map(len, stored.values()))} kept: '
+          f'{kept}; pure train {dcfg["pure_train_datasets"]} in training '
+          f'only: {pure_train <= train and not pure_train & (val | parts["test"])}'
+          f'; test metrics by tag {sorted(tested)}')
+
+
+def recipe_phase(torch, work, smi, entries):
+    """Phase 14. Returns the launches by path and the `recipe` lines."""
+    import copy
+    from pathlib import Path
+    from grappa_tpu_torch import Grappa
+    from grappa_tpu_torch.data.synthetic import random_molecule
+    from grappa_tpu_torch.models.grappa_model import make_model
+    from grappa_tpu_torch.train.config import read_yaml
+    from grappa_tpu_torch.train.export import load_model_dict, model_from_dict
+    from grappa_tpu_torch.train.loss import LossWeights
+    from grappa_tpu_torch.train.run import get_dataloaders, resume_trainrun
+    from grappa_tpu_torch.train.trainer import loss_gradients
+
+    phase('14. the published recipes (grappa_tpu_torch.production) at the '
+          'published width, stand-in data under the recipes\' tags')
+    t0 = time.time()
+    tags, configs = recipe_tags()
+    root = os.path.join(work, 'recipes')
+    cache = os.path.join(root, 'cache')
+    ids, stored = recipe_data(cache, tags, RECIPE_MOLS, RECIPE_CONFS)
+    cpu_cache = os.path.join(root, 'cpu_cache')
+    recipe_data(cpu_cache, tags, RECIPE_CPU_MOLS, RECIPE_CPU_CONFS)
+    print(f'stand-ins under {len(tags)} tags made and saved in '
+          f'{time.time() - t0:.1f} s; cuts: '
+          + '; '.join(recipe_reduced(RECIPE_EPOCHS))
+          + f' (grappa-1.0: {RECIPE_V10_EPOCHS} epochs)', flush=True)
+    n_pure_test = {v: sum(len(ids[t]) for t in
+                          c['data_config']['pure_test_datasets'])
+                   for v, c in configs.items()}
+    launches, lines = {}, {}
+
+    def note(path, got):
+        for name, (nf, nb) in got.items():
+            launches.setdefault(name, {})[path] = nf
+            launches.setdefault(f'{name}.backward', {})[path] = nb
+
+    v121, v10 = 'grappa-1.2.1', 'grappa-1.0'
+    # the loss weights as LossWeights holds them (float32 values)
+    f32 = lambda x: float(np.float32(x))
+    qm = (1.0, f32(0.8))
+    with recipe_env(cache):
+        # (a) grappa-1.2.1: param-only epochs 0-1, QM epoch 2, epoch 3 with
+        # the parameter weight off
+        cfg121 = configs[v121]
+        record = []
+        out, got, wall, peak = recipe_run(
+            torch, v121, ['--project', os.path.join(root, 'a')],
+            recipe_cuts(RECIPE_EPOCHS), record=record)
+        trainer, run_dir = out['trainer'], Path(out['run_dir'])
+        note('recipe_1.2.1', got)
+        print(f'(a) {v121}: {wall:.1f} s, {trainer.global_step} steps, '
+              f'{len(trainer.train_loader.dataset)} train / '
+              f'{len(trainer.val_loader.dataset)} validation molecules',
+              flush=True)
+        n_test = recipe_launch_check(f'(a) {v121}', out, got, 7,
+                                     n_pure_test[v121])
+        print(f'(a) {n_test} test molecules', flush=True)
+        lit = cfg121['lit_model_config']
+        want = {e: (0.0, 0.0, (f32(1e-3),)) if e < lit['start_qm_epochs']
+                else qm + (((f32(lit['param_weight']),)
+                            if e < RECIPE_PARAM_LOSS_EPOCHS else (0.0,)),)
+                for e in range(RECIPE_EPOCHS)}
+        seen = {}
+        for epoch, energy, gradient, params in record[1:]:
+            seen.setdefault(epoch, set()).add((energy, gradient, params))
+        check(trainer.restarts == [lit['start_qm_epochs'],
+                                   RECIPE_PARAM_LOSS_EPOCHS]
+              and all(seen.get(e) == {w} for e, w in want.items())
+              and set(seen) == set(want),
+              f'(a) loss weights by epoch (energy, gradient, parameter): '
+              f'{ {e: sorted(v) for e, v in seen.items()} } (want {want}); '
+              f'restarts {trainer.restarts}')
+        recipe_split_check('(a)', out, cfg121, ids, stored)
+        md = load_model_dict(out['model_dict_path'])
+        ff = Grappa.from_model_dict(md)
+        mols = [random_molecule(seed=s) for s in range(4)]
+        pred = stack(ff.predict_many(mols, check_eq_values=False))
+        check(pred['proper_ks'].shape[1] == 3
+              and all(np.isfinite(v).all() for v in pred.values()),
+              f'(a) model.npz loads; its proper ks {pred["proper_ks"].shape}'
+              f' (width 3), finite')
+        del ff
+        # the kernels at the run's train and test batches' shapes
+        train_l, _, test_l, _ = get_dataloaders(
+            copy.deepcopy(cfg121['data_config']), device='cuda')
+        shapes = {'recipe train': next(iter(train_l))[0],
+                  'recipe test': next(iter(test_l))[0]}
+        for label, b in shapes.items():
+            print(f'{label} batch, padded: N=%d, molecules %d, conformers %d'
+                  % (b.xyz.shape[0], b.num_mols, b.xyz.shape[1]), flush=True)
+        for name, label, kernel, plain, flops, nbytes, on_path in \
+                kernel_cases(torch, shapes, n4_out=6):
+            if on_path:
+                compare_out(torch, entries, name, label, lambda: kernel(None),
+                            lambda: plain(None), flops=flops, nbytes=nbytes)
+        for c in training_cases(torch, {'recipe train':
+                                        shapes['recipe train']}, n4_out=6):
+            compare_grad(torch, entries, c['name'] + '.backward', c['label'],
+                         c['kernel'](None), c['plain'](None), c['inputs'],
+                         c['dy'], flops=c['bwd'][0], nbytes=c['bwd'][1])
+        del train_l, test_l, shapes
+        lines[v121] = recipe_line(torch, v121, out, got, peak, smi,
+                                  recipe_reduced(RECIPE_EPOCHS))
+        t1 = time.perf_counter()
+        resumed = resume_trainrun(str(run_dir), extra_epochs=1)
+        rt = resumed['trainer']
+        check(rt.epoch == RECIPE_EPOCHS + 1
+              and bool(np.isfinite(rt.train_losses[-1]).all()),
+              f'(a) resume_trainrun(extra_epochs=1) ends at epoch {rt.epoch}'
+              f' (want {RECIPE_EPOCHS + 1}) in {time.perf_counter() - t1:.1f}'
+              f' s; its losses '
+              f'{", ".join(f"{x:.6e}" for x in rt.train_losses[-1])}')
+        del out, trainer, resumed, rt
+
+        # (b) grappa-1.0: 2 convolution blocks + 5 attention blocks
+        cfg10 = configs[v10]
+        out, got, wall, peak = recipe_run(
+            torch, v10, ['--project', os.path.join(root, 'b')],
+            recipe_cuts(RECIPE_V10_EPOCHS))
+        note('recipe_1.0', got)
+        print(f'(b) {v10}: {wall:.1f} s, {out["trainer"].global_step} '
+              f'steps', flush=True)
+        recipe_launch_check(f'(b) {v10}', out, got, 5, n_pure_test[v10])
+        mc10 = cfg10['model_config']
+        model = out['trainer'].model
+        batch = next(iter(out['trainer'].train_loader))[0]
+        w = LossWeights(**dict(QM_WEIGHTS, param=torch.full(
+            (batch.num_mols,), QM_WEIGHTS['param'], device='cuda')))
+        _, _, grads = loss_gradients(model, batch, w,
+                                     torch.Generator().manual_seed(3))
+        conv = {k: float(g.abs().max()) for k, g in grads.items()
+                if k.startswith('gnn.conv_blocks.')}
+        check(len({k.split('.')[2] for k in conv}) == 2
+              and all(v > 0 for v in conv.values()),
+              f'(b) the 2 convolution blocks\' {len(conv)} tensors get '
+              f'non-zero gradients (max |g| each: min '
+              f'{min(conv.values()):.3e})')
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        card_model = make_model(mc10).cuda()
+        card_model.load_state_dict(state)
+        cpu_model = make_model(dict(mc10, fused_gnn=False,
+                                    fused_heads=False))
+        cpu_model.load_state_dict(state)
+        mols = [random_molecule(seed=s) for s in range(32)]
+        for c in recipe_counters():
+            c.launches = 0
+        card = stack(Grappa(card_model, {'model_config': mc10})
+                     .predict_many(mols, check_eq_values=False))
+        fwd = {c.__name__: c.launches for c in recipe_counters()}
+        check(fwd == {'fused_gnn_block': 5, 'fused_transformer_block': 12,
+                      'fused_symmetriser': 4}
+              and card['proper_ks'].shape[1] == 6,
+              f'(b) 32-molecule forward: launches {fwd} (5 / 12 / 4), '
+              f'proper ks {card["proper_ks"].shape}')
+        compare_outputs('(b) 32 molecules, card vs the CPU\'s eager modules,',
+                        card, stack(Grappa(cpu_model, {'model_config': mc10},
+                                           device='cpu').predict_many(
+                            mols, check_eq_values=False)))
+        step_card_vs_cpu(torch, '(b)', no_dropout(mc10),
+                         training_batches(torch, 0, 8))
+        lines[v10] = recipe_line(torch, v10, out, got, peak, smi,
+                                 recipe_reduced(RECIPE_V10_EPOCHS))
+        del out, model, card_model, cpu_model, grads
+
+        # (c) the recipe flags, then a run from (a)'s model.npz
+        flags = ['-p', '0.001', '--shrink_train', '0.5', '--n_periodicity',
+                 '4', '--no_torsion_cutoff']
+        out, got, _, _ = recipe_run(
+            torch, v121, ['--project', os.path.join(root, 'c')] + flags,
+            recipe_cuts(1))
+        note('recipe_flags', got)
+        stored_cfg = read_yaml(Path(out['run_dir']) / 'grappa_config.yaml')
+        name = Path(out['run_dir']).name
+        pw = stored_cfg['lit_model_config']['param_weights_by_dataset']
+        amber = [t for t in cfg121['data_config']['datasets']
+                 if 'amber99sbildn' in t]
+        check(name == 'grappa-1.2.1_p-3_shrink50_n_p4_no_cutoff'
+              and pw == {t: 0.001 for t in amber}
+              and stored_cfg['model_config']['n_periodicity_proper'] == 4
+              and stored_cfg['model_config']['torsion_cutoff'] == 0.0
+              and stored_cfg['data_config']['tr_subsampling_factor'] == 0.5,
+              f'(c) {" ".join(flags)}: run {name}, parameter weights '
+              f'{pw}, periodicity '
+              f'{stored_cfg["model_config"]["n_periodicity_proper"]}, cutoff'
+              f' {stored_cfg["model_config"]["torsion_cutoff"]}')
+        recipe_launch_check('(c) flags', out, got, 7, n_pure_test[v121])
+        del out
+        npz = os.path.join(root, 'a', v121, 'model.npz')
+        record = []
+        out, got, _, _ = recipe_run(
+            torch, v121, ['--project', os.path.join(root, 'c'),
+                          '--pretrain_path', npz],
+            recipe_cuts(1, cut_param_loss=False), record=record)
+        note('recipe_pretrain', got)
+        first = record[0][1]
+        want_sd = model_from_dict(load_model_dict(npz))[0].state_dict()
+        same = [torch.equal(first[k], want_sd[k]) for k in want_sd]
+        name = Path(out['run_dir']).name
+        check(name == 'grappa-1.2.1_pretrain' and all(same)
+              and set(first) == set(want_sd)
+              and {r[1:] for r in record[1:]} == {qm + ((0.0,),)},
+              f'(c) --pretrain_path: run {name}, first weights equal the '
+              f'file\'s in {sum(same)} of {len(want_sd)} tensors; loss '
+              f'weights {sorted({r[1:] for r in record[1:]})} (QM from '
+              f'epoch 0, parameter weight 0)')
+        recipe_launch_check('(c) pretrain', out, got, 7, n_pure_test[v121])
+        del out
+
+    # card against CPU: the 1.2.1 recipe on the small stand-ins, dropout off
+    with recipe_env(cpu_cache):
+        res = {}
+        for dev in ('cuda', 'cpu'):
+            out, _, wall, _ = recipe_run(
+                torch, v121, ['--project', os.path.join(root, f'vs_{dev}')],
+                recipe_cuts(RECIPE_CPU_EPOCHS, dropout=False), device=dev)
+            tr = out['trainer']
+            res[dev] = (sum(tr.train_losses, []),
+                        [h['metrics'] for h in tr.history], wall)
+            del out, tr
+    (lg, mg, sg), (lc, mc, sc) = res['cuda'], res['cpu']
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    first = rel(lg[0], lc[0]) if lg and lc else float('inf')
+    later = max((rel(a, b) for a, b in zip(lg[1:], lc[1:])), default=0.0)
+    metric = max((rel(x[ds][k], y[ds][k]) for x, y in zip(mg, mc)
+                  for ds in y for k in y[ds]), default=float('inf'))
+    check(len(lg) == len(lc) > 1 and first <= STEP_LOSS_RTOL
+          and later <= TRAINRUN_RTOL and metric <= TRAINRUN_RTOL
+          and all(x.keys() == y.keys() for x, y in zip(mg, mc)),
+          f'card vs CPU, {v121} on {RECIPE_CPU_MOLS} molecules x '
+          f'{RECIPE_CPU_CONFS} conformers a tag, dropout off, '
+          f'{RECIPE_CPU_EPOCHS} epochs, {len(lg)} steps: first loss '
+          f'{lg[0]:.6e} vs {lc[0]:.6e} (rel {first:.2e}, tol '
+          f'{STEP_LOSS_RTOL}); later losses worst rel {later:.2e}, '
+          f'validation metrics worst rel {metric:.2e} (tol '
+          f'{TRAINRUN_RTOL}); card {sg:.1f} s, CPU {sc:.1f} s')
+    return launches, lines
+
+
 def report_failures() -> int:
     """1 after naming each failed check on standard error (the tail a
     caller that keeps only the end of the output sees), else 0."""
@@ -5950,6 +6491,7 @@ def main() -> int:
     parallel_bf16_only = sys.argv[1:] == ['--parallel-bf16']
     spread = sys.argv[1:] == ['--parallel-bf16', '--spread']
     parallel_bf16_only |= spread
+    recipes_only = sys.argv[1:] == ['--recipes']
     sys.path.insert(0, ROOT)
     import torch
     if not torch.cuda.is_available():
@@ -6029,6 +6571,17 @@ def main() -> int:
             print('parallel ' + json.dumps(line), flush=True)
         _, _, line = parallel_bf16_phase(torch, smi, spread)
         print('parallel_bf16 ' + json.dumps(line), flush=True)
+        return report_failures()
+    if recipes_only:
+        import atexit
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+        atexit.register(shutil.rmtree, work, True)
+        entries = {}
+        _, lines = recipe_phase(torch, work, smi, entries)
+        print('kernel_times ' + json.dumps(entries), flush=True)
+        for line in lines.values():
+            print('recipe ' + json.dumps(line), flush=True)
         return report_failures()
     if trainrun_only:
         data_dir, made, _, test_batches = trainrun_data(torch, work)
@@ -6200,6 +6753,9 @@ def main() -> int:
                          ('parallel_sharded_energy', k5_par)):
         for name, n in counts.items():
             launches.setdefault(name, {})[path] = n
+    recipe_launches, recipe_lines = recipe_phase(torch, work, smi, entries)
+    for name, per_path in recipe_launches.items():
+        launches.setdefault(name, {}).update(per_path)
 
     if FAILURES:
         return report_failures()
@@ -6267,6 +6823,8 @@ def main() -> int:
         print(f'{name} ' + json.dumps(line))
     print('parallel ' + json.dumps(parallel_line))
     print('parallel_bf16 ' + json.dumps(parallel_bf16_line))
+    for line in recipe_lines.values():
+        print('recipe ' + json.dumps(line))
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

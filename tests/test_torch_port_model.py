@@ -102,11 +102,24 @@ def test_state_dict_equals_export_and_loads_strictly(variant):
     assert set(model.state_dict()) == set(ref)
 
 
-@pytest.mark.parametrize('fused', [False, True], ids=['eager', 'fused'])
-def test_small_model_matches_flax_on_12_molecules(fused):
+# the published recipes' structures at the small width: grappa-1.0's 2
+# convolution blocks before the attention blocks with proper periodicity 6,
+# and the 1.1+ heads' periodicity 3 with the hard torsion cutoff; fused
+# only (the convolution blocks are the same modules either way)
+RECIPE_STRUCTURES = {
+    '': {},
+    'v1.0': {'gnn_convolutions': 2, 'n_periodicity_proper': 6},
+    'v1.1': {'n_periodicity_proper': 3, 'torsion_cutoff': 1e-4},
+}
+
+
+@pytest.mark.parametrize('fused,structure', [
+    (False, ''), (True, ''), (True, 'v1.0'), (True, 'v1.1')],
+    ids=['eager', 'fused', 'fused-v1.0', 'fused-v1.1'])
+def test_small_model_matches_flax_on_12_molecules(fused, structure):
     """fused=True runs the ops' plain versions (the kernels' counterparts on
     the CPU); 'eager' the modules."""
-    cfg = jgm.get_small_model_config()
+    cfg = dict(jgm.get_small_model_config(), **RECIPE_STRUCTURES[structure])
     jb, tb = _batches(range(12))
     jmodel, params, tmodel = _models(
         cfg, jb, port_cfg=dict(cfg, fused_gnn=fused, fused_heads=fused))
