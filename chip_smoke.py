@@ -16,6 +16,8 @@
     python3 chip_smoke.py --parallel-bf16 --spread  # and 13(e)'s one-ulp
                                                     # spread reading
     python3 chip_smoke.py --recipes        # phases 1 and 14 alone
+    python3 chip_smoke.py --experiments    # phases 1 and 15 alone
+    python3 chip_smoke.py --proxy-run      # phase 1 and the full proxy
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit, the torch / CUDA versions;
@@ -327,11 +329,43 @@ Phases, each printing its own lines:
      steps/s, epoch, validation and test-evaluation ms, peak memory, the
      device idle share of an epoch, launches, the cuts, the card's name
      and power limit.
+ 15. the offline accuracy studies (grappa_tpu_torch.experiments) at the
+     benchmark recipe's width (7 x 512 GNN, 16 heads, parameter dropout
+     0.5, proper periodicity 6, float32) on a stand-in proxy: the first
+     1 / PROXY_FRACTION of each SPECS seed block (50 / 70 / 50 / 30
+     molecules; their ids a subset of the committed split): (a)
+     espaloma_proxy.generate in PROXY_WORKERS spawned processes (no CUDA
+     in them) on an espaloma_proxy.Study of the stand-in: the split
+     equal to the committed one restricted to the stand-in, again from
+     the cache, the counts by partition; (b) espaloma_proxy.train for
+     PROXY_EPOCHS epochs (7 / 12 / 4 launches a forward: steps,
+     validation, test molecules, the test_model forward; and a step),
+     the stored config's mutations, K1-K3 at the run's train and test
+     batches and K1b-K3b at its train batch (phases 2 / 4's rules); card
+     vs CPU on the first PROXY_CPU_MOLS molecules of each chemistry,
+     dropout off (first loss at 5(a)'s rule, later losses and validation
+     metrics at TRAINRUN_RTOL); the resume to PROXY_RESUME_EPOCHS under a
+     session bound (session_time_limit stored, time_limit kept), the
+     table, gate.json (its verdict a reading) and the analysis; the
+     writer-free epochs and an epoch's idle share; (c) run_ablation over
+     baseline, wrong_symmetry and no_gnn_attention, an epoch each (7 / 12
+     / 4, no_gnn_attention 0 / 12 / 4; K3 / K3b launched at P = 6 once a
+     forward and a step in wrong_symmetry alone, counted by wrapping the
+     symmetriser's autograd Function), a rerun training nothing, K3 / K3b
+     at P = 6 at the arm's train and test batches' improper T against
+     their plain versions; (d) lc at LC_FACTORS: the train-molecule
+     counts of Dataset.subsampled, a cached rerun training nothing; (e)
+     hpo: HPO_TRIALS trials of HPO_EPOCHS epochs (a finite early-stopping
+     loss needs the recipe's first QM epoch, its third), a resumed call
+     running none, the report. An
+     `experiments` line: each step's wall s, writer-free steps/s, peak
+     memory, an epoch's idle share, the gate's reading, the launches, the
+     cuts, the card's name and power limit.
 
 The `trainrun {...}`, `trainrun_bf16 {...}`, `eval {...}`, `ingest
 {...}`, `gmx {...}`, phase 12's five lines, `parallel {...}`,
-`parallel_bf16 {...}` and the two `recipe {...}` lines come before
-the last three lines, which are a
+`parallel_bf16 {...}`, the two `recipe {...}` lines and the
+`experiments {...}` line come before the last three lines, which are a
 JSON object describing the kernels, the card's name and power limit, and
 {"ok": true, "device": {...}}. In the kernels'
 line, `launches` sums the main paths (the two predict paths and the ten
@@ -339,8 +373,11 @@ training steps, phase 8's training run and phase 9's eval and ingest
 paths, phase 11's gmx path, phase 12's sweep and plots, phase 13's
 steps and atom-sharded paths (`parallel`, the ranks' summed) and phase
 14's four recipe runs (`recipe_1.2.1`, `recipe_1.0`, `recipe_flags`,
-`recipe_pretrain`) for K1-K3 and the sweep, phase 13 and phase 14 for
-K1b-K3b; phase 6's four paths and 13(f)'s
+`recipe_pretrain`) and phase 15's study runs (`proxy`, `proxy_resume`,
+`ablation_<arm>`, `lc_<factor>`, `hpo_trial_<i>`) for K1-K3 and the
+sweep, phase 13, phase 14 and phase 15 for K1b-K3b; K3 / K3b at P = 6
+(`fused_symmetriser.p6`, `fused_symmetriser.backward.p6`) the
+wrong_symmetry arm's; phase 6's four paths and 13(f)'s
 sharded energy (`parallel_sharded_energy`) for K5 and K5b; 13(e)'s bf16
 steps and atom-sharded paths (`parallel_bf16`) for the bf16 entries;
 `launches_per_path` gives each), and `ms`, `plain_ms`, `bound_ms`,
@@ -365,7 +402,11 @@ the kernels' sums as a `kernel_times` line instead; `--bf16` runs phase
 `--eval` phase 9 alone, `--gmx` phase 11 alone (after phase 2 at its
 shapes; a `kernel_times` line and the `gmx` line) and
 `--recipes` phase 14 alone (a `kernel_times` line and the `recipe`
-lines), `--train-step` phase 5 and 10(c)(c) alone (the float32 and the bf16
+lines), `--experiments` phase 15 alone (a `kernel_times` line and the
+`experiments` line), `--proxy-run` the full espaloma-proxy benchmark
+(proxy_run_phase: 2,000 molecules, PROXY_RUN_EPOCHS epochs under a
+session bound, into runs/torch_experiments/proxy; a `proxy_run` line),
+`--train-step` phase 5 and 10(c)(c) alone (the float32 and the bf16
 steps, with names a parent checkout shares, so that one copy of this
 script times the steps of both); `--gnn-calls` prints only the
 `gnn_call` lines, K1 / K1b in bf16 mode one call at a time at N 64, 224,
@@ -418,7 +459,9 @@ TENSOR_CORE_KERNELS = ('fused_transformer_block',
                        'fused_transformer_block.backward',
                        'fused_gnn_block.backward',
                        'fused_symmetriser.backward',
-                       'fused_gnn_block', 'fused_symmetriser')
+                       'fused_gnn_block', 'fused_symmetriser',
+                       'fused_symmetriser.p6',
+                       'fused_symmetriser.backward.p6')
 
 # kernel vs plain version on the card, both float32 (TF32 off): elementwise
 # |kernel - plain| <= ATOL + RTOL * |plain|; the two sum their products in
@@ -574,6 +617,25 @@ RECIPE_MOLS, RECIPE_CONFS, RECIPE_SPLIT_TAGS = 16, 8, 3
 RECIPE_EPOCHS, RECIPE_V10_EPOCHS = 4, 3
 RECIPE_PARAM_LOSS_EPOCHS, RECIPE_VAL_CONFS = 3, 16
 RECIPE_CPU_MOLS, RECIPE_CPU_CONFS, RECIPE_CPU_EPOCHS = 8, 4, 2
+# phase 15: the offline accuracy studies (grappa_tpu_torch.experiments) at
+# the benchmark recipe's width on a stand-in proxy, the first
+# 1 / PROXY_FRACTION of each SPECS seed block (every chemistry kept; its
+# ids are a subset of the committed split, which routes them unchanged),
+# made by generate in PROXY_WORKERS spawned processes; the proxy trained
+# PROXY_EPOCHS epochs, then resumed to PROXY_RESUME_EPOCHS under a session
+# bound of PROXY_SESSION_H hours; the ablation arms and the learning
+# curve's LC_FACTORS one epoch each, HPO_TRIALS sweep trials HPO_EPOCHS
+# each (the recipe's first QM epoch is its third: before it a trial has
+# no early-stopping loss to rank); card vs CPU on
+# the first PROXY_CPU_MOLS molecules of each chemistry, dropout off, in
+# train batches of PROXY_CPU_BATCH, PROXY_CPU_EPOCHS epoch(s)
+PROXY_FRACTION, PROXY_WORKERS = 10, 8
+PROXY_EPOCHS, PROXY_RESUME_EPOCHS, PROXY_SESSION_H = 2, 3, 1.0
+LC_FACTORS, HPO_TRIALS, HPO_EPOCHS = (1.0, 0.5), 2, 3
+PROXY_CPU_MOLS, PROXY_CPU_BATCH, PROXY_CPU_EPOCHS = 10, 8, 1
+# --proxy-run: the full proxy (2,000 molecules) at the driver's default
+# epochs, bounded to a session of PROXY_RUN_HOURS (it finalizes there)
+PROXY_RUN_EPOCHS, PROXY_RUN_HOURS = 150, 0.7
 
 FAILURES = []
 
@@ -1144,19 +1206,25 @@ def compare_out(torch, entries, name, label, kernel, plain, flops, nbytes,
         accumulate(entries, name, max_abs, ms, plain_ms, flops, nbytes)
 
 
-def kernel_cases(torch, workloads, n4_out=12):
+def kernel_cases(torch, workloads, n4_out=12, perms=None,
+                 wrong_symmetry=False):
     """Every forward kernel's case at the shapes each workload's forward
     gives it (its padded N, neighbour list and tuple counts), on seeded
     inputs: (name, label, kernel(mm_dtype), plain(mm_dtype), flops,
     nbytes, on_path), made one at a time (the same inputs on every call).
     n4_out: the proper writer's symmetriser outputs (2 x the gated
-    periodicity: 12 at the default 6, 6 at the 1.1+ recipes' 3)."""
+    periodicity: 12 at the default 6, 6 at the 1.1+ recipes' 3). perms:
+    {term: permutations} in place of the model's (phase 15's
+    wrong_symmetry arm: the 6 improper ones). wrong_symmetry: a last,
+    off-path case at the 6-permutation improper set (T 552; phase 10(a)'s
+    bf16 check of it)."""
     from grappa_tpu_torch.data.graph_batch import TERM_ARITY, TERMS
     from grappa_tpu_torch.ops import fused_block as fb
     from grappa_tpu_torch.ops import fused_gnn as fg
     from grappa_tpu_torch.ops import fused_symmetriser as fs
     from grappa_tpu_torch.models.heads import (PERMUTATIONS,
                                                WRONG_SYMMETRY_IMPROPER)
+    perms = dict(PERMUTATIONS, **(perms or {}))
     gen = torch.Generator().manual_seed(1234)
     f, heads, hid, hid2, width = 512, 16, 2048, 512, 256
     sym_out = {'n2': 2, 'n3': 2, 'n4': n4_out, 'n4_improper': 6}
@@ -1218,11 +1286,11 @@ def kernel_cases(torch, workloads, n4_out=12):
                        x, p2, 8, mm_dtype=dt),
                    2 * r * (4 * f * f + 2 * f * hid2) + 4 * t * s * s * f,
                    4 * (2 * r * f + sum(p.numel() for p in p2)), True)
-            yield sym_case(PERMUTATIONS[term], t, sym_out[term], label)
+            yield sym_case(perms[term], t, sym_out[term], label)
 
-    # the 6-permutation improper case (wrong_symmetry), off the default path
-    yield sym_case(WRONG_SYMMETRY_IMPROPER, 552, 6, 'wrong_symmetry',
-                   on_path=False)
+    if wrong_symmetry:
+        yield sym_case(WRONG_SYMMETRY_IMPROPER, 552, 6, 'wrong_symmetry',
+                       on_path=False)
 
 
 def kernel_phase(torch, workloads):
@@ -1287,7 +1355,7 @@ def compare_grad(torch, entries, name, label, kernel, plain, inputs, dy,
         accumulate(entries, name, max_abs, ms, plain_ms, flops, nbytes)
 
 
-def training_cases(torch, batches, n4_out=12):
+def training_cases(torch, batches, n4_out=12, perms=None):
     """K1b-K3b's cases at the shapes one training step gives them on each
     of `batches` (label -> batch), dropout on at the default rates (K1
     0.3, K2 0.5; K3 has none), on seeded inputs: dicts with the op's name,
@@ -1295,9 +1363,10 @@ def training_cases(torch, batches, n4_out=12):
     function of the inputs; plain runs on the inputs' device), the
     forward's and the backward's FLOPs and bytes, and what the mask dumps
     need (`masks`: (op module, shape, rate, seed) on the 'train' batch).
-    n4_out: as kernel_cases'."""
+    n4_out, perms: as kernel_cases'."""
     from grappa_tpu_torch.data.graph_batch import TERM_ARITY, TERMS
     from grappa_tpu_torch.models.heads import PERMUTATIONS
+    perms_of = dict(PERMUTATIONS, **(perms or {}))
     from grappa_tpu_torch.ops import fused_block as fb
     from grappa_tpu_torch.ops import fused_gnn as fg
     from grappa_tpu_torch.ops import fused_symmetriser as fs
@@ -1367,7 +1436,7 @@ def training_cases(torch, batches, n4_out=12):
                 masks=((fb, (s, t, f), rate2, seed2)
                        if term == 'n4' and label == 'train' else None))
 
-            perms, out = PERMUTATIONS[term], sym_out[term]
+            perms, out = perms_of[term], sym_out[term]
             dims = [(s * f, width, width), (width, width, width),
                     (width, width, out)]
             layers = [rand_params(torch, gen, [
@@ -2291,7 +2360,7 @@ def bf16_kernel_phase(torch, workloads, entries):
     phase('10(a). K1-K3 in bf16 mode (compute_dtype=\'bfloat16\') against '
           'their plain bf16 versions')
     for name, label, kernel, plain, flops, nbytes, on_path in kernel_cases(
-            torch, workloads):
+            torch, workloads, wrong_symmetry=True):
         compare_bf16(torch, entries, name, label, kernel, plain, flops,
                      nbytes, on_path)
     phase('10(d). the bf16 mode\'s SASS')
@@ -6462,6 +6531,496 @@ def recipe_phase(torch, work, smi, entries):
     return launches, lines
 
 
+@contextlib.contextmanager
+def perm_launches():
+    """K3 / K3b launches by permutation count for the block: the
+    symmetriser's autograd Function wrapped, its own counters untouched."""
+    from collections import Counter
+    from grappa_tpu_torch.ops import fused_symmetriser as fs
+    fn = fs._SymmetriserKernel
+    keep_f, keep_b = fn.forward, fn.backward
+    counts = {'fwd': Counter(), 'bwd': Counter()}
+
+    def forward(ctx, x, permutations, *rest):
+        y = keep_f(ctx, x, permutations, *rest)
+        counts['fwd'][len(permutations)] += 1
+        return y
+
+    def backward(ctx, dy):
+        grads = keep_b(ctx, dy)
+        counts['bwd'][len(ctx.permutations)] += 1
+        return grads
+
+    fn.forward, fn.backward = staticmethod(forward), staticmethod(backward)
+    try:
+        yield counts
+    finally:
+        fn.forward, fn.backward = staticmethod(keep_f), staticmethod(keep_b)
+
+
+@contextlib.contextmanager
+def counted_runs(torch, module, names=('do_trainrun', 'resume_trainrun')):
+    """The module's training entry points wrapped for the block: the
+    kernels' counts zeroed just before each call and read just after, with
+    K3 / K3b's by permutation count, the call's wall s, peak GiB and
+    output. Yields the list of calls."""
+    calls = []
+    keep = {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def run(*args, **kwargs):
+            counters = recipe_counters()
+            for c in counters:
+                c.launches = c.bwd_launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with perm_launches() as perms:
+                out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            calls.append(dict(
+                kind=name, out=out, wall=time.perf_counter() - t0,
+                got={c.__name__: (c.launches, c.bwd_launches)
+                     for c in counters},
+                perms={k: dict(v) for k, v in perms.items()},
+                peak=torch.cuda.max_memory_allocated() / 2 ** 30))
+            return out
+        return run
+
+    for name, fn in keep.items():
+        setattr(module, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in keep.items():
+            setattr(module, name, fn)
+
+
+def study_launch_check(label, call, gnn_blocks, prior=(0, 0)):
+    """K1-K3 / K1b-K3b launched gnn_blocks / 12 / 4 times each forward of
+    a do_trainrun / resume_trainrun call (each train step, each epoch's
+    validation batches, each test molecule, one a batch, and
+    do_trainrun's test_model forward) and each step's backward; prior:
+    the run's (steps, epochs) before the call. Returns (forwards,
+    steps)."""
+    from pathlib import Path
+    from grappa_tpu_torch.train.config import read_yaml
+    trainer, run_dir = call['out']['trainer'], Path(call['out']['run_dir'])
+    steps = trainer.global_step - prior[0]
+    epochs = trainer.epoch - prior[1]
+    n_val = len(trainer.val_loader or [])
+    n_test = len(json.loads((run_dir / 'split.json').read_text())['test'])
+    smoke = int(call['kind'] == 'do_trainrun' and bool(
+        read_yaml(run_dir / 'grappa_config.yaml').get('test_model')))
+    forwards = steps + epochs * n_val + n_test + smoke
+    want = {'fused_gnn_block': (gnn_blocks * forwards, gnn_blocks * steps),
+            'fused_transformer_block': (12 * forwards, 12 * steps),
+            'fused_symmetriser': (4 * forwards, 4 * steps)}
+    check(call['got'] == want and steps > 0,
+          f'{label} launches (forward, backward) {call["got"]}: {steps} '
+          f'train steps + {epochs} validations of {n_val} batch(es) + '
+          f'{n_test} test batches + {smoke} test_model forward = '
+          f'{forwards} forwards, {steps} backwards (want {gnn_blocks} / 12'
+          f' / 4 each); {call["wall"]:.1f} s')
+    losses = sum(trainer.train_losses[-epochs:], []) if epochs else []
+    check(len(losses) == steps and bool(np.isfinite(losses).all()),
+          f'{label} finite losses: '
+          + ', '.join(f'{x:.6e}' for x in losses))
+    return forwards, steps
+
+
+def experiments_reduced():
+    """The `experiments` line's cuts."""
+    return [
+        f'stand-in proxy: the first 1/{PROXY_FRACTION} of each SPECS seed '
+        f'block (every chemistry; ids a subset of the committed split)',
+        f'proxy {PROXY_EPOCHS} epochs, resumed to {PROXY_RESUME_EPOCHS}, '
+        f'not 150',
+        f'ablation arms and learning-curve factors {list(LC_FACTORS)}: 1 '
+        f'epoch each, not 500 / 60; {HPO_TRIALS} sweep trials of '
+        f'{HPO_EPOCHS} epochs, not 16 of 150',
+        f'card vs CPU: the first {PROXY_CPU_MOLS} molecules of each '
+        f'chemistry, batches of {PROXY_CPU_BATCH}, dropout off']
+
+
+def stand_in_study(out_dir):
+    """Phase 15's stand-in proxy: the first 1 / PROXY_FRACTION of each
+    SPECS chemistry, and the committed split restricted to its ids,
+    written under `out_dir`. Returns the espaloma_proxy.Study and that
+    split."""
+    from pathlib import Path
+    from grappa_tpu_torch.experiments import espaloma_proxy as proxy
+    committed = json.loads(Path(proxy.SPLIT_JSON).read_text())
+    specs = {tag: (spec[0] // PROXY_FRACTION,) + tuple(spec[1:])
+             for tag, spec in proxy.SPECS.items()}
+    ids = {f'{t[0]}-{t[1]}' for ts in proxy.tasks(specs).values()
+           for t in ts}
+    restricted = {k: [i for i in v if i in ids] for k, v in committed.items()}
+    split_json = Path(out_dir) / 'espaloma_split.json'
+    split_json.write_text(json.dumps(restricted))
+    return (proxy.Study(specs, split_json, proxy.GATE_RATCHET, Path(out_dir)),
+            restricted)
+
+
+def experiments_phase(torch, work, smi, entries):
+    """Phase 15. Returns the launches by path and the `experiments`
+    line."""
+    import copy
+    from pathlib import Path
+    from grappa_tpu_torch.data.dataset import Dataset
+    from grappa_tpu_torch.experiments import ablation, hpo, lc
+    from grappa_tpu_torch.experiments import espaloma_proxy as proxy
+    from grappa_tpu_torch.models.heads import WRONG_SYMMETRY_IMPROPER
+    from grappa_tpu_torch.train import run as run_mod
+    from grappa_tpu_torch.train.config import read_yaml
+    from grappa_tpu_torch.train.run import get_dataloaders
+
+    phase('15. the offline accuracy studies (grappa_tpu_torch.experiments)'
+          ' at the benchmark recipe\'s width, on a stand-in proxy')
+    root = Path(work) / 'experiments'
+    out_dir, cache = root / 'proxy', root / 'proxy' / 'cache'
+    out_dir.mkdir(parents=True, exist_ok=True)
+    launches, wall = {}, {}
+    line = {'card': smi, 'wall_s': wall, 'reduced': experiments_reduced()}
+
+    def note(path, got):
+        for name, (nf, nb) in got.items():
+            launches.setdefault(name, {})[path] = nf
+            launches.setdefault(f'{name}.backward', {})[path] = nb
+
+    study, restricted = stand_in_study(out_dir)
+    stand_in = study.specs
+    # (a) generate, on the host
+    t0 = time.perf_counter()
+    split = proxy.generate(workers=PROXY_WORKERS, cache_dir=cache,
+                           study=study)
+    wall['generate'] = time.perf_counter() - t0
+    by_tag = {tag: {k: sum(i.startswith(tag + '-') for i in v)
+                    for k, v in split.items()} for tag in stand_in}
+    want = {tag: {'train': n * 8 // 10, 'val': n // 10,
+                  'test': n // 10}
+            for tag, (n, *_) in stand_in.items()}
+    sizes = {tag: len(Dataset.load(cache / 'datasets' / tag))
+             for tag in stand_in}
+    again = proxy.generate(workers=PROXY_WORKERS, cache_dir=cache,
+                           study=study)
+    check(split == restricted == again and by_tag == want
+          and sizes == {t: s[0] for t, s in stand_in.items()},
+          f'(a) generate: {sum(sizes.values())} molecules {sizes} in '
+          f'{wall["generate"]:.1f} s ({PROXY_WORKERS} spawned workers);'
+          f' the split equals the committed one restricted to them: '
+          f'{split == restricted}, and again from the cache: '
+          f'{again == restricted}; by partition {by_tag}')
+    line.update(molecules=sizes, partition=by_tag)
+
+    # (b) the proxy: 2 epochs, the kernels at its batches, card vs
+    # CPU, a resume under a session bound, the table and the analysis
+    with counted_runs(torch, proxy) as calls:
+        summary = proxy.train(epochs=PROXY_EPOCHS, out_dir=out_dir,
+                              study=study)
+    first = calls[-1]
+    wall['train'] = first['wall']
+    trainer = first['out']['trainer']
+    run_dir = Path(first['out']['run_dir'])
+    peak = first['peak']
+    note('proxy', first['got'])
+    study_launch_check('(b) train', first, 7)
+    stored = read_yaml(run_dir / 'grappa_config.yaml')
+    dcfg, tcfg = stored['data_config'], stored['trainer_config']
+    check(summary['epoch'] == PROXY_EPOCHS
+          and set(summary['test'] or {}) >= set(stand_in)
+          and tcfg['scan_epochs'] is True
+          and tcfg['async_checkpoints'] is True
+          and dcfg['conf_strategy'] == dcfg['val_conf_strategy'] == 8
+          and dcfg['weights'] == {'proxy-rna-like': 3.0,
+                                  'proxy-spice-pubchem': 0.8}
+          and dcfg['splitpath'] == str(study.split_json),
+          f'(b) train: epoch {summary["epoch"]} of {PROXY_EPOCHS}, '
+          f'{trainer.global_step} steps on '
+          f'{len(trainer.train_loader.dataset)} molecules, test metrics'
+          f' of {sorted(summary["test"] or {})}; stored config: '
+          f'scan_epochs {tcfg["scan_epochs"]}, async_checkpoints '
+          f'{tcfg["async_checkpoints"]}, weights {dcfg["weights"]}')
+    with proxy.dataset_cache(cache):
+        train_l, _, test_l, _ = get_dataloaders(copy.deepcopy(dcfg),
+                                                device='cuda')
+    shapes = {'proxy train': next(iter(train_l))[0],
+              'proxy test': next(iter(test_l))[0]}
+    for label, b in shapes.items():
+        print(f'{label} batch, padded: N=%d, molecules %d, conformers '
+              '%d, T bonds / angles / propers / impropers = %s' % (
+                  b.xyz.shape[0], b.num_mols, b.xyz.shape[1],
+                  ' / '.join(str(b.terms[t].idxs.shape[0]) for t in
+                             ('n2', 'n3', 'n4', 'n4_improper'))),
+              flush=True)
+    for name, label, kernel, plain, flops, nbytes, _ in kernel_cases(
+            torch, shapes):
+        compare_out(torch, entries, name, label, lambda: kernel(None),
+                    lambda: plain(None), flops=flops, nbytes=nbytes)
+    for c in training_cases(torch, {'proxy train':
+                                    shapes['proxy train']}):
+        compare_grad(torch, entries, c['name'] + '.backward', c['label'],
+                     c['kernel'](None), c['plain'](None), c['inputs'],
+                     c['dy'], flops=c['bwd'][0], nbytes=c['bwd'][1])
+    del train_l, test_l, shapes
+
+    # card vs CPU: the first molecules of each chemistry, dropout off
+    cpu_cache = root / 'cpu_cache'
+    for tag in stand_in:
+        ds = Dataset.load(cache / 'datasets' / tag)
+        Dataset(ds.entries[:PROXY_CPU_MOLS],
+                ds.ds_names[:PROXY_CPU_MOLS]).save(
+            cpu_cache / 'datasets' / tag)
+    base = proxy.read_yaml(proxy.BENCHMARK_YAML)
+    base['model_config'] = no_dropout(base['model_config'])
+    base['data_config']['train_batch_size'] = PROXY_CPU_BATCH
+    res = {}
+    for dev in ('cuda', 'cpu'):
+        with counted_runs(torch, proxy) as calls:
+            proxy.train(epochs=PROXY_CPU_EPOCHS,
+                        out_dir=root / f'vs_{dev}', base_config=base,
+                        cache_dir=cpu_cache, device=dev, study=study)
+        tr = calls[-1]['out']['trainer']
+        res[dev] = (sum(tr.train_losses, []),
+                    [h['metrics'] for h in tr.history], calls[-1]['wall'])
+        del calls, tr
+    (lg, mg, sg), (lcpu, mc, sc) = res['cuda'], res['cpu']
+    wall['card_vs_cpu'] = sg + sc
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    first_rel = rel(lg[0], lcpu[0]) if lg and lcpu else float('inf')
+    later = max((rel(a, b) for a, b in zip(lg[1:], lcpu[1:])),
+                default=0.0)
+    metric = max((rel(x[ds][k], y[ds][k]) for x, y in zip(mg, mc)
+                  for ds in y for k in y[ds]), default=float('inf'))
+    check(len(lg) == len(lcpu) > 1 and first_rel <= STEP_LOSS_RTOL
+          and later <= TRAINRUN_RTOL and metric <= TRAINRUN_RTOL
+          and all(x.keys() == y.keys() for x, y in zip(mg, mc)),
+          f'(b) card vs CPU, the proxy on {PROXY_CPU_MOLS} molecules a '
+          f'chemistry, batches of {PROXY_CPU_BATCH}, dropout off, '
+          f'{PROXY_CPU_EPOCHS} epoch(s), {len(lg)} steps: first loss '
+          f'{lg[0]:.6e} vs {lcpu[0]:.6e} (rel {first_rel:.2e}, tol '
+          f'{STEP_LOSS_RTOL}); later losses worst rel {later:.2e}, '
+          f'validation metrics worst rel {metric:.2e} (tol '
+          f'{TRAINRUN_RTOL}); card {sg:.1f} s, CPU {sc:.1f} s')
+
+    prior = (trainer.global_step, trainer.epoch)
+    del trainer, first
+    with counted_runs(torch, proxy) as calls:
+        summary = proxy.train(epochs=PROXY_RESUME_EPOCHS,
+                              out_dir=out_dir,
+                              time_limit=PROXY_SESSION_H, study=study)
+    resumed = calls[-1]
+    wall['resume'] = resumed['wall']
+    note('proxy_resume', resumed['got'])
+    study_launch_check('(b) resume', resumed, 7, prior=prior)
+    lit = read_yaml(run_dir / 'grappa_config.yaml')['lit_model_config']
+    check(resumed['kind'] == 'resume_trainrun'
+          and summary['epoch'] == PROXY_RESUME_EPOCHS
+          and summary['epochs_run'] == PROXY_RESUME_EPOCHS - PROXY_EPOCHS
+          and lit['session_time_limit'] == PROXY_SESSION_H
+          and lit['time_limit'] == proxy.read_yaml(
+              proxy.BENCHMARK_YAML)['lit_model_config']['time_limit'],
+          f'(b) resume ({resumed["kind"]}) to epoch {summary["epoch"]} '
+          f'({summary["epochs_run"]} this session) under a session bound:'
+          f' stored session_time_limit {lit["session_time_limit"]} (want'
+          f' {PROXY_SESSION_H}), time_limit {lit["time_limit"]}')
+    t0 = time.perf_counter()
+    gate = json.loads((out_dir / 'gate.json').read_text())
+    analysis = proxy.write_analysis(out_dir)
+    wall['table_analyze'] = time.perf_counter() - t0
+    test = summary['test'] or {}
+    check(set(gate['per_dataset']) == set(stand_in)
+          and (out_dir / 'table.md').exists()
+          and analysis['epochs_seen'] == PROXY_RESUME_EPOCHS,
+          f'(b) gate.json over {sorted(gate["per_dataset"])}: pass '
+          f'{gate["pass"]}, target_pass {gate["target_pass"]} (a '
+          f'reading: {PROXY_RESUME_EPOCHS} epochs do not reach the '
+          f'ratchet); analysis over {analysis["epochs_seen"]} epochs: '
+          f'{analysis["verdict"]}; test E RMSE '
+          + ', '.join(f'{d} {m["rmse_energies"]:.3f}'
+                      for d, m in sorted(test.items())))
+    rates, idle = recipe_writer_free(torch, resumed['out']['trainer'])
+    line.update(
+        epochs=summary['epoch'],
+        train_steps=resumed['out']['trainer'].global_step,
+        train_molecules=len(
+            resumed['out']['trainer'].train_loader.dataset),
+        writer_free_steps_per_s=float(np.median(rates)),
+        writer_free_steps_per_s_all=rates, epoch_idle_share=idle,
+        peak_gib=round(max(peak, resumed['peak']), 3),
+        gate={k: gate[k] for k in ('pass', 'target_pass')},
+        test_rmse_energies={d: m['rmse_energies']
+                            for d, m in test.items()},
+        verdict=analysis['verdict'])
+    del resumed, calls
+
+    # (c) the ablation arms, 1 epoch each, then a rerun that trains
+    # nothing
+    with counted_runs(torch, proxy) as calls:
+        results = ablation.run_ablation(
+            epochs=1, out_dir=root / 'ablation', cache_dir=cache,
+            splitpath=study.split_json)
+    wall['ablation'] = {arm: c['wall']
+                        for arm, c in zip(ablation.ARMS, calls)}
+    arm_line = {}
+    for arm, call in zip(ablation.ARMS, calls):
+        gnn = 0 if arm == 'no_gnn_attention' else 7
+        nf, nb = study_launch_check(f'(c) {arm}', call, gnn)
+        note(f'ablation_{arm}', call['got'])
+        p6 = (call['perms']['fwd'].get(6, 0),
+              call['perms']['bwd'].get(6, 0))
+        want = (nf, nb) if arm == 'wrong_symmetry' else (0, 0)
+        check(p6 == want, f'(c) {arm}: K3 / K3b launches at P = 6 '
+                          f'{p6} (want {want}); by P {call["perms"]}')
+        if arm == 'wrong_symmetry':
+            launches['fused_symmetriser.p6'] = {
+                'ablation_wrong_symmetry': p6[0]}
+            launches['fused_symmetriser.backward.p6'] = {
+                'ablation_wrong_symmetry': p6[1]}
+        arm_line[arm] = call['got']
+    with counted_runs(torch, proxy) as again:
+        rerun = ablation.run_ablation(
+            epochs=1, out_dir=root / 'ablation', cache_dir=cache,
+            splitpath=study.split_json)
+    check(set(results) == set(ablation.ARMS) and rerun == results
+          and not again
+          and all(r['test'] for r in results.values())
+          and (root / 'ablation' / 'ablation_table.md').exists(),
+          f'(c) run_ablation: arms {sorted(results)} with test metrics,'
+          f' ablation_table.md written; a rerun trains {len(again)} '
+          f'arm(s)')
+    # K3 / K3b at P = 6 at the wrong_symmetry arm's batches
+    arm_cfg = read_yaml(root / 'ablation' / 'runs'
+                        / 'abl-wrong_symmetry' / 'grappa_config.yaml')
+    check(arm_cfg['model_config']['wrong_symmetry'] is True,
+          '(c) the wrong_symmetry arm\'s stored model_config has '
+          'wrong_symmetry True')
+    with proxy.dataset_cache(cache):
+        train_l, _, test_l, _ = get_dataloaders(
+            copy.deepcopy(arm_cfg['data_config']), device='cuda')
+    shapes = {'wrong_symmetry train': next(iter(train_l))[0],
+              'wrong_symmetry test': next(iter(test_l))[0]}
+    p6_perms = {'n4_improper': WRONG_SYMMETRY_IMPROPER}
+    for name, label, kernel, plain, flops, nbytes, _ in kernel_cases(
+            torch, shapes, perms=p6_perms):
+        if name == 'fused_symmetriser' and 'perms=6' in label:
+            compare_out(torch, entries, 'fused_symmetriser.p6', label,
+                        lambda: kernel(None), lambda: plain(None),
+                        flops=flops, nbytes=nbytes)
+    for c in training_cases(
+            torch, {'wrong_symmetry train':
+                    shapes['wrong_symmetry train']}, perms=p6_perms):
+        if c['name'] == 'fused_symmetriser' and 'perms=6' in c['label']:
+            compare_grad(torch, entries, 'fused_symmetriser.backward.p6',
+                         c['label'], c['kernel'](None), c['plain'](None),
+                         c['inputs'], c['dy'], flops=c['bwd'][0],
+                         nbytes=c['bwd'][1])
+    del train_l, test_l, shapes, calls
+    line['ablation_launches'] = arm_line
+
+    # (d) the learning curve, then a rerun that trains nothing
+    with counted_runs(torch, proxy) as calls:
+        curve = lc.run_lc(LC_FACTORS, epochs=1, out_dir=root / 'lc',
+                          splitpath=str(study.split_json),
+                          cache_dir=cache)
+    wall['lc'] = [c['wall'] for c in calls]
+    n_train = len(restricted['train'])
+    want = {f'lc_{f:g}': (n_train if f >= 1 else
+                          max(1, int(n_train * f))) for f in LC_FACTORS}
+    got = {k: v['train_mols'] for k, v in curve.items()}
+    for f, call in zip(LC_FACTORS, calls):
+        study_launch_check(f'(d) lc_{f:g}', call, 7)
+        note(f'lc_{f:g}', call['got'])
+    t0 = time.perf_counter()
+    with counted_runs(torch, proxy) as again:
+        cached = lc.run_lc(LC_FACTORS, epochs=1, out_dir=root / 'lc',
+                           splitpath=str(study.split_json),
+                           cache_dir=cache)
+    wall['lc_cached'] = time.perf_counter() - t0
+    check(got == want and cached == curve and not again,
+          f'(d) learning curve: train molecules {got} (want {want}); '
+          f'the cached rerun trains {len(again)} factor(s) in '
+          f'{wall["lc_cached"]:.2f} s')
+    line['lc_train_molecules'] = got
+    del calls
+
+    # (e) the sweep: HPO_TRIALS trials, then a resumed call that runs
+    # none
+    hpo_cfg = hpo.build_base_config(HPO_EPOCHS)
+    hpo_cfg['data_config']['splitpath'] = str(study.split_json)
+    with counted_runs(torch, run_mod, ('do_trainrun',)) as calls:
+        best = hpo.run_hpo(trials=HPO_TRIALS, epochs=HPO_EPOCHS,
+                           out_dir=root / 'hpo', base_config=hpo_cfg,
+                           cache_dir=cache)
+    wall['hpo'] = [c['wall'] for c in calls]
+    for i, call in enumerate(calls):
+        study_launch_check(f'(e) trial {i}', call, 7)
+        note(f'hpo_trial_{i}', call['got'])
+    trials = (root / 'hpo' / 'trials.jsonl').read_text()
+    best_json = (root / 'hpo' / 'best.json').read_text()
+    t0 = time.perf_counter()
+    with counted_runs(torch, run_mod, ('do_trainrun',)) as again:
+        hpo.run_hpo(trials=HPO_TRIALS, epochs=HPO_EPOCHS,
+                    out_dir=root / 'hpo', base_config=hpo_cfg,
+                    cache_dir=cache)
+    wall['hpo_resumed'] = time.perf_counter() - t0
+    scored = hpo.report(out_dir=root / 'hpo')
+    check(len(calls) == HPO_TRIALS and best['trial'] is not None
+          and not again and len(scored) == HPO_TRIALS
+          and (root / 'hpo' / 'trials.jsonl').read_text() == trials
+          and (root / 'hpo' / 'best.json').read_text() == best_json,
+          f'(e) sweep: {len(calls)} trials, best trial {best["trial"]} '
+          f'(es_loss {best["early_stopping_loss"]:.4g}); the resumed '
+          f'call runs {len(again)} trial(s) in {wall["hpo_resumed"]:.2f}'
+          f' s and leaves trials.jsonl and best.json as they were')
+    del calls
+    return launches, line
+
+
+def proxy_run_phase(torch, smi):
+    """`--proxy-run`: the full espaloma-proxy benchmark through
+    espaloma_proxy (generate the 2,000 molecules, train PROXY_RUN_EPOCHS
+    epochs at the recipe's width under a session bound of PROXY_RUN_HOURS,
+    the table, gate.json and the analysis) into
+    runs/torch_experiments/proxy, then its trainer's writer-free epochs.
+    Returns the `proxy_run` line."""
+    from pathlib import Path
+    from grappa_tpu_torch.experiments import espaloma_proxy as proxy
+    phase(f'the espaloma-proxy benchmark: 2,000 molecules, '
+          f'{PROXY_RUN_EPOCHS} epochs (session bound {PROXY_RUN_HOURS} h)')
+    out_dir = Path(ROOT) / proxy.OUT
+    t0 = time.perf_counter()
+    split = proxy.generate(workers=PROXY_WORKERS, cache_dir=out_dir / 'cache')
+    gen_s = time.perf_counter() - t0
+    print(f'generated {sum(map(len, split.values()))} molecules in '
+          f'{gen_s:.1f} s', flush=True)
+    with counted_runs(torch, proxy) as calls:
+        summary = proxy.train(epochs=PROXY_RUN_EPOCHS, out_dir=out_dir,
+                              time_limit=PROXY_RUN_HOURS)
+    call = calls[-1]
+    trainer = call['out']['trainer']
+    study_launch_check('proxy run', call, 7)
+    analysis = proxy.write_analysis(out_dir)
+    gate = json.loads((out_dir / 'gate.json').read_text())
+    rates, idle = recipe_writer_free(torch, trainer)
+    epoch_s = trainer.timings['epoch_s']
+    return {'card': smi, 'generate_s': gen_s,
+            'split': {k: len(v) for k, v in split.items()},
+            'epoch': summary['epoch'], 'epochs_target': PROXY_RUN_EPOCHS,
+            'session_bound_h': PROXY_RUN_HOURS, 'train_s': call['wall'],
+            'train_steps': trainer.global_step,
+            'steps_per_epoch': len(trainer.train_loader),
+            'epoch_s_median': float(np.median(epoch_s)),
+            'epoch_s_min_max': [min(epoch_s), max(epoch_s)],
+            'writer_free_steps_per_s': float(np.median(rates)),
+            'writer_free_steps_per_s_all': rates, 'epoch_idle_share': idle,
+            'peak_gib': round(call['peak'], 3),
+            'best_es_loss': summary['best_es_loss'], 'test': summary['test'],
+            'gate': {k: gate[k] for k in ('pass', 'target_pass')},
+            'verdict': analysis['verdict'],
+            'final_lr': analysis['final_lr']}
+
+
 def report_failures() -> int:
     """1 after naming each failed check on standard error (the tail a
     caller that keeps only the end of the output sees), else 0."""
@@ -6492,6 +7051,8 @@ def main() -> int:
     spread = sys.argv[1:] == ['--parallel-bf16', '--spread']
     parallel_bf16_only |= spread
     recipes_only = sys.argv[1:] == ['--recipes']
+    experiments_only = sys.argv[1:] == ['--experiments']
+    proxy_run_only = sys.argv[1:] == ['--proxy-run']
     sys.path.insert(0, ROOT)
     import torch
     if not torch.cuda.is_available():
@@ -6582,6 +7143,20 @@ def main() -> int:
         print('kernel_times ' + json.dumps(entries), flush=True)
         for line in lines.values():
             print('recipe ' + json.dumps(line), flush=True)
+        return report_failures()
+    if proxy_run_only:
+        line = proxy_run_phase(torch, smi)
+        print('proxy_run ' + json.dumps(line), flush=True)
+        return report_failures()
+    if experiments_only:
+        import atexit
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+        atexit.register(shutil.rmtree, work, True)
+        entries = {}
+        _, line = experiments_phase(torch, work, smi, entries)
+        print('kernel_times ' + json.dumps(entries), flush=True)
+        print('experiments ' + json.dumps(line), flush=True)
         return report_failures()
     if trainrun_only:
         data_dir, made, _, test_batches = trainrun_data(torch, work)
@@ -6756,6 +7331,10 @@ def main() -> int:
     recipe_launches, recipe_lines = recipe_phase(torch, work, smi, entries)
     for name, per_path in recipe_launches.items():
         launches.setdefault(name, {}).update(per_path)
+    study_launches, experiments_line = experiments_phase(
+        torch, work, smi, entries)
+    for name, per_path in study_launches.items():
+        launches.setdefault(name, {}).update(per_path)
 
     if FAILURES:
         return report_failures()
@@ -6773,6 +7352,12 @@ def main() -> int:
                               'fused_symmetriser.py:174'),
         'fused_symmetriser.backward': ('fused_symmetriser.cu',
                                        'fused_symmetriser.py:199'),
+        # K3 / K3b at the kernel's largest permutation table (P = 6: the
+        # wrong_symmetry arm's improper writer)
+        'fused_symmetriser.p6': ('fused_symmetriser.cu',
+                                 'fused_symmetriser.py:174'),
+        'fused_symmetriser.backward.p6': ('fused_symmetriser.cu',
+                                          'fused_symmetriser.py:199'),
         'torsion_energy_fused': ('torsion.cu', 'torsion_kernel.py:109'),
         # K5's backward: in the JAX package the vjp of _energy_jnp run as
         # one XLA program (_bwd), not a Pallas kernel
@@ -6799,7 +7384,9 @@ def main() -> int:
             name=name, route='cuda', source=csrc + source,
             replaces=tpu + replaces,
             status=('bf16 mode on wgmma (wg_gemm.cuh)'
-                    if name.endswith(('.bf16', '.bf16_bwd')) else 'ported'),
+                    if name.endswith(('.bf16', '.bf16_bwd')) else
+                    'ported; P = 6 on the wrong_symmetry arm\'s path'
+                    if name.endswith('.p6') else 'ported'),
             launches=sum(per_path.values()), launches_per_path=per_path,
             max_abs_err=e['max_abs_err'], ms=e['ms'],
             plain_ms=e['plain_ms'], bound_ms=b_ms, bound_by=b_by,
@@ -6825,6 +7412,7 @@ def main() -> int:
     print('parallel_bf16 ' + json.dumps(parallel_bf16_line))
     for line in recipe_lines.values():
         print('recipe ' + json.dumps(line))
+    print('experiments ' + json.dumps(experiments_line))
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

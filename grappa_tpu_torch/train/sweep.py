@@ -174,11 +174,9 @@ def run_sweep(base_config: Dict, spec: Dict[str, Tuple], n_trials: int,
     log_path = sweep_dir / 'trials.jsonl'
     rng = np.random.default_rng(seed)
 
-    done: Dict[int, Dict] = {}
-    if log_path.exists():
-        for line in log_path.read_text().splitlines():
-            rec = json.loads(line)
-            done[int(rec['trial'])] = rec
+    done: Dict[int, Dict] = ({int(rec['trial']): rec
+                              for rec in read_trials(log_path)}
+                             if log_path.exists() else {})
 
     history: List[Dict] = []
     best = {'trial': None, 'early_stopping_loss': float('inf')}
@@ -234,6 +232,18 @@ def run_sweep(base_config: Dict, spec: Dict[str, Tuple], n_trials: int,
     (sweep_dir / 'best.json').write_text(
         json.dumps(_json_safe(best), indent=1))
     return best
+
+
+def read_trials(path) -> List[Dict]:
+    """The records of a sweep's trials.jsonl. A non-finite early-stopping
+    loss (a trial that ended before its first QM epoch), which _json_safe
+    wrote as null, reads back as infinity."""
+    trials = [json.loads(line) for line in Path(path).read_text()
+              .splitlines()]
+    for rec in trials:
+        if rec.get('early_stopping_loss', 0.0) is None:
+            rec['early_stopping_loss'] = float('inf')
+    return trials
 
 
 def _json_safe(obj):
