@@ -18,6 +18,10 @@
     python3 chip_smoke.py --recipes        # phases 1 and 14 alone
     python3 chip_smoke.py --experiments    # phases 1 and 15 alone
     python3 chip_smoke.py --proxy-run      # phase 1 and the full proxy
+    python3 chip_smoke.py --wrappers       # phases 1 and 16 alone
+    python3 chip_smoke.py --drivers        # phases 1 and 17 alone
+    python3 chip_smoke.py --convergence-run  # phase 1 and the convergence
+                                             # check, float32 and bf16
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit, the torch / CUDA versions;
@@ -361,11 +365,48 @@ Phases, each printing its own lines:
      `experiments` line: each step's wall s, writer-free steps/s, peak
      memory, an epoch's idle share, the gate's reading, the launches, the
      cuts, the card's name and power limit.
+ 16. the MD-engine wrappers at the default width on seeded non-zero
+     weights, through the port's copies of the repo's test stand-ins for
+     openmm, openff.toolkit / rdkit and kimmdy (tests/torch_{openmm,
+     openff,kimmdy}_double.py, reached by putting tests/ on sys.path; the
+     card's machine has none of those engines): (a) OpenmmGrappa.
+     parametrize_system on a System + Topology of phase 11's protein-like
+     chain with its 30-atom ligand as a residue LIG bonded to the chain
+     (the wrapper parametrizes one connected molecule), classical
+     Harmonic / PeriodicTorsion forces, whole and with exclude_residues
+     {'LIG'}: 7 / 12 / 4 launches a call, every written bond / angle /
+     torsion entry card vs CPU at MODEL_RTOL / MODEL_ATOL (torsion cutoff
+     flips left out), LIG's entries unchanged when excluded, no classical
+     torsion left non-zero, and the double's bonded energy of the written
+     system at the molecule's coordinates against the port's
+     mm_energy(offset_torsion=True) on the card at the predicted
+     parameters within 3e-5 + 3e-4 |E|; the warm call's host ms (median
+     of WRAP_REPS) split into molecule_from_openmm, the forward (CUDA
+     events) and write_to_system; (b) molecule_from_smiles on five mapped
+     SMILES -> predict_many, 7 / 12 / 4, card vs CPU; (c) the Kimmdy
+     parameterizer on the chain with a radical, whole and with a focus,
+     card vs CPU, the rows outside the focus as they were; (d) cli dataset
+     from-pdb-npz on a capped ACE-HYP-NME peptide and a skipped HID entry,
+     with --no-params, a second run byte for byte the same. An `openmm`
+     line.
+ 17. the JAX package's last drivers: (a) experiments.benchmark at the
+     yaml's width on stand-ins under its ten tags, plain and with -o 2 -s
+     3 (the run names, the stored weights, 7 / 12 / 4 launches a forward
+     and a step, the weighted loader's per-tag draws over seeded epochs on
+     the card's loader and the CPU's, by the weights); (b) the rehearsal
+     at a quarter of each tag's molecules (the summary's keys, finite
+     losses, launches, K1-K3 / K1b-K3b at its train batch's shapes against
+     their plain versions under phases 2 / 4's rules); (c) the smoke and
+     (d) the convergence check (launches, the loss falls); (e) every
+     example once (openmm_wrapper needs a real openmm: phase 16 covers
+     its path), offline, launches by path. A `drivers` line: each call's
+     wall, writer-free steps/s, peak memory and launches, the cuts.
 
 The `trainrun {...}`, `trainrun_bf16 {...}`, `eval {...}`, `ingest
 {...}`, `gmx {...}`, phase 12's five lines, `parallel {...}`,
-`parallel_bf16 {...}`, the two `recipe {...}` lines and the
-`experiments {...}` line come before the last three lines, which are a
+`parallel_bf16 {...}`, the two `recipe {...}` lines, the
+`experiments {...}`, `openmm {...}` and `drivers {...}` lines come
+before the last three lines, which are a
 JSON object describing the kernels, the card's name and power limit, and
 {"ok": true, "device": {...}}. In the kernels'
 line, `launches` sums the main paths (the two predict paths and the ten
@@ -373,9 +414,12 @@ training steps, phase 8's training run and phase 9's eval and ingest
 paths, phase 11's gmx path, phase 12's sweep and plots, phase 13's
 steps and atom-sharded paths (`parallel`, the ranks' summed) and phase
 14's four recipe runs (`recipe_1.2.1`, `recipe_1.0`, `recipe_flags`,
-`recipe_pretrain`) and phase 15's study runs (`proxy`, `proxy_resume`,
-`ablation_<arm>`, `lc_<factor>`, `hpo_trial_<i>`) for K1-K3 and the
-sweep, phase 13, phase 14 and phase 15 for K1b-K3b; K3 / K3b at P = 6
+`recipe_pretrain`), phase 15's study runs (`proxy`, `proxy_resume`,
+`ablation_<arm>`, `lc_<factor>`, `hpo_trial_<i>`), phase 16's wrappers
+(`openmm`, `openff`, `kimmdy`) and phase 17's drivers and examples
+(`benchmark`, `benchmark_opt_scan`, `rehearsal`, `smoke`,
+`convergence`, `examples_<script>`) for K1-K3 and the sweep, phases 13,
+14, 15 and 17 for K1b-K3b; K3 / K3b at P = 6
 (`fused_symmetriser.p6`, `fused_symmetriser.backward.p6`) the
 wrong_symmetry arm's; phase 6's four paths and 13(f)'s
 sharded energy (`parallel_sharded_energy`) for K5 and K5b; 13(e)'s bf16
@@ -406,6 +450,12 @@ lines), `--experiments` phase 15 alone (a `kernel_times` line and the
 `experiments` line), `--proxy-run` the full espaloma-proxy benchmark
 (proxy_run_phase: 2,000 molecules, PROXY_RUN_EPOCHS epochs under a
 session bound, into runs/torch_experiments/proxy; a `proxy_run` line),
+`--wrappers` phase 16 alone (the `openmm` line), `--drivers` phase 17
+alone (a `kernel_times` line and the `drivers` line), `--convergence-run`
+experiments/smoke/tpu_convergence.py's round-2 experiment on the port
+(convergence_run_phase: 96 molecules x 16 conformers, batches of 16, lr
+5e-5, CONV_RUN_EPOCHS epochs in float32, then in bf16, into
+runs/torch_experiments/convergence; a `convergence_run` line),
 `--train-step` phase 5 and 10(c)(c) alone (the float32 and the bf16
 steps, with names a parent checkout shares, so that one copy of this
 script times the steps of both); `--gnn-calls` prints only the
@@ -616,7 +666,10 @@ RECIPE_DIRS = {'grappa-1.2.1': 'experiments/train-grappa-1.2.1',
 RECIPE_MOLS, RECIPE_CONFS, RECIPE_SPLIT_TAGS = 16, 8, 3
 RECIPE_EPOCHS, RECIPE_V10_EPOCHS = 4, 3
 RECIPE_PARAM_LOSS_EPOCHS, RECIPE_VAL_CONFS = 3, 16
-RECIPE_CPU_MOLS, RECIPE_CPU_CONFS, RECIPE_CPU_EPOCHS = 8, 4, 2
+# (one card-vs-CPU epoch: its two steps keep the first-loss and
+# later-loss checks, and the whole run's clock keeps room for phases 16
+# and 17)
+RECIPE_CPU_MOLS, RECIPE_CPU_CONFS, RECIPE_CPU_EPOCHS = 8, 4, 1
 # phase 15: the offline accuracy studies (grappa_tpu_torch.experiments) at
 # the benchmark recipe's width on a stand-in proxy, the first
 # 1 / PROXY_FRACTION of each SPECS seed block (every chemistry kept; its
@@ -636,6 +689,53 @@ PROXY_CPU_MOLS, PROXY_CPU_BATCH, PROXY_CPU_EPOCHS = 10, 8, 1
 # --proxy-run: the full proxy (2,000 molecules) at the driver's default
 # epochs, bounded to a session of PROXY_RUN_HOURS (it finalizes there)
 PROXY_RUN_EPOCHS, PROXY_RUN_HOURS = 150, 0.7
+# phase 16: the MD-engine wrappers through the port's copies of the doubles
+# (tests/torch_{openmm,openff,kimmdy}_double.py: test stand-ins for openmm,
+# openff.toolkit / rdkit and kimmdy, which the card's machine lacks). (a)
+# an OpenMM System and Topology of phase 11's protein-like chain and its
+# GMX_LIGAND_ATOMS-atom ligand, the ligand a residue LIG bonded to the chain
+# (OpenmmGrappa parametrizes one connected molecule), with classical
+# Harmonic / PeriodicTorsion parameters random_parameters(seed=
+# WRAP_PARAM_SEED) at embed_conformers(seed=WRAP_XYZ_SEED)'s coordinates;
+# the warm parametrize_system timed WRAP_REPS times; (b) the mapped SMILES
+# of tests/test_torch_port_openmm.py; (c) Kimmdy on the chain with a
+# radical at WRAP_RADICAL and a focus on WRAP_FOCUS; (d) cli dataset
+# from-pdb-npz on a capped ACE-HYP-NME peptide (WRAP_PDB_CONFS conformers)
+# and an ACE-HID-NME entry that --skip-residues HID skips
+WRAP_PARAM_SEED, WRAP_XYZ_SEED, WRAP_REPS = 3, 21, 5
+WRAP_RADICAL, WRAP_FOCUS, WRAP_PDB_CONFS = 100, '401', 2
+WRAP_SMILES = [
+    '[C:1]([H:4])([H:5])([H:6])[C:2]([H:7])([H:8])[O:3][H:9]',
+    '[C:1]([H:3])([H:4])([H:5])[O:2][H:6]',
+    '[C:1]1([H:6])([H:7])[C:2]([H:8])=[C:3]([H:9])[C:4]([H:10])='
+    '[C:5]1[H:11]',
+    '[C:1](=[O:2])([N:3]([H:5])[H:6])[H:4]',
+    '[c:1]1([H:7])[c:2]([H:8])[c:3]([H:9])[c:4]([H:10])[c:5]([H:11])'
+    '[c:6]1[H:12]']
+# phase 17: the JAX package's last drivers on the port. (a) the espaloma-
+# benchmark driver (experiments.benchmark) DRIVER_EPOCHS epochs on
+# stand-ins of DRIVER_MOLS x DRIVER_CONFS under every tag of the benchmark
+# yaml (val_conf_strategy 500 -> RECIPE_VAL_CONFS), plain and with -o 2 -s
+# 3, the weighted loader's draws over DRIVER_DRAW_EPOCHS seeded epochs; (b)
+# the rehearsal, REHEARSAL_EPOCHS epochs at REHEARSAL_FRACTION of each
+# tag's molecules (the third epoch is the recipe's first QM epoch, which
+# the summary reads); (c) the smoke and (d) the convergence check
+# SMOKE_EPOCHS epochs each, the latter on CONV_MOLS molecules; (e) each
+# example once, molecular_dynamics EXAMPLE_MD_STEPS steps, train_small
+# EXAMPLE_TRAIN_EPOCHS epochs, reproduce EXAMPLE_REPRODUCE_EPOCHS.
+# Learnable molecules are relaxed by the bucketed minimiser on the card
+# (GRAPPA_TPU_MINIMIZER=bucketed)
+DRIVER_EPOCHS, DRIVER_MOLS, DRIVER_CONFS, DRIVER_DRAW_EPOCHS = 2, 6, 8, 50
+REHEARSAL_EPOCHS, REHEARSAL_FRACTION = 3, 0.25
+SMOKE_EPOCHS, CONV_MOLS = 3, 32
+EXAMPLE_MD_STEPS, EXAMPLE_TRAIN_EPOCHS, EXAMPLE_REPRODUCE_EPOCHS = 200, 10, 3
+# --convergence-run: experiments/smoke/tpu_convergence.py's round-2 record's
+# settings, CONV_RUN_EPOCHS epochs a dtype, each under a session bound of
+# CONV_RUN_HOURS (the Trainer finalizes there)
+CONV_RUN_EPOCHS, CONV_RUN_HOURS = 1500, 0.42
+# block_profile's K3 / K3b at P = 6: the improper T of phase 15's train
+# batch (PERF.md's K3 P = 6 row)
+P6_PROFILE_T = 2152
 
 FAILURES = []
 
@@ -801,7 +901,9 @@ def block_profile(torch, batch, iters=3):
     n4 training shape (S=4, T=8256, F=hid=512, 8 heads, dropout 0.5), K1
     and K1b at the training batch's nodes and neighbour list (F=512, 16
     heads, dropout 0.3), K3 and K3b at the n4 training shape (2
-    permutations, 3 x 256, out 12); K2 / K2b, K1 / K1b and K3 / K3b also
+    permutations, 3 x 256, out 12) and at the 6-permutation improper set
+    (K3.p6, K3b.p6: S=4, T=P6_PROFILE_T, out 6); K2 / K2b, K1 / K1b and
+    K3 / K3b also
     in bf16 mode at their shapes (K2.bf16, K2b.bf16, K1.bf16, K1b.bf16,
     K3.bf16, K3b.bf16: the split between wg_gemm.cuh's products and the
     LayerNorm, attention, permuted-row, cast and column-sum passes).
@@ -855,8 +957,23 @@ def block_profile(torch, batch, iters=3):
         a, [q[6 * j:6 * j + 6] for j in range(3)], perms,
         mm_dtype=torch.bfloat16)
 
+    # K3 / K3b at the 6-permutation improper set (the wrong_symmetry arm's
+    # improper writer) at phase 15's train batch's improper T
+    from grappa_tpu_torch.models.heads import WRONG_SYMMETRY_IMPROPER
+    t6, out6 = P6_PROFILE_T, 6
+    x6 = torch.randn((4, t6, f), generator=gen).cuda()
+    layers6 = [rand_params(torch, gen, [
+        ((a,), 'g'), ((a,), 'b'), ((h, a), 'w'), ((h,), 'b'),
+        ((o, h), 'w'), ((o,), 'b')]) for a, h, o in (
+            (4 * f, width, width), (width, width, width),
+            (width, width, out6))]
+    flat6 = [q for layer in layers6 for q in layer]
+    k3p6 = lambda a, *q: fs.fused_symmetriser(
+        a, [q[6 * j:6 * j + 6] for j in range(3)], WRONG_SYMMETRY_IMPROPER)
+
     dy2 = torch.randn_like(x)
     dy3 = torch.randn((t, out), device='cuda')
+    dy6 = torch.randn((t6, out6), device='cuda')
     dy1 = torch.randn_like(feat)
     calls = {'K2': lambda: k2(x, *p2),
              'K2b': backward_of(k2, [x, *p2], dy2),
@@ -869,10 +986,14 @@ def block_profile(torch, batch, iters=3):
              'K3': lambda: k3(x, *flat),
              'K3b': backward_of(k3, [x, *flat], dy3),
              'K3.bf16': lambda: k3h(x, *flat),
-             'K3b.bf16': backward_of(k3h, [x, *flat], dy3)}
+             'K3b.bf16': backward_of(k3h, [x, *flat], dy3),
+             'K3.p6': lambda: k3p6(x6, *flat6),
+             'K3b.p6': backward_of(k3p6, [x6, *flat6], dy6)}
     out_line = {'n4': [s, t, f, hid], 'n4_dropout': rate, 'gnn_nodes': n,
                 'gnn_slots': d, 'gnn_dropout': 0.3,
-                'symmetriser': [len(perms), width, out]}
+                'symmetriser': [len(perms), width, out],
+                'symmetriser_p6': [len(WRONG_SYMMETRY_IMPROPER), t6, width,
+                                   out6]}
     for label, fn in calls.items():
         events = device_events(torch, fn, iters)
         if not events or len(events) % iters:
@@ -6596,12 +6717,13 @@ def counted_runs(torch, module, names=('do_trainrun', 'resume_trainrun')):
             setattr(module, name, fn)
 
 
-def study_launch_check(label, call, gnn_blocks, prior=(0, 0)):
+def study_launch_check(label, call, gnn_blocks, prior=(0, 0), heads=(12, 4)):
     """K1-K3 / K1b-K3b launched gnn_blocks / 12 / 4 times each forward of
     a do_trainrun / resume_trainrun call (each train step, each epoch's
     validation batches, each test molecule, one a batch, and
     do_trainrun's test_model forward) and each step's backward; prior:
-    the run's (steps, epochs) before the call. Returns (forwards,
+    the run's (steps, epochs) before the call; heads: K2's and K3's
+    launches a forward (the small config's 4 / 4). Returns (forwards,
     steps)."""
     from pathlib import Path
     from grappa_tpu_torch.train.config import read_yaml
@@ -6613,15 +6735,16 @@ def study_launch_check(label, call, gnn_blocks, prior=(0, 0)):
     smoke = int(call['kind'] == 'do_trainrun' and bool(
         read_yaml(run_dir / 'grappa_config.yaml').get('test_model')))
     forwards = steps + epochs * n_val + n_test + smoke
+    k2, k3 = heads
     want = {'fused_gnn_block': (gnn_blocks * forwards, gnn_blocks * steps),
-            'fused_transformer_block': (12 * forwards, 12 * steps),
-            'fused_symmetriser': (4 * forwards, 4 * steps)}
+            'fused_transformer_block': (k2 * forwards, k2 * steps),
+            'fused_symmetriser': (k3 * forwards, k3 * steps)}
     check(call['got'] == want and steps > 0,
           f'{label} launches (forward, backward) {call["got"]}: {steps} '
           f'train steps + {epochs} validations of {n_val} batch(es) + '
           f'{n_test} test batches + {smoke} test_model forward = '
-          f'{forwards} forwards, {steps} backwards (want {gnn_blocks} / 12'
-          f' / 4 each); {call["wall"]:.1f} s')
+          f'{forwards} forwards, {steps} backwards (want {gnn_blocks} / '
+          f'{k2} / {k3} each); {call["wall"]:.1f} s')
     losses = sum(trainer.train_losses[-epochs:], []) if epochs else []
     check(len(losses) == steps and bool(np.isfinite(losses).all()),
           f'{label} finite losses: '
@@ -7021,6 +7144,1079 @@ def proxy_run_phase(torch, smi):
             'final_lr': analysis['final_lr']}
 
 
+def port_doubles():
+    """The port's copies of the MD-engine doubles (tests/ on sys.path):
+    (openmm, openff, kimmdy)."""
+    tests = os.path.join(ROOT, 'tests')
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_kimmdy_double
+    import torch_openff_double
+    import torch_openmm_double
+    return torch_openmm_double, torch_openff_double, torch_kimmdy_double
+
+
+@contextlib.contextmanager
+def installed(*doubles):
+    for d in doubles:
+        d.install()
+    try:
+        yield
+    finally:
+        for d in doubles:
+            d.uninstall()
+
+
+def linked_molecule(Molecule, first, second):
+    """One molecule of `first` and `second` joined by a bond between the
+    lowest-degree heavy atom of each (atoms renumbered 0.., second's after
+    first's), and first's atom count."""
+    def anchor(m):
+        deg = np.bincount(np.asarray(m.bonds_by_index()).ravel(),
+                          minlength=len(m.atoms))
+        heavy = [i for i, z in enumerate(m.atomic_numbers) if int(z) > 1]
+        return min(heavy, key=lambda i: (deg[i], i))
+    n = len(first.atoms)
+    bonds = [tuple(int(x) for x in b) for b in first.bonds_by_index()]
+    bonds += [tuple(int(x) + n for x in b) for b in second.bonds_by_index()]
+    bonds.append((anchor(first), anchor(second) + n))
+    ids = {int(a): i for i, a in enumerate(first.atoms)}
+    ids2 = {int(a): i + n for i, a in enumerate(second.atoms)}
+    impropers = ([tuple(ids[int(x)] for x in t) for t in first.impropers]
+                 + [tuple(ids2[int(x)] for x in t)
+                    for t in second.impropers])
+    return Molecule(
+        atoms=list(range(n + len(second.atoms))), bonds=bonds,
+        impropers=impropers,
+        atomic_numbers=list(first.atomic_numbers)
+        + list(second.atomic_numbers),
+        partial_charges=list(first.partial_charges)
+        + list(second.partial_charges), charge_model='amber99'), n
+
+
+def omm_system(mol, params):
+    """A System (the installed openmm double's) with the molecule's
+    particles, a NonbondedForce with its charges and 1-2 / 1-3 exceptions,
+    and its classical bonds, angles and torsions (grappa units in,
+    tests/test_openmm_wrapper.py's build_system)."""
+    import openmm
+    import openmm.unit as u
+    from grappa_tpu_torch.constants import ATOMIC_MASSES
+    kcal, ang, rad = u.kilocalorie_per_mole, u.angstrom, u.radian
+    system = openmm.System()
+    nonbonded = openmm.NonbondedForce()
+    for z, q in zip(mol.atomic_numbers, mol.partial_charges):
+        system.addParticle(ATOMIC_MASSES.get(int(z), 12.0))
+        nonbonded.addParticle(float(q) * u.elementary_charge,
+                              0.3 * u.nanometer, 0.1 * u.kilojoule_per_mole)
+    idx = mol.tuple_indices()
+    for a, b in idx['n2']:
+        nonbonded.addException(int(a), int(b), 0.0, 0.1 * u.nanometer, 0.0)
+    for a, _, c in idx['n3']:
+        nonbonded.addException(int(a), int(c), 0.0, 0.1 * u.nanometer, 0.0)
+    system.addForce(nonbonded)
+    bond_force = openmm.HarmonicBondForce()
+    for i, (a, b) in enumerate(idx['n2']):
+        bond_force.addBond(int(a), int(b), float(params.bond_eq[i]) * ang,
+                           float(params.bond_k[i]) * kcal / ang ** 2)
+    system.addForce(bond_force)
+    angle_force = openmm.HarmonicAngleForce()
+    for i, (a, b, c) in enumerate(idx['n3']):
+        angle_force.addAngle(int(a), int(b), int(c),
+                             float(params.angle_eq[i]) * rad,
+                             float(params.angle_k[i]) * kcal / rad ** 2)
+    system.addForce(angle_force)
+    torsion_force = openmm.PeriodicTorsionForce()
+    for tuples, ks, phases in ((idx['n4'], params.proper_ks,
+                                params.proper_phases),
+                               (idx['n4_improper'], params.improper_ks,
+                                params.improper_phases)):
+        for i, t in enumerate(tuples):
+            for n in range(ks.shape[1]):
+                if np.isnan(ks[i, n]) or ks[i, n] == 0.0:
+                    continue
+                torsion_force.addTorsion(*(int(x) for x in t), n + 1,
+                                         float(phases[i, n]) * rad,
+                                         float(ks[i, n]) * kcal)
+    system.addForce(torsion_force)
+    return system
+
+
+def omm_topology(mol, n_first, per_residue=8):
+    """A Topology (the installed double's): the first n_first atoms in
+    residues PRT of `per_residue` atoms, the rest one residue LIG."""
+    from openmm.app import Element, Topology
+    top = Topology()
+    chain = top.addChain('A')
+    residues, atoms = {}, []
+    for i, z in enumerate(mol.atomic_numbers):
+        key = i // per_residue if i < n_first else 'LIG'
+        if key not in residues:
+            residues[key] = top.addResidue('LIG' if key == 'LIG' else 'PRT',
+                                           chain)
+        atoms.append(top.addAtom(f'X{i}', Element.getByAtomicNumber(int(z)),
+                                 residues[key]))
+    for a, b in mol.bonds_by_index():
+        top.addBond(atoms[int(a)], atoms[int(b)])
+    return top
+
+
+def omm_dump(system):
+    """{force name: [entry, ...]} of a System in grappa units (A, rad,
+    kcal/mol); the NonbondedForce's charges."""
+    import openmm
+    import openmm.unit as u
+    kcal, ang, rad = u.kilocalorie_per_mole, u.angstrom, u.radian
+    out = {}
+    for f in system.getForces():
+        if isinstance(f, openmm.HarmonicBondForce):
+            rows = [(a, b, eq.value_in_unit(ang),
+                     k.value_in_unit(kcal / ang ** 2))
+                    for a, b, eq, k in map(f.getBondParameters,
+                                           range(f.getNumBonds()))]
+        elif isinstance(f, openmm.HarmonicAngleForce):
+            rows = [(a, b, c, eq.value_in_unit(rad),
+                     k.value_in_unit(kcal / rad ** 2))
+                    for a, b, c, eq, k in map(f.getAngleParameters,
+                                              range(f.getNumAngles()))]
+        elif isinstance(f, openmm.PeriodicTorsionForce):
+            rows = [(a, b, c, d, n, ph.value_in_unit(rad),
+                     k.value_in_unit(kcal))
+                    for a, b, c, d, n, ph, k in map(
+                        f.getTorsionParameters, range(f.getNumTorsions()))]
+        elif isinstance(f, openmm.NonbondedForce):
+            rows = [(q.value_in_unit(u.elementary_charge),)
+                    for q, _, _ in map(f.getParticleParameters,
+                                       range(f.getNumParticles()))]
+        else:
+            rows = []
+        out[f.getName()] = rows
+    return out
+
+
+def omm_rows_agree(label, got, want):
+    """Two parametrized systems' entries: the atoms and periodicities
+    exactly, the values within MODEL_ATOL + MODEL_RTOL |y|; a grappa
+    torsion on one side only (the |k| cutoff) must sit at the cutoff, and
+    such flips stay under 1e-3 of the entries (compare_outputs' rule)."""
+    ok = list(got) == list(want)
+    worst, flips, n_rows = 0.0, 0, 0
+    for name in want:
+        g, w = got.get(name, []), want[name]
+        if name == 'grappa_torsions':
+            gd = {r[:5]: np.asarray(r[5:]) for r in g}
+            wd = {r[:5]: np.asarray(r[5:]) for r in w}
+            for key in gd.keys() & wd.keys():
+                err = np.abs(gd[key] - wd[key])
+                worst = max(worst, float(err.max()))
+                ok &= bool(np.all(err <= MODEL_ATOL + MODEL_RTOL
+                                  * np.abs(wd[key])))
+            lone = [d[key][1] for d, o in ((gd, wd), (wd, gd))
+                    for key in d.keys() - o.keys()]
+            flips += len(lone)
+            n_rows += len(wd)
+            ok &= all(k <= TORSION_CUTOFF + MODEL_ATOL for k in lone)
+            continue
+        ok &= len(g) == len(w)
+        for a, b in zip(g, w):
+            n_ids = {'HarmonicBondForce': 2,
+                     'HarmonicAngleForce': 3}.get(name)
+            if n_ids is None:
+                ok &= a == b
+                continue
+            ok &= a[:n_ids] == b[:n_ids]
+            err = np.abs(np.subtract(a[n_ids:], b[n_ids:]))
+            worst = max(worst, float(err.max()))
+            ok &= bool(np.all(err <= MODEL_ATOL + MODEL_RTOL
+                              * np.abs(b[n_ids:])))
+    ok &= flips <= 1e-3 * max(n_rows, 1)
+    check(ok, f'{label}: every written entry of {len(want)} forces '
+              f'({", ".join(f"{k} {len(v)}" for k, v in want.items())}); '
+              f'max_abs_err {worst:.3e} (tol {MODEL_ATOL} + {MODEL_RTOL}|y|)'
+              f', {flips} grappa torsion(s) on one side only (cutoff)')
+
+
+def kimmdy_view(top):
+    """{store: {key: values}} of a kimmdy (double) topology."""
+    out = {}
+    for store in ('bonds', 'angles'):
+        out[store] = {k: (v.funct, v.c0, v.c1)
+                      for k, v in getattr(top, store).items()}
+    for store in ('proper_dihedrals', 'improper_dihedrals'):
+        out[store] = {k: (v.funct, {n: (d.funct, d.c0, d.c1, d.periodicity)
+                                    for n, d in v.dihedrals.items()})
+                      for k, v in getattr(top, store).items()}
+    return out
+
+
+def kimmdy_agree(label, got, want):
+    """Card against CPU: the keys, functs and periodicities exactly, each
+    written value within (MODEL_ATOL x its unit factor + MODEL_RTOL |y| +
+    half a printed unit); torsion entries on opposite sides of the |k|
+    cutoff left out (tests/test_torch_port_openmm.py's rule)."""
+    from grappa_tpu_torch.wrappers.gromacs_wrapper import (
+        ANGLE_EQ_FACTOR, ANGLE_K_FACTOR, BOND_EQ_FACTOR, BOND_K_FACTOR,
+        TORSION_K_FACTOR, TORSION_PHASE_FACTOR)
+    state = {'ok': True, 'worst': 0.0, 'flips': 0}
+
+    def close(a, b, factor, decimals):
+        if a is None or b is None:
+            state['ok'] &= a == b
+            return
+        err = abs(float(a) - float(b))
+        state['worst'] = max(state['worst'], err / factor)
+        state['ok'] &= err <= (MODEL_ATOL * factor + MODEL_RTOL
+                               * abs(float(b)) + 0.5 * 10 ** -decimals)
+
+    for store, (f0, d0), (f1, d1) in (
+            ('bonds', (BOND_EQ_FACTOR, 6), (BOND_K_FACTOR, 4)),
+            ('angles', (ANGLE_EQ_FACTOR, 4), (ANGLE_K_FACTOR, 4))):
+        state['ok'] &= got[store].keys() == want[store].keys()
+        for key in got[store].keys() & want[store].keys():
+            (fa, c0, c1), (fb, w0, w1) = got[store][key], want[store][key]
+            state['ok'] &= fa == fb
+            close(c0, w0, f0, d0)
+            close(c1, w1, f1, d1)
+    for store in ('proper_dihedrals', 'improper_dihedrals'):
+        state['ok'] &= got[store].keys() == want[store].keys()
+        for key in got[store].keys() & want[store].keys():
+            (fa, dih), (fb, wdih) = got[store][key], want[store][key]
+            state['ok'] &= fa == fb and dih.keys() == wdih.keys()
+            for n in dih.keys() & wdih.keys():
+                f, c0, c1, per = dih[n]
+                wf, w0, w1, wper = wdih[n]
+                state['ok'] &= (f, per) == (wf, wper)
+                if c1 is not None and w1 is not None and (
+                        abs(float(c1)) / TORSION_K_FACTOR > TORSION_CUTOFF
+                ) != (abs(float(w1)) / TORSION_K_FACTOR > TORSION_CUTOFF):
+                    state['flips'] += 1
+                    continue
+                close(c0, w0, TORSION_PHASE_FACTOR, 4)
+                close(c1, w1, TORSION_K_FACTOR, 6)
+    n = sum(len(v) for v in want.values())
+    check(state['ok'] and state['flips'] <= 1e-3 * n + 1,
+          f'{label}: {n} entries, keys / functs / periodicities equal, '
+          f'values max_abs_err {state["worst"]:.3e} in grappa units (tol '
+          f'{MODEL_ATOL} x unit factor + {MODEL_RTOL}|y| + half a printed '
+          f'unit), {state["flips"]} torsion cutoff flip(s) left out')
+
+
+def pdb_line(serial, name, res, chain, seq, xyz, element):
+    pname = f' {name}' if len(name) < 4 else name
+    return (f'ATOM  {serial:5d} {pname:<4s} {res:<3s} {chain}{seq:4d}    '
+            f'{xyz[0]:8.3f}{xyz[1]:8.3f}{xyz[2]:8.3f}  1.00  0.00'
+            f'          {element:>2s}')
+
+
+def capped_hyp_pdb():
+    """ACE-HYP-NME with the reference residue atom naming, 27 atoms at
+    seeded coordinates."""
+    residues = [
+        ('ACE', ['HH31', 'CH3', 'HH32', 'HH33', 'C', 'O']),
+        ('HYP', ['N', 'CD2', 'HD21', 'HD22', 'CG', 'HG', 'OD1', 'HD1',
+                 'CB', 'HB1', 'HB2', 'CA', 'HA', 'C', 'O']),
+        ('NME', ['N', 'H', 'CH3', 'HH31', 'HH32', 'HH33'])]
+    lines, serial = [], 1
+    rng = np.random.default_rng(0)
+    for seq, (res, names) in enumerate(residues, start=1):
+        for name in names:
+            lines.append(pdb_line(serial, name, res, 'A', seq,
+                                  rng.uniform(0, 20, 3), name[0]))
+            serial += 1
+    return '\n'.join(lines) + '\nEND\n'
+
+
+def pdb_npz_source(root):
+    """The ACE-HYP-NME entry and an ACE-HID-NME one (skipped by residue)
+    as spice-style npz files under root/pdb_npz."""
+    from pathlib import Path
+    rng = np.random.default_rng(0)
+    src = Path(root) / 'pdb_npz'
+    src.mkdir(parents=True, exist_ok=True)
+    pdb = capped_hyp_pdb()
+    for name, seq in (('ACE-HYP-NME', 'ACE-HYP-NME'),
+                      ('skipme', 'ACE-HID-NME')):
+        np.savez(src / f'{name}.npz', **{
+            'n1 xyz': rng.uniform(0, 20, (27, WRAP_PDB_CONFS, 3)),
+            'n1 grad_qm': rng.normal(0, 1, (27, WRAP_PDB_CONFS, 3)),
+            'g u_qm': rng.normal(0, 1, (1, WRAP_PDB_CONFS)),
+            'pdb': np.asarray([line + '\n' for line in pdb.splitlines()]),
+            'sequence': seq})
+    return src
+
+
+def wrapper_counts(fn):
+    """fn() with K1-K3's counts zeroed just before and read just after:
+    (its output, {kernel: launches})."""
+    import torch
+    counters = recipe_counters()
+    for c in counters:
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {c.__name__: c.launches for c in counters}
+
+
+ONE_FORWARD = {'fused_gnn_block': 7, 'fused_transformer_block': 12,
+               'fused_symmetriser': 4}
+
+
+def omm_times(torch, ff, system, top, reps=WRAP_REPS):
+    """The warm parametrize_system on copies of `system`: host ms (median
+    of `reps`, each ending in a synchronize) split into
+    molecule_from_openmm, the forward (host; its device ms by CUDA events)
+    and write_to_system, the rest (get_subtopology, Parameters)."""
+    import copy
+    from grappa_tpu_torch.wrappers import openmm_wrapper as tomm
+    runs = []
+    for _ in range(reps + 1):
+        s = copy.deepcopy(system)
+        clock = StageClock(torch)
+        saved = tomm.molecule_from_openmm, tomm.write_to_system
+        tomm.molecule_from_openmm = clock.wrap('molecule_from_openmm',
+                                               saved[0])
+        tomm.write_to_system = clock.wrap('write_to_system', saved[1])
+        hooks = clock.hook(ff.model)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ff.parametrize_system(s, top, check_eq_values=False)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            tomm.molecule_from_openmm, tomm.write_to_system = saved
+            for h in hooks:
+                h.remove()
+        split = {k: v * 1e3 for k, v in clock.host.items()}
+        split['forward_device'] = clock.device_ms()
+        split['other'] = wall - sum(v for k, v in split.items()
+                                    if k != 'forward_device')
+        runs.append((wall, split))
+    runs = runs[1:]                       # the first is the warm-up
+    order = sorted(range(reps), key=lambda i: runs[i][0])
+    return runs[order[reps // 2]], [round(r[0], 3) for r in runs]
+
+
+def wrappers_phase(torch, cfg, work, smi):
+    """Phase 16. Returns the K1-K3 launches by path and the `openmm`
+    line."""
+    import copy
+    import io
+    from pathlib import Path
+    from grappa_tpu_torch import cli
+    from grappa_tpu_torch.data.graph_batch import MolGraph, collate
+    from grappa_tpu_torch.data.molecule import Molecule
+    from grappa_tpu_torch.data.moldata import MolData
+    from grappa_tpu_torch.data.synthetic import (embed_conformers,
+                                                 random_molecule,
+                                                 random_parameters)
+    from grappa_tpu_torch.models import mm_energy
+    from grappa_tpu_torch.models.grappa_model import make_model
+    from grappa_tpu_torch.wrappers import kimmdy_adapter as tkim
+    from grappa_tpu_torch.wrappers import openff_utils as toff
+    from grappa_tpu_torch.wrappers import openmm_wrapper as tomm
+
+    phase('16. the MD-engine wrappers (OpenMM, OpenFF, Kimmdy) and cli '
+          'dataset from-pdb-npz through the port\'s doubles, default config')
+    omm, off, kim = port_doubles()
+    print('doubles: ' + ', '.join(os.path.relpath(d.__file__, ROOT)
+                                  for d in (omm, off, kim))
+          + ' (test stand-ins for openmm, openff.toolkit / rdkit, kimmdy)',
+          flush=True)
+    state = serving_state(torch, make_model, cfg)
+    models = {}
+    for dev in ('cuda', 'cpu'):
+        m = make_model(cfg)
+        m.load_state_dict(state)
+        models[dev] = m
+    ff = tomm.OpenmmGrappa(models['cuda'], {'model_config': cfg})
+    ff_cpu = tomm.OpenmmGrappa(models['cpu'], {'model_config': cfg},
+                               device='cpu')
+    check(ff.device.type == 'cuda', f'OpenmmGrappa on {ff.device}')
+    launches = {name: {} for name in ONE_FORWARD}
+
+    def note(path, got):
+        for name, n in got.items():
+            launches[name][path] = launches[name].get(path, 0) + n
+
+    # (a) OpenMM: the chain with its ligand bonded to it
+    protein = protein_like_molecule(Molecule)
+    ligand = random_molecule(seed=GMX_LIGAND_SEED, n_atoms=GMX_LIGAND_ATOMS,
+                             charge_model='amber99')
+    mol, n_prot = linked_molecule(Molecule, protein, ligand)
+    params = random_parameters(mol, seed=WRAP_PARAM_SEED)
+    xyz = embed_conformers(mol, n_confs=1, seed=WRAP_XYZ_SEED)
+    with installed(omm):
+        import openmm
+        import openmm.unit as u
+        t0 = time.perf_counter()
+        system, top = omm_system(mol, params), omm_topology(mol, n_prot)
+        before = omm_dump(system)
+        print(f'(a) System + Topology of {len(mol.atoms)} atoms ({n_prot} '
+              f'in {sum(1 for _ in top.residues()) - 1} PRT residues, '
+              f'{len(mol.atoms) - n_prot} in LIG, bonded to the chain): '
+              + ', '.join(f'{k} {len(v)}' for k, v in before.items())
+              + f'; built in {time.perf_counter() - t0:.1f} s', flush=True)
+        written, predicted = {}, {}
+        for label, exclude in (('whole', None), ('LIG excluded', {'LIG'})):
+            for dev, f in (('card', ff), ('cpu', ff_cpu)):
+                s = copy.deepcopy(system)
+                keep = f.predict
+
+                def predict(molecule, check_eq_values=True, _keep=keep,
+                            _key=(label, dev)):
+                    out = _keep(molecule, check_eq_values=check_eq_values)
+                    predicted[_key] = (molecule, out)
+                    return out
+                f.predict = predict
+                try:
+                    t0 = time.perf_counter()
+                    _, got = wrapper_counts(lambda: f.parametrize_system(
+                        s, top, check_eq_values=False,
+                        exclude_residues=exclude))
+                    wall = time.perf_counter() - t0
+                finally:
+                    del f.predict
+                written[label, dev] = omm_dump(s)
+                if dev == 'card':
+                    note('openmm', got)
+                    check(got == ONE_FORWARD,
+                          f'(a) parametrize_system, {label}, on the card: '
+                          f'launches {got} (7 / 12 / 4) in {wall:.2f} s')
+                    if label == 'whole':
+                        whole = s
+                else:
+                    print(f'(a) {label} on the CPU: {wall:.2f} s',
+                          flush=True)
+            omm_rows_agree(f'(a) {label}, card vs CPU',
+                           written[label, 'card'], written[label, 'cpu'])
+            mol_card = predicted[label, 'card'][0]
+            check(len(mol_card.atoms) == (len(mol.atoms) if exclude is None
+                                          else n_prot),
+                  f'(a) {label}: the wrapper\'s molecule has '
+                  f'{len(mol_card.atoms)} atoms')
+
+        def lig_rows(dump, name):
+            arity = {'HarmonicBondForce': 2, 'HarmonicAngleForce': 3}[name]
+            return [r for r in dump[name] if max(r[:arity]) >= n_prot]
+        for name in ('HarmonicBondForce', 'HarmonicAngleForce'):
+            excl = written['LIG excluded', 'card']
+            check(lig_rows(excl, name) == lig_rows(before, name)
+                  and lig_rows(written['whole', 'card'], name)
+                  != lig_rows(before, name),
+                  f'(a) {name}: the {len(lig_rows(before, name))} entries '
+                  f'touching LIG unchanged with LIG excluded, rewritten in '
+                  f'the whole run')
+        old = [r for r in written['whole', 'card']['PeriodicTorsionForce']
+               if r[-1] != 0.0]
+        check(not old, f'(a) whole: {len(old)} classical torsion entries '
+                       f'left non-zero (every one covered by the prediction)')
+
+        # the double's bonded energy of the written system against the
+        # port's MM energy at the predicted parameters, on the card
+        bonded = tomm.remove_forces_from_system(copy.deepcopy(whole),
+                                                remove=('Nonbonded',))
+        ctx = openmm.Context(bonded, openmm.VerletIntegrator(
+            0.001 * u.picoseconds))
+        ctx.setPositions(xyz[0] * u.angstrom)
+        e_double = ctx.getState(getEnergy=True).getPotentialEnergy() \
+            .value_in_unit(u.kilocalorie_per_mole)
+        molecule, p = predicted['whole', 'card']
+        zeros = np.zeros((1,), np.float32)
+        md = MolData(molecule=molecule, xyz=xyz.astype(np.float32),
+                     energy=zeros, gradient=np.zeros_like(xyz),
+                     energy_ref=zeros, gradient_ref=np.zeros_like(xyz),
+                     mol_id='openmm', classical_parameters=p)
+        batch = collate([MolGraph.from_moldata(md)], n_confs=1,
+                        device='cuda')
+        e_port, _ = mm_energy.energy_and_gradient(
+            batch, ref_params(torch, batch), offset_torsion=True)
+        e_port = float(e_port[0, 0])
+        err = abs(e_port - e_double)
+        check(np.isfinite(e_port) and err <= MODEL_ATOL + MODEL_RTOL
+              * abs(e_double),
+              f'(a) bonded energy of the written system: the double '
+              f'{e_double:.6f}, the port\'s mm_energy on the card '
+              f'{e_port:.6f} kcal/mol (err {err:.3e}, tol {MODEL_ATOL} + '
+              f'{MODEL_RTOL}|E|)')
+        (wall, split), runs = omm_times(torch, ff, system, top)
+    print(f'(a) warm parametrize_system of {len(mol.atoms)} atoms: median '
+          f'{wall:.2f} ms (runs {runs}); split of the median run (ms) '
+          f'{json.dumps({k: round(v, 3) for k, v in split.items()})}',
+          flush=True)
+
+    # (b) OpenFF: mapped SMILES -> molecule_from_smiles -> predict
+    with installed(omm, off):
+        mols = [toff.molecule_from_smiles(smiles) for smiles in WRAP_SMILES]
+    card, got = wrapper_counts(lambda: ff.predict_many(
+        mols, check_eq_values=False))
+    note('openff', got)
+    check(got == ONE_FORWARD,
+          f'(b) {len(mols)} molecules from mapped SMILES '
+          f'({sum(len(m.atoms) for m in mols)} atoms), one predict_many: '
+          f'launches {got} (7 / 12 / 4)')
+    compare_outputs('(b) OpenFF molecules, card vs CPU,', stack(card),
+                    stack(ff_cpu.predict_many(mols, check_eq_values=False)))
+
+    # (c) Kimmdy: the chain with a radical, whole and with a focus
+    kimmdy = {}
+    with installed(kim):
+        fresh = kimmdy_view(kim.topology_from_molecule(
+            protein, radicals=[WRAP_RADICAL]))
+        for label, focus in (('whole', None), (f'focus {WRAP_FOCUS}',
+                                               {WRAP_FOCUS})):
+            for dev, f in (('card', ff), ('cpu', ff_cpu)):
+                t = kim.topology_from_molecule(protein,
+                                               radicals=[WRAP_RADICAL])
+                p = tkim.make_kimmdy_parameterizer(f)()
+                out, got = wrapper_counts(
+                    lambda: p.parameterize_topology(t, focus))
+                kimmdy[label, dev] = kimmdy_view(out)
+                if dev == 'card':
+                    note('kimmdy', got)
+                    check(out is t and got == ONE_FORWARD,
+                          f'(c) parameterize_topology, {label}: launches '
+                          f'{got} (7 / 12 / 4)')
+            kimmdy_agree(f'(c) {label}, card vs CPU', kimmdy[label, 'card'],
+                         kimmdy[label, 'cpu'])
+        focused = kimmdy[f'focus {WRAP_FOCUS}', 'card']['bonds']
+        rewritten = [k for k, v in focused.items() if v[1] is not None]
+        kept = {k: v for k, v in focused.items() if v[1] is None}
+        check(0 < len(rewritten) < len(focused)
+              and all(fresh['bonds'][k] == v for k, v in kept.items())
+              and all(v[1] is not None
+                      for v in kimmdy['whole', 'card']['bonds'].values()),
+              f'(c) focus {WRAP_FOCUS}: {len(rewritten)} of {len(focused)} '
+              f'bonds rewritten, the rest as they were; the whole run '
+              f'rewrote all {len(kimmdy["whole", "card"]["bonds"])}')
+
+    # (d) cli dataset from-pdb-npz (no model)
+    root = Path(work) / 'wrappers'
+    src = pdb_npz_source(root)
+
+    def from_pdb_npz(target, *flags):
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rc = cli.main(['dataset', 'from-pdb-npz', '-s', str(src), '-t',
+                           str(root / target), '--skip-residues', 'HID',
+                           *flags])
+        return rc, json.loads(buf.getvalue())
+
+    with installed(omm):
+        t0 = time.perf_counter()
+        runs_d = {name: from_pdb_npz(name, *flags) for name, flags in (
+            ('peptides', ()), ('no_params', ('--no-params',)),
+            ('again', ()))}
+        pdb_s = time.perf_counter() - t0
+    stats = {k: {f: v for f, v in line.items() if f != 'target'}
+             for k, (_, line) in runs_d.items()}
+    tree = lambda d: {str(q.relative_to(root / d)): q.read_bytes()
+                      for q in sorted((root / d).rglob('*')) if q.is_file()}
+    entry = MolData.load(root / 'peptides' / 'ACE-HYP-NME.npz')
+    bare = MolData.load(root / 'no_params' / 'ACE-HYP-NME.npz')
+    check(all(rc == 0 for rc, _ in runs_d.values())
+          and stats['peptides'] == {'total': 2, 'written': 1, 'skipped': 1,
+                                    'errors': 0, 'confs': WRAP_PDB_CONFS}
+          and stats['no_params'] == stats['peptides']
+          and tree('again') == tree('peptides')
+          and entry.sequence == 'ACE-HYP-NME'
+          and len(entry.molecule.bonds) == 27
+          and 'amber99sbildn' in entry.ff_energy
+          and not np.isnan(entry.classical_parameters.bond_k).any()
+          and np.isnan(bare.classical_parameters.bond_k).all(),
+          f'(d) cli dataset from-pdb-npz --skip-residues HID: {stats}; the '
+          f'HYP peptide typed by amber99sbildn* ({len(entry.molecule.bonds)}'
+          f' bonds, classical parameters finite; --no-params NaN); a second '
+          f'run byte for byte the same; {pdb_s:.1f} s for the three runs')
+    line = {'card': smi, 'atoms': len(mol.atoms), 'ligand_atoms':
+            len(ligand.atoms), 'parametrize_system_ms': round(wall, 3),
+            'runs_ms': runs,
+            'split_ms': {k: round(v, 3) for k, v in split.items()},
+            'atoms_per_s': len(mol.atoms) / (wall / 1e3),
+            'energy_double': e_double, 'energy_port': e_port,
+            'from_pdb_npz_s': round(pdb_s, 3), 'launches': launches}
+    return launches, line
+
+
+def per_forward(cfg):
+    """K1's, K2's and K3's launches a forward of a model of `cfg`: one K1
+    an attention block, one K2 a tuple-transformer layer, one K3 a term."""
+    terms = ('bond', 'angle', 'proper', 'improper')
+    return {'fused_gnn_block': cfg['gnn_attentional_layers'],
+            'fused_transformer_block': sum(cfg[f'{t}_transformer_depth']
+                                           for t in terms),
+            'fused_symmetriser': len(terms)}
+
+
+def writer_free_rates(trainer, epochs=3):
+    """steps/s of `epochs` writer-free train_epoch calls after a warm one
+    (host clock to the end of each epoch's loss fetch)."""
+    trainer.train_epoch()
+    rates = []
+    for _ in range(epochs):
+        steps, t0 = trainer.global_step, time.perf_counter()
+        trainer.train_epoch()
+        rates.append((trainer.global_step - steps)
+                     / (time.perf_counter() - t0))
+    return rates
+
+
+def loss_falls(label, trainer, start_qm):
+    """The mean train loss falls over a curriculum phase: the last QM
+    epoch's below the first's where the run has two QM epochs, else the
+    last parameter-loss epoch's below epoch 0's."""
+    losses = [float(np.mean(e)) for e in trainer.train_losses]
+    if len(losses) - start_qm >= 2:
+        first, last, what = start_qm, len(losses) - 1, 'QM'
+    else:
+        first, last, what = 0, min(start_qm, len(losses)) - 1, 'parameter'
+    check(last > first and losses[last] < losses[first]
+          and bool(np.isfinite(losses).all()),
+          f'{label}: the loss falls: mean train loss by epoch '
+          + ', '.join(f'{x:.6e}' for x in losses)
+          + f' (epoch {last} below epoch {first}, the {what} loss)')
+
+
+@contextlib.contextmanager
+def minimizer_on_card():
+    """Learnable molecules relaxed by the bucketed minimiser on the card
+    (make_dataset's GRAPPA_TPU_MINIMIZER switch)."""
+    saved = os.environ.get('GRAPPA_TPU_MINIMIZER')
+    os.environ['GRAPPA_TPU_MINIMIZER'] = 'bucketed'
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop('GRAPPA_TPU_MINIMIZER', None)
+        else:
+            os.environ['GRAPPA_TPU_MINIMIZER'] = saved
+
+
+def drivers_reduced():
+    """The `drivers` line's cuts."""
+    return [
+        f'benchmark: stand-ins of {DRIVER_MOLS} make_dataset molecules x '
+        f'{DRIVER_CONFS} conformers under each of the yaml\'s tags (random '
+        f'classical parameters), {DRIVER_EPOCHS} epochs, val_conf_strategy '
+        f'500 -> {RECIPE_VAL_CONFS}',
+        f'rehearsal: {REHEARSAL_EPOCHS} epochs, not 120, at '
+        f'{REHEARSAL_FRACTION} of each tag\'s molecules (--fraction)',
+        f'smoke and convergence: {SMOKE_EPOCHS} epochs each; convergence on'
+        f' {CONV_MOLS} molecules, not 96',
+        'learnable molecules relaxed by the bucketed minimiser on the card '
+        '(GRAPPA_TPU_MINIMIZER=bucketed), not the float64 one on the host',
+        f'examples: molecular_dynamics {EXAMPLE_MD_STEPS} steps, not 1000;'
+        f' train_small {EXAMPLE_TRAIN_EPOCHS} epochs, not 40; reproduce '
+        f'{EXAMPLE_REPRODUCE_EPOCHS}, not 10; evaluate without plots and '
+        f'gromacs_wrapper.sh without its -p command when matplotlib is '
+        f'absent (as on the card\'s machine)']
+
+
+def drivers_phase(torch, cfg, work, smi, entries):
+    """Phase 17. Returns the launches by path and the `drivers` line."""
+    import copy
+    import io
+    import shutil
+    from pathlib import Path
+    from grappa_tpu_torch import cli
+    from grappa_tpu_torch.data.dataset import Dataset
+    from grappa_tpu_torch.data.synthetic import make_dataset
+    from grappa_tpu_torch.experiments import (benchmark, convergence,
+                                              rehearsal, smoke)
+    from grappa_tpu_torch.models.grappa_model import (get_small_model_config,
+                                                      make_model)
+    from grappa_tpu_torch.train.export import build_model_dict, save_model_dict
+    from grappa_tpu_torch.train.run import get_dataloaders
+
+    phase('17. the JAX package\'s last drivers on the port: the espaloma-'
+          'benchmark driver and its rehearsal at the yaml\'s width, the '
+          'smoke, the convergence check, the examples')
+    root = Path(work) / 'drivers'
+    root.mkdir(parents=True, exist_ok=True)
+    launches, calls_out, line = {}, {}, {'card': smi}
+
+    def note(path, got):
+        for name, v in got.items():
+            nf, nb = v if isinstance(v, tuple) else (v, 0)
+            launches.setdefault(name, {})[path] = nf
+            if nb:
+                launches.setdefault(f'{name}.backward', {})[path] = nb
+
+    def reading(path, call, trainer=None):
+        calls_out[path] = {
+            'wall_s': round(call['wall'], 3),
+            'peak_gib': round(call['peak'], 3), 'launches': call['got']}
+        if trainer is not None:
+            calls_out[path].update(train_steps=trainer.global_step,
+                                   epochs=trainer.epoch)
+            rates = writer_free_rates(trainer)
+            calls_out[path].update(
+                writer_free_steps_per_s=float(np.median(rates)),
+                writer_free_steps_per_s_all=rates)
+        note(path, call['got'])
+
+    # (a) the benchmark driver on stand-ins under the yaml's tags
+    t0 = time.perf_counter()
+    base = benchmark.main([], dry_run=True)
+    dcfg = base['data_config']
+    tags = (dcfg['datasets'] + dcfg['pure_train_datasets']
+            + dcfg['pure_val_datasets'])
+    cache = root / 'cache'
+    for i, tag in enumerate(tags):
+        Dataset.from_moldata(make_dataset(
+            n_mols=DRIVER_MOLS, n_confs=DRIVER_CONFS, seed=600 + i,
+            atom_range=TRAINRUN_ATOMS), tag).save(cache / 'datasets' / tag)
+    print(f'(a) stand-ins under {len(tags)} tags in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    cuts = {'data_config': {'val_conf_strategy': RECIPE_VAL_CONFS},
+            'trainer_config': {'max_epochs': DRIVER_EPOCHS}}
+    with recipe_env(str(cache)):
+        for path, flags, name in (
+                ('benchmark', [], 'espaloma-benchmark'),
+                ('benchmark_opt_scan', ['-o', '2', '-s', '3'],
+                 'espaloma-benchmark_opt2_scan3')):
+            with counted_runs(torch, benchmark, ('do_trainrun',)) as calls:
+                out = benchmark.main(flags + ['--project', str(root / path)],
+                                     overrides=cuts)
+            call = calls[-1]
+            trainer = out['trainer']
+            stored = json.loads((Path(out['run_dir'])
+                                 / 'grappa_config.yaml').read_text())
+            weights = stored['data_config']['weights']
+            check(Path(out['run_dir']).name == name
+                  and trainer.epoch == DRIVER_EPOCHS
+                  and all(weights.get(t) == (2.0 if flags else None)
+                          for t in benchmark.OPT_DATASETS)
+                  and all(weights.get(t) == (3.0 if flags else None)
+                          for t in benchmark.SCAN_DATASETS),
+                  f'(a) benchmark {" ".join(flags) or "(no flags)"}: run '
+                  f'{Path(out["run_dir"]).name}, {trainer.epoch} epochs, '
+                  f'weights {weights}')
+            study_launch_check(f'(a) {path}', call, 7)
+            reading(path, call, trainer)
+            # the weighted loader's draws over seeded epochs: the card's
+            # loader and the CPU's draw the same, by the weights
+            loaders = {dev: get_dataloaders(copy.deepcopy(
+                stored['data_config']), device=dev)[0]
+                for dev in ('cuda', 'cpu')}
+            counts = {}
+            for dev, loader in loaders.items():
+                names = loader.dataset.ds_names
+                c = {}
+                for _ in range(DRIVER_DRAW_EPOCHS):
+                    for i in loader._epoch_order():
+                        c[names[i]] = c.get(names[i], 0) + 1
+                counts[dev] = c
+            loader = loaders['cuda']
+            names = np.asarray(loader.dataset.ds_names)
+            p = {t: float(loader._sample_weights[names == t].sum())
+                 for t in sorted(set(names))}
+            n_of = {t: int((names == t).sum()) for t in p}
+            w_of = {t: weights.get(t, 1.0) for t in p}
+            z = sum(w_of[t] * n_of[t] for t in p)
+            total = DRIVER_DRAW_EPOCHS * len(names)
+            exact = all(abs(p[t] - w_of[t] * n_of[t] / z) <= 1e-12
+                        for t in p)
+            within = all(abs(counts['cuda'].get(t, 0) - total * p[t])
+                         <= 4 * np.sqrt(total * p[t] * (1 - p[t])) + 1
+                         for t in p)
+            check(counts['cuda'] == counts['cpu'] and exact and within,
+                  f'(a) {path}: weighted draws over {DRIVER_DRAW_EPOCHS} '
+                  f'seeded epochs by tag {counts["cuda"]} (the CPU\'s '
+                  f'loader the same: {counts["cuda"] == counts["cpu"]}); '
+                  f'probabilities weight x molecules / sum exactly: {exact};'
+                  f' counts within 4 sigma of them: {within}')
+            line[f'{path}_draws'] = counts['cuda']
+            del out, trainer, loaders
+
+    # (b) the rehearsal, cut
+    cache_before = os.environ.get('GRAPPA_TPU_CACHE')
+    with minimizer_on_card():
+        with counted_runs(torch, rehearsal, ('do_trainrun',)) as calls:
+            t0 = time.perf_counter()
+            summary = rehearsal.main(
+                ['--epochs', str(REHEARSAL_EPOCHS), '--fraction',
+                 str(REHEARSAL_FRACTION), '--out', str(root / 'rehearsal')])
+            wall = time.perf_counter() - t0
+    call = calls[-1]
+    trainer = call['out']['trainer']
+    check(set(summary) == {'config', 'overrides', 'epochs_run',
+                           'first_qm_es_loss', 'best_es_loss', 'best_epoch',
+                           'best_val_metrics'}
+          and summary['epochs_run'] == REHEARSAL_EPOCHS
+          and summary['overrides']['fraction'] == REHEARSAL_FRACTION
+          and np.isfinite(summary['best_es_loss'])
+          and os.environ.get('GRAPPA_TPU_CACHE') == cache_before,
+          f'(b) rehearsal: {wall:.1f} s ({call["wall"]:.1f} s training, '
+          f'{len(trainer.train_loader.dataset)} train molecules); '
+          f'GRAPPA_TPU_CACHE as it was: '
+          f'{os.environ.get("GRAPPA_TPU_CACHE") == cache_before}; summary '
+          f'{json.dumps(summary)}')
+    study_launch_check('(b) rehearsal', call, 7)
+    batch = next(iter(trainer.train_loader))[0]
+    print('(b) rehearsal train batch, padded: N=%d, molecules %d, '
+          'conformers %d, T bonds / angles / propers / impropers = %s' % (
+              batch.xyz.shape[0], batch.num_mols, batch.xyz.shape[1],
+              ' / '.join(str(batch.terms[t].idxs.shape[0])
+                         for t in ('n2', 'n3', 'n4', 'n4_improper'))),
+          flush=True)
+    shapes = {'rehearsal train': batch}
+    for name, label, kernel, plain, flops, nbytes, on_path in kernel_cases(
+            torch, shapes):
+        if on_path:
+            compare_out(torch, entries, name, label, lambda: kernel(None),
+                        lambda: plain(None), flops=flops, nbytes=nbytes)
+    for c in training_cases(torch, shapes):
+        compare_grad(torch, entries, c['name'] + '.backward', c['label'],
+                     c['kernel'](None), c['plain'](None), c['inputs'],
+                     c['dy'], flops=c['bwd'][0], nbytes=c['bwd'][1])
+    reading('rehearsal', call, trainer)
+    calls_out['rehearsal']['with_generation_s'] = round(wall, 3)
+    line['rehearsal_summary'] = summary
+    del trainer, batch, shapes, call
+
+    # (c) the smoke, (d) the convergence check
+    small = get_small_model_config()
+    small_heads = tuple(per_forward(small)[k] for k in (
+        'fused_transformer_block', 'fused_symmetriser'))
+    with minimizer_on_card():
+        with counted_runs(torch, smoke, ('do_trainrun',)) as calls:
+            series = smoke.main(['--epochs', str(SMOKE_EPOCHS), '--out',
+                                 str(root)])
+        call = calls[-1]
+        trainer = call['out']['trainer']
+        study_launch_check('(c) smoke', call,
+                           small['gnn_attentional_layers'],
+                           heads=small_heads)
+        loss_falls('(c) smoke', trainer, 1)
+        print(f'(c) smoke: {json.dumps(series)}', flush=True)
+        reading('smoke', call, trainer)
+        with counted_runs(torch, convergence, ('do_trainrun',)) as calls:
+            t0 = time.perf_counter()
+            convergence.main(['--epochs', str(SMOKE_EPOCHS), '--n-mols',
+                              str(CONV_MOLS), '--out', str(root)])
+            wall = time.perf_counter() - t0
+        call = calls[-1]
+        trainer = call['out']['trainer']
+        check(Path(call['out']['run_dir']).name == 'tpu-convergence',
+              f'(d) convergence: run {Path(call["out"]["run_dir"]).name}, '
+              f'{wall:.1f} s with generation')
+        study_launch_check('(d) convergence', call, 7)
+        loss_falls('(d) convergence', trainer, 2)
+        reading('convergence', call, trainer)
+        del trainer, call
+
+        # (e) the examples, each once, offline
+        ex = root / 'examples'
+        ex.mkdir()
+        gromacs_cache = root / 'examples_cache'
+        state = serving_state(torch, make_model, cfg)
+        model = make_model(cfg)
+        model.load_state_dict(state)
+        save_model_dict(build_model_dict(model, {'model_config': cfg}),
+                        gromacs_cache / 'models' / 'grappa-1.2.pth')
+        del model
+        import importlib
+        examples = {}
+        small_fwd = per_forward(small)
+        with recipe_env(str(gromacs_cache)):
+            def run(path, argv, module_runs=None):
+                mod = importlib.import_module(
+                    f'grappa_tpu_torch.examples.{path}')
+                for c in recipe_counters():
+                    c.launches = c.bwd_launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if module_runs is None:
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        out = mod.main(argv)
+                    calls = []
+                else:
+                    with counted_runs(torch, mod, ('do_trainrun',)) as calls:
+                        with contextlib.redirect_stdout(io.StringIO()):
+                            out = mod.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = {c.__name__: (c.launches, c.bwd_launches)
+                       for c in recipe_counters()}
+                key = 'examples_' + path.split('.')[-1]
+                examples[key] = {'wall_s': round(wall, 3), 'launches': got}
+                note(key, got)
+                return out, got, calls
+
+            run('usage.molecule_creation', [])
+            ds, batch = run('usage.dataset', [])[0]
+            check(batch.xyz.device.type == 'cuda' and len(ds) == 32,
+                  f'(e) usage.dataset: {len(ds)} molecules, a batch on '
+                  f'{batch.xyz.device}')
+            # inspect_models exports a small model; interface finds the
+            # grappa-1.2 tag's stand-in (the default width) in the cache
+            for path, want, what in (
+                    ('usage.inspect_models', small_fwd, 'the small model'),
+                    ('wrapper_construction.interface', ONE_FORWARD,
+                     'the cached grappa-1.2 stand-in')):
+                out, got, _ = run(path, [])
+                check(got == {k: (v, 0) for k, v in want.items()}
+                      and np.isfinite(out.bond_k).all(),
+                      f'(e) {path}: one forward of {what}, launches {got} '
+                      f'({want})')
+            drift, scale = run('usage.molecular_dynamics',
+                               ['--steps', str(EXAMPLE_MD_STEPS)])[0]
+            check(np.isfinite(drift) and np.isfinite(scale),
+                  f'(e) usage.molecular_dynamics: NVE drift {drift:.4f} '
+                  f'kcal/mol (scale {scale:.4f})')
+            out, _, calls = run('training.train_small',
+                                ['--project', str(ex), '--epochs',
+                                 str(EXAMPLE_TRAIN_EPOCHS)], True)
+            study_launch_check('(e) training.train_small', calls[-1],
+                               small['gnn_attentional_layers'],
+                               heads=small_heads)
+            model_path = out['model_dict_path']
+            out, _, calls = run('reproduction.reproduce',
+                                [str(model_path), '--project', str(ex),
+                                 '--epochs', str(EXAMPLE_REPRODUCE_EPOCHS)],
+                                True)
+            study_launch_check('(e) reproduction.reproduce', calls[-1],
+                               small['gnn_attentional_layers'],
+                               heads=small_heads)
+            results, got, _ = run('evaluation.evaluate', [
+                str(model_path), '--out', str(ex / 'eval.json'),
+                '--plots', ''])
+            k = got['fused_symmetriser'][0] // 4
+            check(k > 0 and got == {n: (v * k, 0)
+                                    for n, v in small_fwd.items()}
+                  and np.isfinite(results['grappa_tpu']['heldout'][
+                      'rmse_energies']),
+                  f'(e) evaluation.evaluate: {k} forward(s), launches {got}'
+                  f'; energy RMSE '
+                  f'{results["grappa_tpu"]["heldout"]["rmse_energies"]:.4f}')
+            # usage/gromacs_wrapper.sh's commands, through the CLI in
+            # process, on phase 11's topology
+            top_path, _ = gmx_topology(ex)
+            shutil.copy(top_path, ex / 'topol.top')
+            script = (Path(ROOT) / 'grappa_tpu_torch' / 'examples' / 'usage'
+                      / 'gromacs_wrapper.sh').read_text()
+            commands = [c.split() for c in script.replace('\\\n', ' ')
+                        .splitlines() if c.startswith('python')]
+            try:
+                import matplotlib  # noqa: F401
+                plots = True
+            except ImportError:
+                plots = False
+            ran, here = [], os.getcwd()
+            os.chdir(ex)
+            try:
+                for argv in commands:
+                    if '-p' in argv and not plots:
+                        continue
+                    for c in recipe_counters():
+                        c.launches = 0
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        rc = cli.main(argv[3:])
+                    torch.cuda.synchronize()
+                    got = {c.__name__: c.launches for c in recipe_counters()}
+                    ran.append((argv[3:], rc, got))
+            finally:
+                os.chdir(here)
+            forwards = [got['fused_symmetriser'] // 4 for _, _, got in ran]
+            check(all(rc == 0 for _, rc, _ in ran) and len(ran) >= 2
+                  and all(got == {n: v * f for n, v in ONE_FORWARD.items()}
+                          and f > 0 for (_, _, got), f in zip(ran, forwards))
+                  and (ex / 'topol_grappa.top').exists()
+                  and (ex / 'topol_partial.top').exists(),
+                  f'(e) usage/gromacs_wrapper.sh: {len(ran)} of '
+                  f'{len(commands)} commands run (rc '
+                  f'{[rc for _, rc, _ in ran]}, forwards {forwards} of 7 / '
+                  f'12 / 4)' + ('' if plots else '; the -p command needs '
+                                'matplotlib, which this machine lacks'))
+            sh = {n: sum(got[n] for _, _, got in ran) for n in ONE_FORWARD}
+            examples['examples_gromacs_wrapper'] = {'launches': sh,
+                                                    'commands': len(ran)}
+            note('examples_gromacs_wrapper', sh)
+    line.update(calls=calls_out, examples=examples,
+                reduced=drivers_reduced())
+    return launches, line
+
+
+def convergence_run_phase(torch, smi):
+    """`--convergence-run`: experiments/smoke/tpu_convergence.py's
+    settings (96 molecules x 16 conformers, batches of 16, lr 5e-5, warmup
+    200) at the default width, CONV_RUN_EPOCHS epochs in float32, then in
+    bf16, each under a session bound of CONV_RUN_HOURS, into
+    runs/torch_experiments/convergence. Returns the `convergence_run`
+    line."""
+    from pathlib import Path
+    from grappa_tpu_torch.data import synthetic
+    from grappa_tpu_torch.experiments import convergence
+    phase(f'the convergence check at the default width: '
+          f'{CONV_RUN_EPOCHS} epochs in float32, then in bf16 (session '
+          f'bound {CONV_RUN_HOURS} h each)')
+    out_dir = Path(ROOT) / 'runs' / 'torch_experiments' / 'convergence'
+    made = {}
+    keep = synthetic.make_dataset
+
+    def once(**kwargs):
+        key = json.dumps(kwargs, sort_keys=True)
+        if key not in made:
+            t0 = time.perf_counter()
+            made[key] = keep(**kwargs)
+            print(f'{len(made[key])} learnable molecules made in '
+                  f'{time.perf_counter() - t0:.1f} s', flush=True)
+        return made[key]
+    convergence.make_dataset = once
+    runs = {}
+    try:
+        for dtype in ('float32', 'bfloat16'):
+            zero_counts(bf16_counters())
+            with counted_runs(torch, convergence, ('do_trainrun',)) as calls:
+                convergence.main(['--epochs', str(CONV_RUN_EPOCHS),
+                                  '--compute-dtype', dtype, '--scan-epochs',
+                                  '--time_limit', str(CONV_RUN_HOURS),
+                                  '--out', str(out_dir)])
+            call = calls[-1]
+            # (float32 forward, bf16 forward, float32 backward, bf16
+            # backward) launches: the run's own mode alone
+            counts = read_counts(bf16_counters())
+            bf16 = dtype == 'bfloat16'
+            check(all((c[0] == c[2] == 0) == bf16 and (c[1] == c[3] == 0)
+                      != bf16 for c in counts.values()),
+                  f'{dtype}: launches (float32, bf16 forward; float32, '
+                  f'bf16 backward) {counts}')
+            trainer = call['out']['trainer']
+            history = call['out']['results']['history']
+            rows = convergence.series(history)
+            qm = [(h, r) for h, r in zip(history, rows)
+                  if h['epoch'] >= 2 and h.get('early_stopping_loss')
+                  is not None]
+            best_h, best = min(qm, key=lambda x: x[0]['early_stopping_loss'])
+            epoch_s = trainer.timings['epoch_s']
+            avg = best_h['metrics'].get('avg', {})
+            runs[dtype] = {
+                'epochs': trainer.epoch, 'train_steps': trainer.global_step,
+                'best_epoch': best_h['epoch'],
+                'best_es_loss': best_h['early_stopping_loss'],
+                'best_val_e_rmse': avg.get('rmse_energies'),
+                # the component RMSE, per-vector RMSE / sqrt(3), as
+                # train.evaluator defines it and the record reports it
+                'best_val_f_crmse': avg['rmse_gradients'] / np.sqrt(3.0),
+                'best_val_f_rmse': avg['rmse_gradients'],
+                'last': rows[-1], 'first_qm_epoch': qm[0][1],
+                'epoch_s_median': float(np.median(epoch_s)),
+                'wall_s': call['wall'], 'peak_gib': round(call['peak'], 3),
+                'launches': counts}
+            print(f'{dtype}: ' + json.dumps(runs[dtype]), flush=True)
+    finally:
+        convergence.make_dataset = keep
+    # experiments/smoke/RESULTS.md's round-2 record, TPU v5e: accuracy only
+    tpu = {'float32': {'val_e_rmse': 0.700, 'val_f_crmse': 1.485},
+           'bfloat16': {'val_e_rmse': 0.903, 'val_f_crmse': 1.603}}
+    return {'card': smi, 'runs': runs,
+            'tpu_v5e_record_accuracy_only': tpu,
+            'settings': {'molecules': 96, 'conformers': 16, 'batch': 16,
+                         'lr': 5e-5, 'warmup_steps': 200,
+                         'epochs_target': CONV_RUN_EPOCHS,
+                         'session_bound_h': CONV_RUN_HOURS}}
+
+
 def report_failures() -> int:
     """1 after naming each failed check on standard error (the tail a
     caller that keeps only the end of the output sees), else 0."""
@@ -7053,6 +8249,9 @@ def main() -> int:
     recipes_only = sys.argv[1:] == ['--recipes']
     experiments_only = sys.argv[1:] == ['--experiments']
     proxy_run_only = sys.argv[1:] == ['--proxy-run']
+    wrappers_only = sys.argv[1:] == ['--wrappers']
+    drivers_only = sys.argv[1:] == ['--drivers']
+    convergence_only = sys.argv[1:] == ['--convergence-run']
     sys.path.insert(0, ROOT)
     import torch
     if not torch.cuda.is_available():
@@ -7157,6 +8356,33 @@ def main() -> int:
         _, line = experiments_phase(torch, work, smi, entries)
         print('kernel_times ' + json.dumps(entries), flush=True)
         print('experiments ' + json.dumps(line), flush=True)
+        return report_failures()
+    if wrappers_only:
+        import atexit
+        import shutil
+        from grappa_tpu_torch.models.grappa_model import (
+            get_default_model_config)
+        shutil.rmtree(work, ignore_errors=True)
+        atexit.register(shutil.rmtree, work, True)
+        _, line = wrappers_phase(torch, get_default_model_config(), work, smi)
+        print('openmm ' + json.dumps(line), flush=True)
+        return report_failures()
+    if drivers_only:
+        import atexit
+        import shutil
+        from grappa_tpu_torch.models.grappa_model import (
+            get_default_model_config)
+        shutil.rmtree(work, ignore_errors=True)
+        atexit.register(shutil.rmtree, work, True)
+        entries = {}
+        _, line = drivers_phase(torch, get_default_model_config(), work, smi,
+                                entries)
+        print('kernel_times ' + json.dumps(entries), flush=True)
+        print('drivers ' + json.dumps(line), flush=True)
+        return report_failures()
+    if convergence_only:
+        line = convergence_run_phase(torch, smi)
+        print('convergence_run ' + json.dumps(line), flush=True)
         return report_failures()
     if trainrun_only:
         data_dir, made, _, test_batches = trainrun_data(torch, work)
@@ -7335,6 +8561,13 @@ def main() -> int:
         torch, work, smi, entries)
     for name, per_path in study_launches.items():
         launches.setdefault(name, {}).update(per_path)
+    wrap_launches, openmm_line = wrappers_phase(torch, cfg, work, smi)
+    for name, per_path in wrap_launches.items():
+        launches.setdefault(name, {}).update(per_path)
+    driver_launches, drivers_line = drivers_phase(torch, cfg, work, smi,
+                                                  entries)
+    for name, per_path in driver_launches.items():
+        launches.setdefault(name, {}).update(per_path)
 
     if FAILURES:
         return report_failures()
@@ -7413,6 +8646,8 @@ def main() -> int:
     for line in recipe_lines.values():
         print('recipe ' + json.dumps(line))
     print('experiments ' + json.dumps(experiments_line))
+    print('openmm ' + json.dumps(openmm_line))
+    print('drivers ' + json.dumps(drivers_line))
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

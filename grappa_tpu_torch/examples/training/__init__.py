@@ -1,0 +1,1 @@
+"""Examples: see grappa_tpu_torch.examples."""

@@ -20,6 +20,7 @@ import torch
 
 import jax
 
+from torch_threads import one_torch_thread  # noqa: F401
 from grappa_tpu.data import MolGraph, collate
 from grappa_tpu.data.graph_batch import TERMS
 from grappa_tpu.data.synthetic import make_moldata

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from grappa_tpu.models.heads import TupleHead, PERMUTATIONS, POSITIONAL_ENCODINGS
 
 

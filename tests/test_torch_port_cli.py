@@ -20,6 +20,7 @@ import jax
 import numpy as np
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
 from grappa_tpu import cli as jcli
 from grappa_tpu.api import Grappa as JaxGrappa
 from grappa_tpu.data import MolGraph as JaxMolGraph

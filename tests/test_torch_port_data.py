@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from grappa_tpu.data import MolGraph as JaxMolGraph
 from grappa_tpu.data import collate as jax_collate
 from grappa_tpu.data.graph_batch import TERMS
@@ -101,7 +102,7 @@ def test_import_without_jax():
     lazy top-level names resolve without them, and an engine's entry point
     raises a clear ImportError. grappa_tpu_torch.parallel holds every
     public function of the JAX package's parallel.dp and parallel.sp under
-    its name."""
+    its name. The port's copies of the MD-engine doubles import too."""
     modules = sorted(
         '.'.join(p.relative_to(ROOT).with_suffix('').parts)
         .replace('.__init__', '')
@@ -113,6 +114,10 @@ def test_import_without_jax():
             "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n"
+            "sys.path.insert(0, 'tests')\n"
+            "for m in ('torch_openmm_double', 'torch_openff_double',\n"
+            "          'torch_kimmdy_double'):\n"
             "    importlib.import_module(m)\n"
             "import grappa_tpu_torch as g\n"
             "from grappa_tpu_torch.wrappers import GromacsGrappa\n"
@@ -153,9 +158,14 @@ def _imported_roots(path):
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     files = sorted((ROOT / 'grappa_tpu_torch').rglob('*.py'))
     files += [ROOT / 'chip_smoke.py', ROOT / 'sass_compare.py']
+    # the port's copies of the MD-engine doubles, which chip_smoke.py
+    # installs on the card's machine
+    files += [ROOT / 'tests' / f'torch_{engine}_double.py'
+              for engine in ('openmm', 'openff', 'kimmdy')]
     assert len(files) > 20
-    # the training run's, the evaluation's, the command line's and the
-    # data tools' and sweep's modules are among them
+    # the training run's, the evaluation's, the command line's, the data
+    # tools' and sweep's modules, the drivers and the examples are among
+    # them
     port = ROOT / 'grappa_tpu_torch'
     for name in ('native.py', 'zoo.py', 'data/dataset.py', 'data/loader.py',
                  'train/config.py', 'train/logging.py', 'train/trainer.py',
@@ -163,8 +173,14 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
                  'cli.py', 'published.py', 'train/report.py',
                  'train/torch_compat.py', 'espaloma_split.py',
                  'data/dataset_creation.py', 'data/espaloma_pipeline.py',
-                 'train/sweep.py'):
+                 'train/sweep.py', 'experiments/benchmark.py',
+                 'experiments/rehearsal.py', 'experiments/smoke.py',
+                 'experiments/convergence.py',
+                 'examples/usage/openmm_wrapper.py',
+                 'examples/training/train_small.py'):
         assert port / name in files, name
+    for path in files:
+        assert path.exists(), path
     banned = {'jax', 'jaxlib', 'flax', 'optax', 'grappa_tpu'}
     for path in files:
         assert not _imported_roots(path) & banned, path

@@ -12,6 +12,7 @@ import threading
 import numpy as np
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
 from grappa_tpu import native as jax_native
 from grappa_tpu.data.dataset import Dataset as JaxDataset
 from grappa_tpu.data.dataset import calc_split_ids as jax_calc_split_ids

@@ -29,6 +29,7 @@ import openmm_double
 from test_espaloma_format import golden_record
 from test_openmm_wrapper import _capped_hyp_pdb
 
+from torch_threads import one_torch_thread  # noqa: F401
 from grappa_tpu import cli as jcli
 from grappa_tpu import espaloma_split as jsplit
 from grappa_tpu.data import dataset_creation as jdc

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from grappa_tpu.data import MolGraph as JaxMolGraph
 from grappa_tpu.data import collate as jax_collate
 from grappa_tpu.data.graph_batch import TERMS

@@ -32,6 +32,7 @@ from espaloma_proxy import run as jax_proxy  # noqa: E402
 from espaloma_proxy_xl import run_xl as jax_xl  # noqa: E402
 from hpo import run_hpo as jax_hpo  # noqa: E402
 
+from torch_threads import one_torch_thread  # noqa: F401
 from grappa_tpu.data import MolGraph as JaxMolGraph  # noqa: E402
 from grappa_tpu.data import collate as jax_collate  # noqa: E402
 from grappa_tpu.data.dataset import Dataset as JaxDataset  # noqa: E402

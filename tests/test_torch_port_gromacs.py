@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from grappa_tpu import cli as jcli
 from grappa_tpu import plotting as jplot
 from grappa_tpu.data import MolGraph as JaxMolGraph

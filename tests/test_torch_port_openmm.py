@@ -28,6 +28,7 @@ import openmm_double
 from test_openmm_wrapper import (_capped_hyp_pdb, build_system,
                                  build_topology, improper_sets)
 
+from torch_threads import one_torch_thread  # noqa: F401
 from grappa_tpu.data import MolGraph as JaxMolGraph
 from grappa_tpu.data import collate as jax_collate
 from grappa_tpu.data import moldata as jmoldata

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from grappa_tpu.models.heads import (PERMUTATIONS, WRONG_SYMMETRY_IMPROPER,
                                      Symmetriser)
 from grappa_tpu.ops import fused_block as fb

@@ -28,6 +28,7 @@ EXP = REPO / 'experiments'
 sys.path.insert(0, str(EXP))
 from production_driver import run_production as jax_run_production  # noqa
 
+from torch_threads import one_torch_thread  # noqa: F401
 from grappa_tpu import zoo as jzoo  # noqa: E402
 from grappa_tpu.train import run as jrun  # noqa: E402
 from grappa_tpu.train.trainer import Trainer as JaxTrainer  # noqa: E402

@@ -18,6 +18,7 @@ import math
 import numpy as np
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
 from grappa_tpu.train import run as jrun
 from grappa_tpu.train import sweep as jsweep
 from grappa_tpu_torch.data.dataset import Dataset

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from grappa_tpu.ops import torsion_kernel as jtk
 from grappa_tpu_torch.ops import torsion_kernel as tk
 
